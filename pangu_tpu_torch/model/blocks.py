@@ -1,0 +1,153 @@
+"""Transformer blocks and resolution changers (port of
+``pangu_tpu/model/blocks.py``).
+
+Blocks work on the window-padded grid (B, Z, Hp, W, C) in the compute dtype.
+In inference with bf16 compute and ``use_kernel`` set (from
+``ModelConfig.use_pallas_attention``), a block is ONE call of
+``ops.fused_block_attention.fused_earth_block``: the CUDA kernel on the card,
+its plain version on the CPU. Otherwise (f32, or autograd on) it runs the
+unfused plain composition ``x + LN1(attn(x))`` then ``+ LN2(MLP(.))``, the
+JAX package's XLA path.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pangu_tpu.geometry import StageGeometry
+from pangu_tpu_torch.model.attention import EarthAttention3D, shift_attention_mask
+from pangu_tpu_torch.ops.fused_block_attention import dense, fused_earth_block, layer_norm_f32
+
+
+def apply_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """f32-statistics LayerNorm (E[x^2] - mu^2, eps 1e-5), result in x.dtype."""
+    return layer_norm_f32(x.float(), scale.float(), bias.float()).to(x.dtype)
+
+
+class Mlp(nn.Module):
+    """Linear(4x) -> exact GELU -> Linear; returns the raw MLP output."""
+
+    def __init__(self, dim: int, ratio: int = 4):
+        super().__init__()
+        self.linear1 = nn.Linear(dim, dim * ratio)
+        self.linear2 = nn.Linear(dim * ratio, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(dense(x, self.linear1.weight, self.linear1.bias))
+        return dense(h, self.linear2.weight, self.linear2.bias)
+
+
+class EarthSpecificBlock(nn.Module):
+    """One (optionally shifted) 3D window-attention block with post-norm
+    residuals. Pad rows are re-zeroed at entry (the reference's crop and
+    re-pad between blocks)."""
+
+    def __init__(self, stage: StageGeometry, dim: int, heads: int, shifted: bool,
+                 mlp_ratio: int = 4, use_kernel: bool = False):
+        super().__init__()
+        self.stage, self.dim, self.heads = stage, dim, heads
+        self.shifted, self.use_kernel = shifted, use_kernel
+        self.norm1 = nn.LayerNorm(dim)
+        self.norm2 = nn.LayerNorm(dim)
+        self.linear = Mlp(dim, mlp_ratio)
+        self.attention = EarthAttention3D(dim, heads, stage)
+        mask = torch.from_numpy(shift_attention_mask(stage)) if shifted else None
+        self.register_buffer("attn_mask", mask, persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        st = self.stage
+        wz, wh, ww = st.window
+        assert tuple(x.shape[1:4]) == (st.z, st.h_pad, st.w), (x.shape, st)
+        if st.h_pad != st.h:
+            x = F.pad(x[:, :, :st.h], (0, 0, 0, 0, 0, st.h_pad - st.h))
+        shortcut = x
+        if self.shifted:
+            x = torch.roll(x, shifts=(-(wz // 2), -(wh // 2), -(ww // 2)), dims=(1, 2, 3))
+
+        if self.use_kernel and x.dtype == torch.bfloat16 and not torch.is_grad_enabled():
+            cdt = x.dtype
+            attn, mlp = self.attention, self.linear
+            x = fused_earth_block(
+                x,
+                attn.linear1.weight.to(cdt), attn.linear1.bias.to(cdt),
+                attn.linear2.weight.to(cdt), attn.linear2.bias.to(cdt),
+                attn.earth_specific_bias[0].float(), self.attn_mask,
+                self.norm1.weight.float(), self.norm1.bias.float(),
+                mlp.linear1.weight.to(cdt), mlp.linear1.bias.to(cdt),
+                mlp.linear2.weight.to(cdt), mlp.linear2.bias.to(cdt),
+                self.norm2.weight.float(), self.norm2.bias.float(),
+                st.window, self.heads, (self.dim // self.heads) ** -0.5,
+            )
+            if self.shifted:
+                x = torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
+            return x
+
+        x = self.attention(x, self.attn_mask)
+        if self.shifted:
+            x = torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
+        x = shortcut + apply_layer_norm(x, self.norm1.weight, self.norm1.bias)
+        return x + apply_layer_norm(self.linear(x), self.norm2.weight, self.norm2.bias)
+
+
+class EarthSpecificLayer(nn.Module):
+    """A stack of blocks alternating unshifted/shifted windows. Latitude is
+    window-padded once for the whole stack and cropped at the end."""
+
+    def __init__(self, stage: StageGeometry, depth: int, dim: int, heads: int,
+                 mlp_ratio: int = 4, use_kernel: bool = False):
+        super().__init__()
+        self.stage = stage
+        self.blocks = nn.ModuleDict({
+            f"EarthSpecificBlock{i}": EarthSpecificBlock(
+                stage, dim, heads, shifted=bool(i % 2), mlp_ratio=mlp_ratio,
+                use_kernel=use_kernel)
+            for i in range(depth)
+        })
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        st = self.stage
+        assert tuple(x.shape[1:4]) == (st.z, st.h, st.w), (x.shape, st)
+        x = F.pad(x, (0, 0, 0, 0, 0, st.h_pad - st.h))
+        for block in self.blocks.values():
+            x = block(x)
+        return x[:, :, :st.h]
+
+
+class DownSample(nn.Module):
+    """2x2 lat/lon space-to-depth + LayerNorm + Linear(4C -> 2C, no bias);
+    merged feature order (lat-offset, lon-offset, C)."""
+
+    def __init__(self, dim: int, h_pad: int):
+        super().__init__()
+        self.h_pad = h_pad
+        self.norm = nn.LayerNorm(4 * dim)
+        self.linear = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, z, h, w, c = x.shape
+        x = F.pad(x, (0, 0, 0, 0, 0, self.h_pad))
+        hp = h + self.h_pad
+        x = x.reshape(b, z, hp // 2, 2, w // 2, 2, c).permute(0, 1, 2, 4, 3, 5, 6)
+        x = x.reshape(b, z, hp // 2, w // 2, 4 * c)
+        return dense(apply_layer_norm(x, self.norm.weight, self.norm.bias), self.linear.weight)
+
+
+class UpSample(nn.Module):
+    """Linear(C_in -> 4 C_out, no bias) + 2x2 depth-to-space + lat crop +
+    LayerNorm + mixing Linear (no bias)."""
+
+    def __init__(self, in_dim: int, out_dim: int, h_out: int):
+        super().__init__()
+        self.out_dim, self.h_out = out_dim, h_out
+        self.linear1 = nn.Linear(in_dim, 4 * out_dim, bias=False)
+        self.norm = nn.LayerNorm(out_dim)
+        self.linear2 = nn.Linear(out_dim, out_dim, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, z, h2, w2, _ = x.shape
+        x = dense(x, self.linear1.weight)
+        x = x.reshape(b, z, h2, w2, 2, 2, self.out_dim).permute(0, 1, 2, 4, 3, 5, 6)
+        x = x.reshape(b, z, 2 * h2, 2 * w2, self.out_dim)[:, :, :self.h_out]
+        return dense(apply_layer_norm(x, self.norm.weight, self.norm.bias), self.linear2.weight)
