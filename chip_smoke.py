@@ -1,34 +1,56 @@
-"""Smoke run of the PyTorch port on one CUDA card: build, kernel check, and
-the 24 h forecast step at full geometry.
+"""Smoke run of the PyTorch port on one CUDA card: build, kernel checks, the
+24 h forecast step and the train step at full geometry.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the last line is printed):
 
 1. the card's name and power limit (nvidia-smi); a CUDA card is required;
-2. build the CUDA sources of pangu_tpu_torch/csrc/ with nvcc (build/kernels/);
-3. the block kernel against its plain PyTorch version, bf16, at both
+2. build the CUDA sources of pangu_tpu_torch/csrc/ with nvcc (build/kernels/),
+   one nvcc per source, all at once;
+3. the block kernel K1 against its plain PyTorch version, bf16, at both
    flagship stage shapes, unshifted and shifted (with the real shift mask);
    max|d| / max(1, max|ref|) < 0.04 and RMS(d) / RMS(ref) < 0.01; per-call
    times from CUDA events (median of 12);
-4. the slice: flagship ``pangu_pretrain(24)`` in bf16 with seeded synthetic
-   weights and aux constants, 3 autoregressive forecast steps through
-   ``make_forecast_step`` (exactly 16 kernel launches per step), output
-   shapes and finiteness, one step against the plain bf16 composition and
-   the f32 step on the same weights and inputs (max|d| < 0.1, RMS(d) < 0.01
-   in normalized units), median step times and peak memory.
+4. the forecast slice: flagship ``pangu_pretrain(24)`` in bf16 with seeded
+   synthetic weights and aux constants, 3 autoregressive forecast steps
+   through ``make_forecast_step`` (exactly 16 kernel launches per step),
+   output shapes and finiteness, one step against the plain bf16
+   composition and the f32 step on the same weights and inputs (max|d| <
+   0.1, RMS(d) < 0.01 in normalized units), median step times and peak
+   memory;
+5. the training attention K2 and its flash backward K3 against their plain
+   versions at both stage shapes, unshifted and shifted: the forward output
+   and all six gradients under the bounds of phase 3; per-call times;
+6. the post-norm residual K4 and its backward K5 against their plain
+   versions at both stage row counts with a branch scale, same bounds;
+7. the MLP tail K6 and its backward K7 against their plain versions at both
+   stage row counts with a branch scale: the output and all eight gradients,
+   same bounds;
+8. the train slice: 1 warm-up and 3 timed flagship train steps through
+   ``make_train_step`` (bf16, remat, drop path 0.2 from a seeded generator,
+   Adam): exactly 32 / 16 launches of each forward / backward kernel (K2 /
+   K3, K4 / K5, K6 / K7) per step, finite loss and gradients, changed
+   parameters, median step time, peak memory and train TFLOP/s; then one
+   step each of the plain bf16 composition and the f32 model from the same
+   weights, batch and drop-path draws as the warm-up step: against the plain
+   bf16 step the loss within 1%, the gradient's global relative L2 < 1%,
+   each earth-specific bias's relative L2 < 10% and every other parameter's
+   < 2% (the f32 figures are reported only).
 
-A ``detail:`` line holds the per-shape kernel results and the slice's
+A ``detail:`` line holds the per-shape kernel results and the slices'
 numbers as JSON. The second-to-last line is a JSON object with one entry per
-kernel (``launches`` counted over the forecast steps only; ``ms`` and
-``plain_ms`` the mean per launch over one step's mix of 2 + 2 outer and
-6 + 6 inner blocks); the last line is ``{"ok": true, "device": {...}}``.
+kernel (``launches`` counted over the forecast steps for K1 and over the 3
+timed train steps for K2-K7; ``ms`` and ``plain_ms`` the mean per launch
+over one step's mix of 2 + 2 outer and 6 + 6 inner blocks); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -43,12 +65,27 @@ from pangu_tpu_torch.model import PanguModel
 from pangu_tpu_torch.model.attention import shift_attention_mask
 from pangu_tpu_torch.ops import _build
 from pangu_tpu_torch.ops import fused_block_attention as fba
+from pangu_tpu_torch.ops import fused_epilogue as fep
+from pangu_tpu_torch.ops import fused_mlp as fmlp
 from pangu_tpu_torch.rollout import make_forecast_step
+from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
+from pangu_tpu_torch.utils.flops import train_matmul_flops
 
 STEPS = 3
 KERNEL_TOL = 0.04  # max|d| / max(1, max|ref|), tests/test_kernel_interpret.py
 KERNEL_RMS_TOL = 0.01  # RMS(d) / RMS(ref)
 STEP_MAX_TOL, STEP_RMS_TOL = 0.1, 0.01  # normalized units, kernel vs plain and f32 steps
+#: kernel vs plain bf16 train step: loss, the gradient's global relative L2, and the
+#: worst relative L2 of one earth-specific bias and of one other parameter (PERF.md
+#: section 6 has the readings they were set from)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 0.01, 0.01
+TRAIN_BIAS_LEAF_TOL, TRAIN_LEAF_TOL = 0.1, 0.02
+#: per flagship train step with remat: the checkpoint recompute runs the forwards again
+TRAIN_LAUNCHES = {"fused_block_attention": 32, "fused_block_attention_bwd": 16,
+                  "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
+                  "fused_mlp_postnorm": 32, "fused_mlp_postnorm_bwd": 16}
+#: launches of each block shape per step: (stage, shifted) -> blocks
+PER_STEP = {("outer", False): 2, ("outer", True): 2, ("inner", False): 6, ("inner", True): 6}
 
 
 def log(msg: str) -> None:
@@ -168,7 +205,7 @@ def build_model(dev):
     aux = synthetic_aux_constants(cfg.model, cfg.train, seed=0, device=dev)
     log(f"model: {sum(p.numel() for p in model.parameters())} parameters, "
         f"set up in {time.perf_counter() - t0:.2f} s")
-    return model, aux
+    return cfg, model, aux
 
 
 def check_slice(model, aux, dev) -> dict:
@@ -218,6 +255,299 @@ def check_slice(model, aux, dev) -> dict:
     return results
 
 
+def launch_counts() -> dict:
+    return {"fused_earth_block": fba.LAUNCHES,
+            "fused_block_attention": fba.ATTN_FWD_LAUNCHES,
+            "fused_block_attention_bwd": fba.ATTN_BWD_LAUNCHES,
+            "fused_residual_postnorm": fep.FWD_LAUNCHES,
+            "fused_residual_postnorm_bwd": fep.BWD_LAUNCHES,
+            "fused_mlp_postnorm": fmlp.FWD_LAUNCHES,
+            "fused_mlp_postnorm_bwd": fmlp.BWD_LAUNCHES}
+
+
+def reset_counts() -> None:
+    fba.LAUNCHES = fba.ATTN_FWD_LAUNCHES = fba.ATTN_BWD_LAUNCHES = 0
+    fep.FWD_LAUNCHES = fep.BWD_LAUNCHES = 0
+    fmlp.FWD_LAUNCHES = fmlp.BWD_LAUNCHES = 0
+
+
+def compare(got, ref) -> dict:
+    """max|d|, RMS(d) and the bounds of phase 3 for one output."""
+    d = got.float() - ref.float()
+    ref = ref.float()
+    out = dict(max_abs=d.abs().max().item(), rms=d.pow(2).mean().sqrt().item(),
+               ref_max=ref.abs().max().item(), ref_rms=ref.pow(2).mean().sqrt().item())
+    out["ok"] = (out["max_abs"] / max(1.0, out["ref_max"]) < KERNEL_TOL
+                 and out["rms"] / max(out["ref_rms"], 1e-30) < KERNEL_RMS_TOL)
+    return out
+
+
+def check_outputs(label: str, outputs: dict) -> float:
+    """Log each output's comparison; raise if one is out of bounds; return the
+    largest max|d|."""
+    for name, c in outputs.items():
+        log(f"  {label} {name}: max|d|={c['max_abs']:.6g} rms(d)={c['rms']:.6g} "
+            f"max|ref|={c['ref_max']:.6g} rms(ref)={c['ref_rms']:.6g}")
+    bad = [name for name, c in outputs.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"{label}: {bad} disagree with the plain version")
+    return max(c["max_abs"] for c in outputs.values())
+
+
+def mix(shapes: list, key: str) -> float:
+    """Mean per launch over one step's mix of block shapes; a shape without
+    "shifted" stands for both (the row kernels do not see the shift)."""
+    return sum(sh[key] * n for sh in shapes for (stage, shifted), n in PER_STEP.items()
+               if stage == sh["stage"] and sh.get("shifted", shifted) == shifted) / 16
+
+
+def check_attention(g, dev) -> dict:
+    """Phase 5: K2 and K3 against their plain versions at the train path's
+    shapes, all six gradients."""
+    fwd, bwd = [], []
+    names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+    for name, stage, c, heads in (("outer", g.outer, 192, 6), ("inner", g.inner, 384, 12)):
+        for shifted in (False, True):
+            args, (window, heads, scale) = block_inputs(stage, c, heads, shifted, dev,
+                                                        seed=10 + len(fwd))
+            x, wqkv, bqkv, wproj, bproj, bias, mask = args[:7]
+            del args
+            gen = torch.Generator(device=dev).manual_seed(20 + len(fwd))
+            gy = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+            fargs = (x, wqkv, bqkv, wproj, bproj, bias, mask, None, None, window, heads, scale)
+            bargs = (x, wqkv, bqkv, wproj, bias, mask, gy, window, heads, scale)
+            label = f"{name} {'shifted' if shifted else 'unshifted'}"
+            with torch.no_grad():
+                got = fba.fused_block_attention(*fargs)
+                torch.cuda.synchronize()
+                err = check_outputs(f"K2 {label}", {"y": compare(
+                    got, fba.fused_block_attention_reference(*fargs[:7], *fargs[9:]))})
+                del got
+                fwd.append(dict(stage=name, shifted=shifted, max_abs_err=err,
+                                ms=cuda_times_ms(lambda: fba.fused_block_attention(*fargs)),
+                                plain_ms=cuda_times_ms(lambda: fba.fused_block_attention_reference(
+                                    *fargs[:7], *fargs[9:]), n=6)))
+                grads = fba.fused_block_attention_bwd(*bargs)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                ref = fba.fused_block_attention_bwd_reference(*bargs)
+                plain_peak = torch.cuda.max_memory_allocated(dev)
+                err = check_outputs(f"K3 {label}", {n: compare(a, b)
+                                                    for n, a, b in zip(names, grads, ref)})
+                del grads, ref
+                torch.cuda.empty_cache()
+                bwd.append(dict(stage=name, shifted=shifted, max_abs_err=err,
+                                plain_peak_bytes=plain_peak,
+                                ms=cuda_times_ms(lambda: fba.fused_block_attention_bwd(*bargs)),
+                                plain_ms=cuda_times_ms(
+                                    lambda: fba.fused_block_attention_bwd_reference(*bargs), n=6)))
+            log(f"K2 {label}: kernel {fwd[-1]['ms']:.4f} ms, plain {fwd[-1]['plain_ms']:.4f} ms; "
+                f"K3 kernel {bwd[-1]['ms']:.4f} ms, plain {bwd[-1]['plain_ms']:.4f} ms (plain "
+                f"peak memory {bwd[-1]['plain_peak_bytes'] / 2**30:.3f} GiB)")
+            del fargs, bargs, x, gy
+            torch.cuda.empty_cache()
+    return {"fused_block_attention": fwd, "fused_block_attention_bwd": bwd}
+
+
+def check_residual(g, dev) -> dict:
+    """Phase 6: K4 and K5 against their plain versions at both stage row
+    counts, with a branch scale."""
+    fwd, bwd = [], []
+    for name, stage, c in (("outer", g.outer, 192), ("inner", g.inner, 384)):
+        gen = torch.Generator(device=dev).manual_seed(30 + len(fwd))
+        rows = stage.z * stage.h_pad * stage.w
+
+        def rn(*shape, dtype=torch.bfloat16, mean=0.0, std=1.0):
+            return (mean + std * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+        shortcut, a, gy = rn(rows, c), rn(rows, c), rn(rows, c)
+        gamma, beta = rn(c, dtype=torch.float32, mean=1.0, std=0.1), rn(c, dtype=torch.float32,
+                                                                         std=0.1)
+        s = torch.full((rows,), 1.25, device=dev)  # one sample's drop-path keep scale
+        fargs, bargs = (shortcut, a, gamma, beta, s), (a, gy, gamma, beta, s)
+        with torch.no_grad():
+            got = fep.fused_residual_postnorm(shortcut, a, gamma, beta, s[:, None])
+            torch.cuda.synchronize()
+            err = check_outputs(f"K4 {name}", {"out": compare(
+                got, fep.fused_residual_postnorm_reference(*fargs))})
+            fwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
+                            ms=cuda_times_ms(lambda: fep.fused_residual_postnorm(
+                                shortcut, a, gamma, beta, s[:, None])),
+                            plain_ms=cuda_times_ms(
+                                lambda: fep.fused_residual_postnorm_reference(*fargs))))
+            outs = fep.fused_residual_postnorm_bwd(*bargs)
+            torch.cuda.synchronize()
+            ref = fep.fused_residual_postnorm_bwd_reference(*bargs)
+            err = check_outputs(f"K5 {name}", {n: compare(x, y) for n, x, y in zip(
+                ("da", "dgamma", "dbeta", "ds"), outs, ref)})
+            bwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
+                            ms=cuda_times_ms(lambda: fep.fused_residual_postnorm_bwd(*bargs)),
+                            plain_ms=cuda_times_ms(
+                                lambda: fep.fused_residual_postnorm_bwd_reference(*bargs))))
+        log(f"K4 {name} rows={rows} C={c}: kernel {fwd[-1]['ms']:.4f} ms, plain "
+            f"{fwd[-1]['plain_ms']:.4f} ms; K5 kernel {bwd[-1]['ms']:.4f} ms, plain "
+            f"{bwd[-1]['plain_ms']:.4f} ms")
+        del fargs, bargs, shortcut, a, gy, outs, ref
+        torch.cuda.empty_cache()
+    return {"fused_residual_postnorm": fwd, "fused_residual_postnorm_bwd": bwd}
+
+
+def check_mlp(g, dev) -> dict:
+    """Phase 7: K6 and K7 against their plain versions at both stage row
+    counts, with a branch scale; all eight gradients."""
+    fwd, bwd = [], []
+    names = ("dx", "dw1", "db1", "dw2", "db2", "dgamma", "dbeta", "ds")
+    for name, stage, c in (("outer", g.outer, 192), ("inner", g.inner, 384)):
+        gen = torch.Generator(device=dev).manual_seed(40 + len(fwd))
+        rows = stage.z * stage.h_pad * stage.w
+
+        def rn(*shape, dtype=torch.bfloat16, mean=0.0, std=1.0):
+            return (mean + std * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+        f32 = torch.float32
+        x, gy = rn(rows, c), rn(rows, c)
+        weights = (rn(4 * c, c, std=c ** -0.5), rn(4 * c, std=0.02),
+                   rn(c, 4 * c, std=(4 * c) ** -0.5), rn(c, std=0.02),
+                   rn(c, dtype=f32, mean=1.0, std=0.1), rn(c, dtype=f32, std=0.1))
+        s = torch.full((rows,), 1.25, device=dev)  # one sample's drop-path keep scale
+        fargs, bargs = (x, *weights, s), (x, gy, *weights, s)
+        with torch.no_grad():
+            got = fmlp.fused_mlp_postnorm(x, *weights, s[:, None])
+            torch.cuda.synchronize()
+            err = check_outputs(f"K6 {name}", {"out": compare(
+                got, fmlp.fused_mlp_postnorm_reference(*fargs))})
+            del got
+            fwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
+                            ms=cuda_times_ms(lambda: fmlp.fused_mlp_postnorm(
+                                x, *weights, s[:, None])),
+                            plain_ms=cuda_times_ms(
+                                lambda: fmlp.fused_mlp_postnorm_reference(*fargs), n=6)))
+            outs = fmlp.fused_mlp_postnorm_bwd(*bargs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ref = fmlp.fused_mlp_postnorm_bwd_reference(*bargs)
+            plain_peak = torch.cuda.max_memory_allocated(dev)
+            err = check_outputs(f"K7 {name}", {n: compare(a, b)
+                                               for n, a, b in zip(names, outs, ref)})
+            del outs, ref
+            torch.cuda.empty_cache()
+            bwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
+                            plain_peak_bytes=plain_peak,
+                            ms=cuda_times_ms(lambda: fmlp.fused_mlp_postnorm_bwd(*bargs)),
+                            plain_ms=cuda_times_ms(
+                                lambda: fmlp.fused_mlp_postnorm_bwd_reference(*bargs), n=6)))
+        log(f"K6 {name} rows={rows} C={c}: kernel {fwd[-1]['ms']:.4f} ms, plain "
+            f"{fwd[-1]['plain_ms']:.4f} ms; K7 kernel {bwd[-1]['ms']:.4f} ms, plain "
+            f"{bwd[-1]['plain_ms']:.4f} ms (plain peak memory "
+            f"{bwd[-1]['plain_peak_bytes'] / 2**30:.3f} GiB)")
+        del fargs, bargs, x, gy, weights
+        torch.cuda.empty_cache()
+    return {"fused_mlp_postnorm": fwd, "fused_mlp_postnorm_bwd": bwd}
+
+
+def train_batch(aux, m, dev) -> Batch:
+    """Seeded physical-unit inputs and targets (targets: inputs plus noise)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    inputs = [aux.upper_mean + aux.upper_std * torch.randn(
+        (1, m.upper_vars, m.levels, m.lat, m.lon), generator=gen, device=dev),
+        aux.surface_mean + aux.surface_std * torch.randn(
+        (1, m.surface_vars, m.lat, m.lon), generator=gen, device=dev)]
+    targets = [x + 0.5 * std * torch.randn(x.shape, generator=gen, device=dev)
+               for x, std in zip(inputs, (aux.upper_std, aux.surface_std))]
+    return Batch(*inputs, *targets)
+
+
+def timed_train_step(step, batch, aux, gen) -> tuple:
+    """One train step: (loss, host seconds ended by a synchronize, launches)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = step(batch, aux, gen)
+    torch.cuda.synchronize()
+    return loss.item(), time.perf_counter() - t0, launch_counts()
+
+
+def check_train(cfg, model, aux, dev) -> dict:
+    """Phase 8: the flagship train step on the kernel path, then the plain
+    bf16 and f32 steps from the same weights, batch and drop-path draws."""
+    m = cfg.model
+    batch = train_batch(aux, m, dev)
+    w0 = {k: v.clone() for k, v in model.state_dict().items()}
+    step = make_train_step(model, cfg, make_optimizer(model, cfg))
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(3)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss0, t_warm, counts = timed_train_step(step, batch, aux, seeded())
+    grads0 = {k: p.grad.clone() for k, p in model.named_parameters()}
+    runs = [counts]
+    gen, losses, times = torch.Generator(device=dev).manual_seed(4), [], []
+    total = dict.fromkeys(TRAIN_LAUNCHES, 0)
+    for _ in range(STEPS):
+        loss, t, counts = timed_train_step(step, batch, aux, gen)
+        losses.append(loss)
+        times.append(t)
+        runs.append(counts)
+        for k in total:
+            total[k] += counts[k]
+    peak = torch.cuda.max_memory_allocated(dev)
+    for counts in runs:
+        got = {k: counts[k] for k in TRAIN_LAUNCHES}
+        if got != TRAIN_LAUNCHES or counts["fused_earth_block"]:
+            raise AssertionError(f"train step launches {counts}, want {TRAIN_LAUNCHES}")
+    if not all(map(math.isfinite, [loss0] + losses)):
+        raise AssertionError(f"train losses not finite: {[loss0] + losses}")
+    if not all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()):
+        raise AssertionError("a gradient of the last train step is not finite")
+    unchanged = [k for k, p in model.named_parameters() if torch.equal(p.detach(), w0[k])]
+    if unchanged:
+        raise AssertionError(f"train steps left parameters unchanged: {unchanged[:5]}")
+    step_s = statistics.median(times)
+    tflops = train_matmul_flops(m) / step_s / 1e12
+    log(f"train steps: warm-up {t_warm:.6f} s, timed {[round(t, 6) for t in times]} s, "
+        f"losses {[loss0] + losses}, launches per step {runs[-1]}, peak memory "
+        f"{peak / 2**30:.3f} GiB, {tflops:.3f} TFLOP/s (train_matmul_flops / median step)")
+    results = dict(launches=total, step_s=step_s, warmup_s=t_warm, losses=[loss0] + losses,
+                   peak_bytes=peak, train_tflops=tflops, warmup_launches=runs[0])
+    del step
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    ref_norm = sum(g.float().pow(2).sum() for g in grads0.values()).sqrt().item()
+    for label, kw in (("plain", dict(use_pallas_attention=False)),
+                      ("f32", dict(compute_dtype="float32", use_pallas_attention=False))):
+        other = PanguModel(dataclasses.replace(m, **kw)).to(dev)
+        other.load_state_dict(w0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss, t, counts = timed_train_step(
+            make_train_step(other, cfg, make_optimizer(other, cfg)), batch, aux, seeded())
+        if any(counts.values()):
+            raise AssertionError(f"the {label} train step launched kernels: {counts}")
+        named = dict(other.named_parameters())
+        g_ref = {k: named[k].grad.float() for k in grads0}
+        d2 = {k: (grads0[k].float() - g_ref[k]).pow(2).sum().item() for k in grads0}
+        n2 = {k: g.pow(2).sum().item() for k, g in g_ref.items()}
+        rel_l2 = math.sqrt(sum(d2.values()) / sum(n2.values()))
+        leaf = sorted(((math.sqrt(d2[k] / max(n2[k], 1e-30)), k) for k in grads0), reverse=True)
+        worst_bias = [(k, v) for v, k in leaf if k.endswith("earth_specific_bias")][:3]
+        worst = [(k, v) for v, k in leaf if not k.endswith("earth_specific_bias")][:3]
+        loss_dev = abs(loss0 - loss) / abs(loss)
+        log(f"kernel train step vs {label} step: loss {loss0:.6g} vs {loss:.6g} (rel "
+            f"{loss_dev:.6g}), gradient rel L2 {rel_l2:.6g} (|g| kernel {ref_norm:.6g}), worst "
+            f"per-parameter rel L2: earth biases {worst_bias}, others {worst}; {label} step "
+            f"{t:.6f} s, peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+        results[label] = dict(loss=loss, loss_rel_dev=loss_dev, grad_rel_l2=rel_l2,
+                              worst_bias_rel_l2=worst_bias, worst_other_rel_l2=worst, step_s=t,
+                              peak_bytes=torch.cuda.max_memory_allocated(dev))
+        if label == "plain" and not (loss_dev < TRAIN_LOSS_TOL and rel_l2 < TRAIN_GRAD_TOL
+                                     and worst_bias[0][1] < TRAIN_BIAS_LEAF_TOL
+                                     and worst[0][1] < TRAIN_LEAF_TOL):
+            raise AssertionError("the kernel train step disagrees with the plain bf16 step")
+        del other, named, g_ref
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     card()
     dev = torch.device("cuda:0")
@@ -225,23 +555,46 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.load_library("fused_earth_block.cu")
+    _build.build_all()
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc {_build.BUILD_SECONDS})")
 
-    model, aux = build_model(dev)
+    cfg, model, aux = build_model(dev)
     kern = check_kernel(model.geom, dev)
     sl = check_slice(model, aux, dev)
     log(f"slice: kernel step {sl['step_s']:.6f} s, plain step {sl['plain']['step_s']:.6f} s, "
         f"f32 step {sl['f32']['step_s']:.6f} s")
+    train_kernels = {**check_attention(model.geom, dev), **check_residual(model.geom, dev),
+                     **check_mlp(model.geom, dev)}
+    tr = check_train(cfg, model, aux, dev)
+    log(f"train slice: kernel step {tr['step_s']:.6f} s, plain bf16 step "
+        f"{tr['plain']['step_s']:.6f} s, f32 step {tr['f32']['step_s']:.6f} s")
 
-    log("detail: " + json.dumps({"fused_earth_block": kern["shapes"], "slice": sl}))
-    print(json.dumps({"kernels": [{
+    log("detail: " + json.dumps({"fused_earth_block": kern["shapes"], "slice": sl,
+                                 **train_kernels, "train": tr}))
+    replaces = {"fused_block_attention": "pangu_tpu/ops/fused_block_attention.py:188",
+                "fused_block_attention_bwd": "pangu_tpu/ops/fused_block_attention.py:410",
+                "fused_residual_postnorm": "pangu_tpu/ops/fused_epilogue.py:87",
+                "fused_residual_postnorm_bwd": "pangu_tpu/ops/fused_epilogue.py:138",
+                "fused_mlp_postnorm": "pangu_tpu/ops/fused_mlp.py:470",
+                "fused_mlp_postnorm_bwd": "pangu_tpu/ops/fused_mlp.py:526"}
+    sources = {"fused_block_attention": "block_attention.cu",
+               "fused_residual_postnorm": "fused_epilogue.cu", "fused_mlp_postnorm": "fused_mlp.cu"}
+    kernels = [{
         "name": "fused_earth_block", "route": "cuda",
         "source": "pangu_tpu_torch/csrc/fused_earth_block.cu",
         "replaces": "pangu_tpu/ops/fused_block_attention.py:555",
         "launches": sl["launches"], "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-    }]}))
+    }]
+    for name, shapes in train_kernels.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pangu_tpu_torch/csrc/" + sources[name.removesuffix("_bwd")],
+            "replaces": replaces[name], "launches": tr["launches"][name],
+            "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
+            "ms": mix(shapes, "ms"), "plain_ms": mix(shapes, "plain_ms"),
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

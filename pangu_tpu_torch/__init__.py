@@ -1,9 +1,9 @@
-"""pangu_tpu_torch — the Pangu-Weather forecast step in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""pangu_tpu_torch — the Pangu-Weather forecast and train steps in PyTorch,
+with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The port of :mod:`pangu_tpu`, module for module: ``aux``, ``ops``,
-``model``, ``interop`` and ``rollout`` each mirror their JAX counterpart,
-which stays the numerical reference. The jax-free parts of ``pangu_tpu``
+``model``, ``interop``, ``rollout``, ``metrics`` and ``train`` each mirror
+their JAX counterpart, which stays the numerical reference. The jax-free parts of ``pangu_tpu``
 (``config``, ``geometry``, ``utils.flops``, ``interop.torch_import``) are
 imported, not copied; nothing in this package imports jax.
 
@@ -14,8 +14,6 @@ Parameter names and shapes equal the reference torch state dict
 """
 
 from __future__ import annotations
-
-from typing import Optional, Union
 
 import torch
 
@@ -28,14 +26,6 @@ from pangu_tpu.config import (  # noqa: F401
 )
 
 __version__ = "0.1.0"
-
-
-def get_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``device`` as a ``torch.device``; by default the first CUDA card if
-    there is one, else the CPU."""
-    if device is not None:
-        return torch.device(device)
-    return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
 
 
 def dtype_of(name: str) -> torch.dtype:

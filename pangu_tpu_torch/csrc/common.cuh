@@ -1,0 +1,116 @@
+// Device helpers shared by the port's CUDA sources (sm_90a): the window
+// geometry, warp reductions, cp.async staging with a two-stage ring, the
+// wmma fragment types, and the reduction of per-CTA f32 partials.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr float kLnEps = 1e-5f;
+constexpr int T = 144;                          // tokens per window (2 x 6 x 12)
+constexpr int D = 32;                           // head dim
+
+struct Geom {
+  int B, Z, Hp, W, C, heads, wz, wh, ww;
+};
+
+// Flattened grid row of token i of window (b, zi, hi, wi); token order (z, h, w).
+__device__ __forceinline__ long long token_row(const Geom& g, int b, int zi, int hi,
+                                               int wi, int i) {
+  const int dz = i / (g.wh * g.ww);
+  const int r = i - dz * g.wh * g.ww;
+  const int dh = r / g.ww;
+  const int dw = r - dh * g.ww;
+  return ((long long)(b * g.Z + zi * g.wz + dz) * g.Hp + hi * g.wh + dh) * g.W +
+         wi * g.ww + dw;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// ---- cp.async: 16-byte global -> shared copies, completed by group ----------------
+__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gptr) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gptr));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage a rows x cols bf16 tile (cols a multiple of 8) from global memory (row
+// stride gld) into shared memory (row stride sld), all threads of the CTA.
+__device__ __forceinline__ void stage_tile(bf16* s, int sld, const bf16* g, long long gld,
+                                           int rows, int cols) {
+  const int vpr = cols >> 3;
+  for (int v = threadIdx.x; v < rows * vpr; v += blockDim.x) {
+    const int r = v / vpr, c = (v - r * vpr) << 3;
+    cp_async16(s + r * sld + c, g + r * gld + c);
+  }
+}
+
+// Two-stage ring over n chunks: load(i, buf) issues chunk i's copies, compute(i,
+// buf) consumes it; chunk i + 1 is in flight while chunk i is multiplied. Ends
+// with a barrier, so the buffers and everything read from them are free again.
+template <class Load, class Compute>
+__device__ __forceinline__ void pipelined(int n, bf16* buf0, bf16* buf1, Load load,
+                                          Compute compute) {
+  load(0, buf0);
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    bf16* cur = (i & 1) ? buf1 : buf0;
+    if (i + 1 < n) {
+      load(i + 1, (i & 1) ? buf0 : buf1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    compute(i, cur);
+    __syncthreads();
+  }
+}
+
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// out[i] = sum_p part[p * n + i], in order p = 0, 1, ... (deterministic), as
+// bf16 (out_bf16) or f32 (out_f32): the second pass of every cross-CTA sum.
+__global__ void reduce_partials_kernel(const float* __restrict__ part, int parts, long long n,
+                                       bf16* __restrict__ out_bf16, float* __restrict__ out_f32) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < parts; ++p) s += part[p * n + i];
+  if (out_bf16) out_bf16[i] = __float2bfloat16(s);
+  else out_f32[i] = s;
+}
+
+cudaError_t reduce_partials(const float* part, int parts, long long n, bf16* out_bf16,
+                            float* out_f32, cudaStream_t stream) {
+  reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, parts, n,
+                                                                         out_bf16, out_f32);
+  return cudaGetLastError();
+}
+
+}  // namespace

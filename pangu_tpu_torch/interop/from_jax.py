@@ -1,5 +1,6 @@
-"""Parameters for the port: converted from a JAX param tree, or drawn from a
-seed (port-side counterpart of ``pangu_tpu/interop/torch_import.py``).
+"""Parameters and optimizer state for the port: converted from a JAX tree,
+or drawn from a seed (port-side counterpart of
+``pangu_tpu/interop/torch_import.py``).
 
 The port's state dict IS the reference torch state dict, so the JAX package's
 own exporter ``state_dict_from_params`` is the converter; only numpy arrays
@@ -8,8 +9,9 @@ cross the boundary.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -23,6 +25,39 @@ def load_jax_params(model: nn.Module, cfg: ModelConfig, jax_params: Mapping) -> 
     (strict: every reference key, nothing else)."""
     state = state_dict_from_params(cfg, jax_params)
     model.load_state_dict({k: torch.tensor(v) for k, v in state.items()}, strict=True)
+
+
+def _adam_state(opt_state: Any):
+    """The element of an optax state that holds Adam's ``count``, ``mu``
+    and ``nu`` (found by its fields, so that no optax import is needed)."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def load_jax_opt_state(optimizer: torch.optim.Optimizer, model: nn.Module, cfg: ModelConfig,
+                       opt_state: Any) -> None:
+    """Load the Adam moments and update count of an optax state (the JAX
+    train step's ``add_decayed_weights -> scale_by_adam -> scale_by_schedule``
+    chain) into ``optimizer``, a ``torch.optim.Adam`` over ``model``'s
+    parameters: a JAX run resumes in the port with the same next update. The
+    moment trees convert like the params, through ``state_dict_from_params``."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("opt_state holds no Adam state (count, mu, nu)")
+    mu, nu = state_dict_from_params(cfg, adam.mu), state_dict_from_params(cfg, adam.nu)
+    count = float(np.asarray(adam.count))
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": torch.tensor(mu[name], device=p.device),
+            "exp_avg_sq": torch.tensor(nu[name], device=p.device),
+        }
 
 
 @torch.no_grad()

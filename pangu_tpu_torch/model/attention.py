@@ -1,10 +1,14 @@
 """3D windowed attention with Earth-Specific bias (port of
 ``pangu_tpu/model/attention.py``).
 
-``EarthAttention3D`` consumes the padded token grid (B, Z, Hp, W, C) and runs
-the plain windowed path (partition, per-head scores + earth bias [+ shift
-mask], f32 softmax, reverse). The fused inference block does not call it:
-``EarthSpecificBlock`` hands its weights to the block kernel instead.
+``EarthAttention3D`` consumes the padded token grid (B, Z, Hp, W, C). In
+training with bf16 compute and ``use_kernel`` set it runs the training
+attention K2 (``ops.fused_block_attention.fused_block_attention``), whose
+backward is the flash backward K3; otherwise the plain windowed path
+(partition, per-head scores + earth bias [+ shift mask], f32 softmax,
+reverse), the JAX package's XLA path. The fused inference block does not
+call it: ``EarthSpecificBlock`` hands its weights to the block kernel
+instead.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 from torch import nn
 
 from pangu_tpu.geometry import StageGeometry
-from pangu_tpu_torch.ops.fused_block_attention import dense, dot_f32
+from pangu_tpu_torch.ops.fused_block_attention import dense, dot_f32, fused_block_attention
 from pangu_tpu_torch.ops.windows import window_partition, window_reverse
 
 
@@ -54,9 +58,11 @@ class EarthAttention3D(nn.Module):
     ``linear2`` (C, C) projection, ``earth_specific_bias``
     (1, n_type, heads, T, T)."""
 
-    def __init__(self, dim: int, heads: int, stage: StageGeometry):
+    def __init__(self, dim: int, heads: int, stage: StageGeometry, use_kernel: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.dim, self.heads, self.window = dim, heads, stage.window
+        self.use_kernel, self.dropout_rate = use_kernel, dropout_rate
         self.linear1 = nn.Linear(dim, 3 * dim)
         self.linear2 = nn.Linear(dim, dim)
         t = stage.tokens_per_window
@@ -68,6 +74,14 @@ class EarthAttention3D(nn.Module):
         cdt = x.dtype
         b, z, hp, w, c = x.shape
         d = c // self.heads
+        if self.training and self.dropout_rate > 0.0:
+            raise NotImplementedError("attention dropout in training is not ported")
+        if self.training and self.use_kernel and cdt == torch.bfloat16:
+            return fused_block_attention(
+                x, self.linear1.weight.to(cdt), self.linear1.bias.to(cdt),
+                self.linear2.weight.to(cdt), self.linear2.bias.to(cdt),
+                self.earth_specific_bias[0].float(), mask, None, None,
+                self.window, self.heads, d ** -0.5)
         xw = window_partition(x, self.window)  # (B, nW, nT, T, C)
         n_w, n_t, t = xw.shape[1:4]
         qkv = dense(xw, self.linear1.weight, self.linear1.bias)

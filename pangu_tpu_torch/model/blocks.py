@@ -2,28 +2,53 @@
 ``pangu_tpu/model/blocks.py``).
 
 Blocks work on the window-padded grid (B, Z, Hp, W, C) in the compute dtype.
-In inference with bf16 compute and ``use_kernel`` set (from
-``ModelConfig.use_pallas_attention``), a block is ONE call of
-``ops.fused_block_attention.fused_earth_block``: the CUDA kernel on the card,
-its plain version on the CPU. Otherwise (f32, or autograd on) it runs the
-unfused plain composition ``x + LN1(attn(x))`` then ``+ LN2(MLP(.))``, the
-JAX package's XLA path.
+The route keys on the module's mode, as the JAX package keys on
+``deterministic``:
+
+* eval, bf16, ``use_kernel`` set (``ModelConfig.use_pallas_attention``),
+  autograd off: ONE call of ``ops.fused_block_attention.fused_earth_block``
+  (K1) per block -- the CUDA kernel on the card, its plain version on the CPU;
+* eval otherwise (f32, or autograd on: K1 has no backward): the plain
+  composition ``x + LN1(attn(x))`` then ``+ LN2(MLP(.))``;
+* training: ``x = shortcut + s1 * LN1(attn(x))`` then ``x + s2 * LN2(MLP(x))``
+  with per-sample stochastic-depth scales ``s1``, ``s2``. With bf16 and
+  ``use_kernel`` the attention is K2 (backward K3), the first residual K4
+  (backward K5, ``ops.fused_epilogue``) and the MLP tail K6 (backward K7,
+  ``ops.fused_mlp``). Otherwise both residuals are the XLA formula
+  (``postnorm_residual``), which rounds LN(.) to the compute dtype first.
+
+``EarthSpecificLayer`` draws the scales and, with ``remat``, checkpoints each
+block (``torch.utils.checkpoint``, non-reentrant).
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pangu_tpu.geometry import StageGeometry
 from pangu_tpu_torch.model.attention import EarthAttention3D, shift_attention_mask
 from pangu_tpu_torch.ops.fused_block_attention import dense, fused_earth_block, layer_norm_f32
+from pangu_tpu_torch.ops.fused_epilogue import fused_residual_postnorm
+from pangu_tpu_torch.ops.fused_mlp import fused_mlp_postnorm
 
 
 def apply_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """f32-statistics LayerNorm (E[x^2] - mu^2, eps 1e-5), result in x.dtype."""
     return layer_norm_f32(x.float(), scale.float(), bias.float()).to(x.dtype)
+
+
+def postnorm_residual(x: torch.Tensor, y: torch.Tensor, norm: nn.LayerNorm,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """A training residual ``x + scale * LN(y)`` by the XLA formula: LN(y) in
+    y's dtype, the sum in f32, one rounding (pangu_tpu/model/blocks.py:366-367
+    and ``Mlp._finish``)."""
+    branch = scale * apply_layer_norm(y, norm.weight, norm.bias).float()
+    return (x.float() + branch).to(x.dtype)
 
 
 class Mlp(nn.Module):
@@ -45,18 +70,21 @@ class EarthSpecificBlock(nn.Module):
     re-pad between blocks)."""
 
     def __init__(self, stage: StageGeometry, dim: int, heads: int, shifted: bool,
-                 mlp_ratio: int = 4, use_kernel: bool = False):
+                 mlp_ratio: int = 4, use_kernel: bool = False, dropout_rate: float = 0.0):
         super().__init__()
         self.stage, self.dim, self.heads = stage, dim, heads
         self.shifted, self.use_kernel = shifted, use_kernel
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
         self.linear = Mlp(dim, mlp_ratio)
-        self.attention = EarthAttention3D(dim, heads, stage)
+        self.attention = EarthAttention3D(dim, heads, stage, use_kernel, dropout_rate)
         mask = torch.from_numpy(shift_attention_mask(stage)) if shifted else None
         self.register_buffer("attn_mask", mask, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, s1: Optional[torch.Tensor] = None,
+                s2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """In training, ``s1``/``s2`` are the stochastic-depth branch scales
+        of the two residuals, (B, 1, 1, 1, 1) f32 (``drop_path_scale``)."""
         st = self.stage
         wz, wh, ww = st.window
         assert tuple(x.shape[1:4]) == (st.z, st.h_pad, st.w), (x.shape, st)
@@ -65,6 +93,22 @@ class EarthSpecificBlock(nn.Module):
         shortcut = x
         if self.shifted:
             x = torch.roll(x, shifts=(-(wz // 2), -(wh // 2), -(ww // 2)), dims=(1, 2, 3))
+
+        if self.training:
+            if s1 is None or s2 is None:
+                raise ValueError("a training block needs its drop-path scales s1 and s2")
+            x = self.attention(x, self.attn_mask)
+            if self.shifted:
+                x = torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
+            if not (self.use_kernel and x.dtype == torch.bfloat16):
+                x = postnorm_residual(shortcut, x, self.norm1, s1)
+                return postnorm_residual(x, self.linear(x), self.norm2, s2)
+            cdt, mlp = x.dtype, self.linear
+            x = fused_residual_postnorm(shortcut, x, self.norm1.weight, self.norm1.bias, s1)
+            return fused_mlp_postnorm(
+                x, mlp.linear1.weight.to(cdt), mlp.linear1.bias.to(cdt),
+                mlp.linear2.weight.to(cdt), mlp.linear2.bias.to(cdt),
+                self.norm2.weight, self.norm2.bias, s2)
 
         if self.use_kernel and x.dtype == torch.bfloat16 and not torch.is_grad_enabled():
             cdt = x.dtype
@@ -91,27 +135,57 @@ class EarthSpecificBlock(nn.Module):
         return x + apply_layer_norm(self.linear(x), self.norm2.weight, self.norm2.bias)
 
 
+def drop_path_scale(batch: int, rate: float, generator: Optional[torch.Generator],
+                    device) -> torch.Tensor:
+    """Per-sample stochastic-depth branch scale (B, 1, 1, 1, 1) f32: 1/keep
+    with probability keep = 1 - rate, else 0 (ones at rate 0)."""
+    if rate <= 0.0:
+        return torch.ones((batch, 1, 1, 1, 1), device=device)
+    if generator is None:
+        raise ValueError("drop path in training needs an explicit torch.Generator")
+    keep = 1.0 - rate
+    u = torch.rand((batch,), generator=generator, device=generator.device).to(device)
+    return torch.where(u < keep, 1.0 / keep, 0.0).reshape(batch, 1, 1, 1, 1).float()
+
+
 class EarthSpecificLayer(nn.Module):
     """A stack of blocks alternating unshifted/shifted windows. Latitude is
-    window-padded once for the whole stack and cropped at the end."""
+    window-padded once for the whole stack and cropped at the end.
 
-    def __init__(self, stage: StageGeometry, depth: int, dim: int, heads: int,
-                 mlp_ratio: int = 4, use_kernel: bool = False):
+    In training each block gets two fresh drop-path scales, drawn here,
+    outside the checkpoint: a recompute under ``torch.utils.checkpoint`` does
+    not replay an explicit generator, so scales drawn inside the block would
+    differ between the forward and its recompute."""
+
+    def __init__(self, stage: StageGeometry, dim: int, heads: int,
+                 drop_path_rates: Sequence[float], mlp_ratio: int = 4,
+                 use_kernel: bool = False, remat: bool = False, dropout_rate: float = 0.0):
         super().__init__()
-        self.stage = stage
+        self.stage, self.remat = stage, remat
+        self.drop_path_rates = tuple(drop_path_rates)
+        depth = len(self.drop_path_rates)
         self.blocks = nn.ModuleDict({
             f"EarthSpecificBlock{i}": EarthSpecificBlock(
                 stage, dim, heads, shifted=bool(i % 2), mlp_ratio=mlp_ratio,
-                use_kernel=use_kernel)
+                use_kernel=use_kernel, dropout_rate=dropout_rate)
             for i in range(depth)
         })
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         st = self.stage
         assert tuple(x.shape[1:4]) == (st.z, st.h, st.w), (x.shape, st)
         x = F.pad(x, (0, 0, 0, 0, 0, st.h_pad - st.h))
-        for block in self.blocks.values():
-            x = block(x)
+        for block, rate in zip(self.blocks.values(), self.drop_path_rates):
+            if not self.training:
+                x = block(x)
+                continue
+            s1 = drop_path_scale(x.shape[0], rate, generator, x.device)
+            s2 = drop_path_scale(x.shape[0], rate, generator, x.device)
+            if self.remat:
+                x = checkpoint(block, x, s1, s2, use_reentrant=False)
+            else:
+                x = block(x, s1, s2)
         return x[:, :, :st.h]
 
 

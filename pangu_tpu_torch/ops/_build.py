@@ -3,8 +3,9 @@ load them with ``ctypes``.
 
 Each source is a plain C interface (no PyTorch headers), so a build takes
 seconds. The shared library goes to ``build/kernels/`` at the root of the
-checkout, named by a hash of the source and the flags, and is built at
-first use only. ``nvcc -Xptxas -v`` output (registers, shared memory,
+checkout, named by a hash of the source, the headers of ``csrc/`` and the
+flags, and is built at first use only; ``build_all`` starts one nvcc per
+source at once. ``nvcc -Xptxas -v`` output (registers, shared memory,
 spills) is kept beside it as ``<source>.ptxas.txt``.
 """
 
@@ -17,12 +18,14 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+#: every kernel source of the port, one shared library each
+SOURCES = ("fused_earth_block.cu", "block_attention.cu", "fused_epilogue.cu", "fused_mlp.cu")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -42,27 +45,56 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _lib_path(source: str) -> str:
+    """Where ``csrc/<source>`` is built: named by a hash of it, every header
+    of ``csrc/`` and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return os.path.join(build_dir(), f"{os.path.splitext(source)[0]}-{h.hexdigest()[:16]}.so")
+
+
+def _compile(sources: Sequence[str]) -> None:
+    """Run one nvcc per source that is not built yet, all at once."""
+    os.makedirs(build_dir(), exist_ok=True)
+    procs = []
+    for source in sources:
+        lib_path = _lib_path(source)
+        if os.path.exists(lib_path):
+            continue
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, os.path.join(CSRC, source)]
+        procs.append((source, lib_path, tmp, time.perf_counter(),
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)))
+    failed = []
+    for source, lib_path, tmp, t0, proc in procs:
+        out, err = proc.communicate()
+        BUILD_SECONDS[source] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source}:\n{out}\n{err}")
+            continue
+        with open(os.path.join(build_dir(), f"{os.path.splitext(source)[0]}.ptxas.txt"), "w") as f:
+            f.write(err)
+        os.replace(tmp, lib_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build_all(sources: Sequence[str] = SOURCES) -> None:
+    """Compile the sources (default: every kernel source) in parallel and
+    load them."""
+    with _LOCK:
+        _compile([s for s in sources if s not in _LIBS])
+    for source in sources:
+        load_library(source)
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (once per content hash) and load it."""
     with _LOCK:
-        if source in _LIBS:
-            return _LIBS[source]
-        src = os.path.join(CSRC, source)
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out_dir = build_dir()
-        os.makedirs(out_dir, exist_ok=True)
-        lib_path = os.path.join(out_dir, f"{os.path.splitext(source)[0]}-{digest}.so")
-        if not os.path.exists(lib_path):
-            tmp = f"{lib_path}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src],
-                                  capture_output=True, text=True)
-            BUILD_SECONDS[source] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-            with open(os.path.join(out_dir, f"{os.path.splitext(source)[0]}.ptxas.txt"), "w") as f:
-                f.write(proc.stderr)
-            os.replace(tmp, lib_path)
-        _LIBS[source] = ctypes.CDLL(lib_path)
+        if source not in _LIBS:
+            _compile([source])
+            _LIBS[source] = ctypes.CDLL(_lib_path(source))
         return _LIBS[source]

@@ -1,17 +1,22 @@
-"""The Earth-Specific block megakernel (port of
-``pangu_tpu/ops/fused_block_attention.py::fused_earth_block``).
+"""The Earth-Specific block kernels (port of
+``pangu_tpu/ops/fused_block_attention.py``).
 
-``fused_earth_block`` runs one whole inference block on the (possibly
+``fused_earth_block`` (K1) runs one whole inference block on the (possibly
 rolled) window-padded grid ``x`` (B, Z, Hp, W, C):
 
     x1  = x + LN1(attn(x))                  attention with earth bias (+ shift mask)
     out = x1 + LN2(GELU(x1 @ W1 + b1) @ W2 + b2)
 
-On a CUDA tensor it launches the hand-written sm_90a kernels of
-``csrc/fused_earth_block.cu`` (built with nvcc at first use) or raises; on a
-CPU tensor it runs :func:`fused_earth_block_reference`, the same function in
-plain PyTorch with the Pallas body's rounding points. There is no fallback
-from the kernel to the plain version.
+``fused_block_attention`` (K2) is the attention sublayer alone for
+training, ``y = attn(x) @ Wproj^T + bproj``, with a ``torch.autograd``
+backward that is the flash backward K3 (scores recomputed per window, never
+stored): dx, dWqkv, dbqkv, dWproj, dbproj and dbias.
+
+On a CUDA tensor each launches the hand-written sm_90a kernels of
+``csrc/fused_earth_block.cu`` or ``csrc/block_attention.cu`` (built with nvcc
+at first use) or raises; on a CPU tensor it runs its plain PyTorch version
+(``*_reference``) with the Pallas bodies' rounding points. There is no
+fallback from a kernel to its plain version.
 
 Weights use nn.Linear's (out, in) layout, as the block's modules hold them:
 wqkv (3C, C), wproj (C, C), w1 (4C, C), w2 (C, 4C); bias (nT, heads, T, T)
@@ -32,9 +37,13 @@ from pangu_tpu_torch.ops.windows import window_partition, window_reverse
 
 _LN_EPS = 1e-5
 _SOURCE = "fused_earth_block.cu"
+_TRAIN_SOURCE = "block_attention.cu"
 
-#: kernel launches by :func:`fused_earth_block` in this process
+#: kernel launches by :func:`fused_earth_block` (K1) in this process
 LAUNCHES = 0
+#: launches of the training attention forward (K2) and backward (K3)
+ATTN_FWD_LAUNCHES = 0
+ATTN_BWD_LAUNCHES = 0
 
 
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -62,14 +71,12 @@ def layer_norm_f32(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> 
     return (y - mu) * torch.rsqrt(var + _LN_EPS) * scale + bias
 
 
-def fused_earth_block_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
-                                ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
-                                window: Tuple[int, int, int], heads: int,
-                                scale: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, dtype-generic: bf16 in rounds
-    where the Pallas body rounds (qkv, probabilities, attention output, MLP
-    input, GELU hidden; x1 and the final add stay f32); f32 in is a true-f32
-    computation."""
+def window_attention_reference(x, wqkv, bqkv, bias, mask, window: Tuple[int, int, int],
+                               heads: int, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale + bias (+ mask)) @ v per window and head, back
+    on the grid (B, Z, Hp, W, C) in x's dtype: the attention output before
+    the projection, rounded where the Pallas body rounds (qkv, the
+    probabilities, the output)."""
     dt = x.dtype
     b, z, hp, w, c = x.shape
     d = c // heads
@@ -84,8 +91,20 @@ def fused_earth_block_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
     p = torch.softmax(s, dim=-1).to(dt)
     del s
     a = dot_f32(p, v).to(dt)  # (B, nW, nT, heads, T, d)
-    a = window_reverse(a.permute(0, 1, 2, 4, 3, 5).reshape(b, n_w, n_t, t, c),
-                       window, z, hp, w)
+    return window_reverse(a.permute(0, 1, 2, 4, 3, 5).reshape(b, n_w, n_t, t, c),
+                          window, z, hp, w)
+
+
+def fused_earth_block_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
+                                window: Tuple[int, int, int], heads: int,
+                                scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, dtype-generic: bf16 in rounds
+    where the Pallas body rounds (qkv, probabilities, attention output, MLP
+    input, GELU hidden; x1 and the final add stay f32); f32 in is a true-f32
+    computation."""
+    dt = x.dtype
+    a = window_attention_reference(x, wqkv, bqkv, bias, mask, window, heads, scale)
     x1 = layer_norm_f32(dot_f32(a, wproj.t()) + bproj.float(),
                         ln1_s.float(), ln1_b.float()) + x.float()
     h = F.gelu(dot_f32(x1.to(dt), w1.t()) + b1.float()).to(dt)
@@ -93,13 +112,91 @@ def fused_earth_block_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
     return (x1 + y).to(dt)
 
 
-def _check(x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
-           w1, b1, w2, b2, ln2_s, ln2_b, window, heads) -> None:
-    """Raise ValueError on any argument the block function does not take."""
+def fused_block_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                    window: Tuple[int, int, int], heads: int,
+                                    scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K2, dtype-generic: the attention output
+    projected, ``attn(x) @ Wproj^T + bproj``, rounded once at the end."""
+    a = window_attention_reference(x, wqkv, bqkv, bias, mask, window, heads, scale)
+    return dense(a, wproj, bproj)
+
+
+def fused_block_attention_bwd_reference(x, wqkv, bqkv, wproj, bias, mask, g,
+                                        window: Tuple[int, int, int], heads: int,
+                                        scale: float):
+    """Plain PyTorch version of K3: the flash backward of K2 written out with
+    the Pallas body's rounding points (q|k|v, the probabilities, dO, dS and
+    dq|dk|dv in x's dtype; p, dP and every sum f32), not autograd. ``g`` is
+    dL/dy. Returns (dx, dwqkv, dbqkv, dwproj, dbproj, dbias): weight grads in
+    nn.Linear's layout, rounded to their argument's dtype (dbproj to wproj's,
+    as the Pallas wrapper does), dbias f32 summed over batch and lon
+    windows."""
+    dt = x.dtype
+    b, z, hp, w, c = x.shape
+    d = c // heads
+    xw = window_partition(x, window)  # (B, nW, nT, T, C)
+    gw = window_partition(g, window)
+    n_w, n_t, t = xw.shape[1:4]
+
+    def per_head(y):  # (..., T, C) -> (..., heads, T, d)
+        return y.reshape(b, n_w, n_t, t, heads, d).transpose(3, 4)
+
+    def per_token(y):  # (..., heads, T, d) -> (..., T, C)
+        return y.transpose(3, 4).reshape(b, n_w, n_t, t, c)
+
+    def rows(y):
+        return y.reshape(-1, y.shape[-1])
+
+    qkv = (dot_f32(xw, wqkv.t()) + bqkv.float()).to(dt)
+    q, k, v = qkv.reshape(b, n_w, n_t, t, 3, heads, d).permute(4, 0, 1, 2, 5, 3, 6)
+    s = dot_f32(q, k.transpose(-1, -2)) * scale + bias.float()
+    if mask is not None:
+        s = s + mask.float()[:, None]
+    p = torch.softmax(s, dim=-1)  # f32
+    del s
+    pw = p.to(dt)
+    do = per_head(dot_f32(gw, wproj)).to(dt)  # dO = g @ Wproj, rounded per head
+    acc = per_token(dot_f32(pw, v)).to(dt)
+    dp = dot_f32(do, v.transpose(-1, -2))
+    dv = dot_f32(pw.transpose(-1, -2), do)
+    del pw
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    del dp, p
+    dbias = ds.sum(dim=(0, 1))
+    dsw = ds.to(dt)
+    del ds
+    dq = dot_f32(dsw, k) * scale
+    dk = dot_f32(dsw.transpose(-1, -2), q) * scale
+    del dsw
+    dqkv = torch.cat([per_token(dq), per_token(dk), per_token(dv)], dim=-1)  # f32
+    dbqkv = dqkv.sum(dim=(0, 1, 2, 3))
+    dqkv = dqkv.to(dt)
+    dx = window_reverse(dot_f32(dqkv, wqkv).to(dt), window, z, hp, w)
+    dwqkv = dot_f32(rows(dqkv).t(), rows(xw))
+    dwproj = dot_f32(rows(gw).t(), rows(acc))
+    dbproj = rows(gw).float().sum(0)
+    return (dx, dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dwproj.to(wproj.dtype),
+            dbproj.to(wproj.dtype), dbias)
+
+
+def _check_tensors(x, want) -> None:
+    for name, (arr, shape, dtype) in want.items():
+        if tuple(arr.shape) != shape or arr.dtype != dtype:
+            raise ValueError(f"{name}: expected {shape} {dtype}, "
+                             f"got {tuple(arr.shape)} {arr.dtype}")
+        if arr.device != x.device:
+            raise ValueError(f"{name} is on {arr.device}, x on {x.device}")
+
+
+def _check_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, heads) -> None:
+    """Raise ValueError on any attention argument the functions do not take
+    (``bproj`` None: the backward, which does not read it)."""
     if x.dim() != 5:
         raise ValueError(f"x must be (B, Z, Hp, W, C), got shape {tuple(x.shape)}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the block kernels run on CUDA or CPU tensors, got {x.device}")
     _, z, hp, w, c = x.shape
     wz, wh, ww = window
     if z % wz or hp % wh or w % ww:
@@ -107,24 +204,44 @@ def _check(x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
     if c % heads:
         raise ValueError(f"C={c} is not a multiple of heads={heads}")
     n_t, t = (z // wz) * (hp // wh), wz * wh * ww
-    hidden = w1.shape[0] if w1.dim() == 2 else -1
     want = {
         "wqkv": (wqkv, (3 * c, c), x.dtype), "bqkv": (bqkv, (3 * c,), x.dtype),
-        "wproj": (wproj, (c, c), x.dtype), "bproj": (bproj, (c,), x.dtype),
-        "bias": (bias, (n_t, heads, t, t), torch.float32),
+        "wproj": (wproj, (c, c), x.dtype), "bias": (bias, (n_t, heads, t, t), torch.float32),
+    }
+    if bproj is not None:
+        want["bproj"] = (bproj, (c,), x.dtype)
+    if mask is not None:
+        want["mask"] = (mask, (n_t, t, t), torch.float32)
+    _check_tensors(x, want)
+
+
+def _check(x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
+           w1, b1, w2, b2, ln2_s, ln2_b, window, heads) -> None:
+    """Raise ValueError on any argument the block function does not take."""
+    _check_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, heads)
+    c = x.shape[-1]
+    hidden = w1.shape[0] if w1.dim() == 2 else -1
+    _check_tensors(x, {
         "ln1_s": (ln1_s, (c,), torch.float32), "ln1_b": (ln1_b, (c,), torch.float32),
         "w1": (w1, (hidden, c), x.dtype), "b1": (b1, (hidden,), x.dtype),
         "w2": (w2, (c, hidden), x.dtype), "b2": (b2, (c,), x.dtype),
         "ln2_s": (ln2_s, (c,), torch.float32), "ln2_b": (ln2_b, (c,), torch.float32),
-    }
-    if mask is not None:
-        want["mask"] = (mask, (n_t, t, t), torch.float32)
-    for name, (arr, shape, dtype) in want.items():
-        if tuple(arr.shape) != shape or arr.dtype != dtype:
-            raise ValueError(f"{name}: expected {shape} {dtype}, "
-                             f"got {tuple(arr.shape)} {arr.dtype}")
-        if arr.device != x.device:
-            raise ValueError(f"{name} is on {arr.device}, x on {x.device}")
+    })
+
+
+def _check_kernel_args(name: str, tensors, x, window, heads) -> None:
+    """Raise ValueError on what the CUDA kernels do not take: bf16 activations,
+    144-token windows, head dim 32, C in (192, 384), and contiguous 32-byte
+    aligned tensors (wmma fragments and 16-byte vector loads)."""
+    c = x.shape[-1]
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the CUDA kernel takes bfloat16 activations, got {x.dtype}")
+    if window[0] * window[1] * window[2] != 144 or c // heads != 32 or c not in (192, 384):
+        raise ValueError(f"the CUDA kernel takes 144-token windows, head dim 32 and "
+                         f"C in (192, 384); got window {window}, C={c}, heads={heads}")
+    for i, t in enumerate(tensors):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 32):
+            raise ValueError(f"argument {i} of {name} is not contiguous and 32-byte aligned")
 
 
 def _library() -> ctypes.CDLL:
@@ -145,18 +262,9 @@ def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
     b, z, hp, w, c = x.shape
     tensors = (x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
                w1, b1, w2, b2, ln2_s, ln2_b)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernel takes bfloat16 activations, got {x.dtype}")
-    if window[0] * window[1] * window[2] != 144 or c // heads != 32 or c not in (192, 384):
-        raise ValueError(f"the CUDA kernel takes 144-token windows, head dim 32 and "
-                         f"C in (192, 384); got window {window}, C={c}, heads={heads}")
+    _check_kernel_args("fused_earth_block", tensors, x, window, heads)
     if w1.shape[0] != 4 * c:
         raise ValueError(f"the CUDA kernel takes an MLP hidden of 4C, got {w1.shape[0]}")
-    for i, t in enumerate(tensors):
-        # wmma fragments and 16-byte vector loads need 32-byte aligned bases
-        if t is not None and (not t.is_contiguous() or t.data_ptr() % 32):
-            raise ValueError(f"argument {i} of fused_earth_block is not contiguous "
-                             f"and 32-byte aligned")
     lib = _library()
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
@@ -184,6 +292,129 @@ def fused_earth_block(x, wqkv, bqkv, wproj, bproj, bias, mask: Optional[torch.Te
     _check(*args, window, heads)
     if x.device.type == "cpu":
         return fused_earth_block_reference(*args, window, heads, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_earth_block runs on CUDA or CPU tensors, got {x.device}")
     return _launch(*args, window, heads, scale)
+
+
+# ---- K2 / K3: the training attention and its flash backward --------------------
+
+
+def _train_library() -> ctypes.CDLL:
+    from pangu_tpu_torch.ops._build import load_library
+
+    lib = load_library(_TRAIN_SOURCE)
+    if lib.pangu_block_attention_fwd.argtypes is None:
+        ints = [ctypes.c_int] * 9
+        lib.pangu_block_attention_fwd.argtypes = (
+            [ctypes.c_void_p] * 9 + ints + [ctypes.c_float, ctypes.c_void_p])
+        lib.pangu_block_attention_fwd.restype = ctypes.c_int
+        lib.pangu_block_attention_bwd_scratch.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                                          ctypes.c_int]
+        lib.pangu_block_attention_bwd_scratch.restype = ctypes.c_longlong
+        lib.pangu_block_attention_bwd.argtypes = (
+            [ctypes.c_void_p] * 16 + ints + [ctypes.c_float, ctypes.c_void_p])
+        lib.pangu_block_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _geometry(x, window, heads):
+    b, z, hp, w, c = x.shape
+    if (b * z * hp * w) % 64:
+        raise ValueError(f"the CUDA kernels take a multiple of 64 token rows, got {b * z * hp * w}")
+    return (b, z, hp, w, c, heads, *window)
+
+
+def _attention_fwd_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, window, heads, scale):
+    global ATTN_FWD_LAUNCHES
+    tensors = (x, wqkv, bqkv, wproj, bproj, bias, mask)
+    _check_kernel_args("fused_block_attention", tensors, x, window, heads)
+    geom = _geometry(x, window, heads)
+    lib = _train_library()
+    attn = torch.empty_like(x)
+    out = torch.empty_like(x)
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pangu_block_attention_fwd(*ptrs, attn.data_ptr(), out.data_ptr(), *geom,
+                                           ctypes.c_float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_block_attention CUDA launch failed: cudaError_t {rc}")
+    ATTN_FWD_LAUNCHES += 1
+    return out
+
+
+def _attention_bwd_launch(x, wqkv, bqkv, wproj, bias, mask, g, window, heads, scale):
+    global ATTN_BWD_LAUNCHES
+    tensors = (x, g, wqkv, bqkv, wproj, bias, mask)
+    _check_kernel_args("fused_block_attention_bwd", tensors, x, window, heads)
+    geom = _geometry(x, window, heads)
+    lib = _train_library()
+    c = x.shape[-1]
+    rows = x.numel() // c
+    n_types = bias.shape[0]
+    dqkv = torch.empty(rows, 3 * c, dtype=x.dtype, device=x.device)
+    acc = torch.empty(rows, c, dtype=x.dtype, device=x.device)
+    scratch = torch.empty(lib.pangu_block_attention_bwd_scratch(rows, c, n_types),
+                          dtype=torch.float32, device=x.device)
+    grads = (torch.empty_like(x), torch.empty_like(wqkv), torch.empty_like(bqkv),
+             torch.empty_like(wproj), torch.empty(c, dtype=wproj.dtype, device=x.device),
+             torch.empty_like(bias))
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pangu_block_attention_bwd(*ptrs, dqkv.data_ptr(), acc.data_ptr(),
+                                           scratch.data_ptr(), *[t.data_ptr() for t in grads],
+                                           *geom, ctypes.c_float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_block_attention_bwd CUDA launch failed: cudaError_t {rc}")
+    ATTN_BWD_LAUNCHES += 1
+    return grads
+
+
+def fused_block_attention_bwd(x, wqkv, bqkv, wproj, bias, mask: Optional[torch.Tensor], g,
+                              window: Tuple[int, int, int], heads: int, scale: float):
+    """K3, the backward of :func:`fused_block_attention` from ``g`` = dL/dy:
+    (dx, dwqkv, dbqkv, dwproj, dbproj, dbias), as
+    :func:`fused_block_attention_bwd_reference` returns them."""
+    _check_attention(x, wqkv, bqkv, wproj, None, bias, mask, window, heads)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must be {tuple(x.shape)} {x.dtype} on {x.device}, "
+                         f"got {tuple(g.shape)} {g.dtype} on {g.device}")
+    if x.device.type == "cpu":
+        return fused_block_attention_bwd_reference(x, wqkv, bqkv, wproj, bias, mask, g,
+                                                   window, heads, scale)
+    return _attention_bwd_launch(x, wqkv, bqkv, wproj, bias, mask, g, window, heads, scale)
+
+
+class _BlockAttention(torch.autograd.Function):
+    """K2 forward, K3 backward (the plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, bias, mask, window, heads, scale):
+        ctx.statics = (window, heads, scale)
+        ctx.save_for_backward(x, wqkv, bqkv, wproj, bias, mask)
+        if x.device.type == "cpu":
+            return fused_block_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                                   window, heads, scale)
+        return _attention_fwd_launch(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                     window, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wqkv, bqkv, wproj, bias, mask = ctx.saved_tensors
+        grads = fused_block_attention_bwd(x, wqkv, bqkv, wproj, bias, mask, g.contiguous(),
+                                          *ctx.statics)
+        return (*grads, None, None, None, None)
+
+
+def fused_block_attention(x, wqkv, bqkv, wproj, bproj, bias, mask: Optional[torch.Tensor],
+                          ln_scale, ln_bias, window: Tuple[int, int, int], heads: int,
+                          scale: float) -> torch.Tensor:
+    """The attention sublayer for training (K2), ``attn(x) @ Wproj^T + bproj``
+    on the grid, differentiable in x, the weights, the biases and the earth
+    bias through the flash backward K3 (the mask is not differentiable). The
+    LN epilogue mode (``ln_scale``/``ln_bias``) of the JAX op has no caller
+    and is not ported: it raises NotImplementedError."""
+    if ln_scale is not None or ln_bias is not None:
+        raise NotImplementedError("the LN epilogue mode of fused_block_attention is not ported")
+    _check_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, heads)
+    return _BlockAttention.apply(x, wqkv, bqkv, wproj, bproj, bias, mask, window, heads, scale)

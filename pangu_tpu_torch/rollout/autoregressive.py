@@ -20,10 +20,12 @@ Fields = Tuple[torch.Tensor, torch.Tensor]
 
 def make_forecast_step(model: nn.Module, aux: AuxConstants) -> Callable[[torch.Tensor, torch.Tensor], Fields]:
     """``step(upper, surface) -> (upper', surface')``, physical units,
-    under ``torch.inference_mode``."""
+    under ``torch.inference_mode`` with the model in eval mode (the JAX
+    package's ``deterministic=True``)."""
 
     @torch.inference_mode()
     def step(upper: torch.Tensor, surface: torch.Tensor) -> Fields:
+        model.eval()
         ou, os_ = model(upper, surface, aux)
         return norm_back_data(ou, os_, aux)
 

@@ -1,20 +1,27 @@
-"""The port's CUDA kernel on the card (marker ``gpu``; skips without one).
+"""The port's CUDA kernels on the card (marker ``gpu``; skips without one):
+the inference block K1, the training attention K2/K3, the post-norm
+residual K4/K5 and the MLP tail K6/K7 against their plain versions, the
+forecast step and a flagship train step through the kernels.
 
 Imports torch and numpy only, so it runs where jax is absent; the repo's
 conftest imports jax, so on such a machine run it as
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Tolerances: the kernel against its plain version, both bf16 with the same
+Tolerances: a kernel against its plain version, both bf16 with the same
 rounding points, atol 0.04 after scaling by max(1, max|ref|) (the bound of
 tests/test_kernel_interpret.py: bf16 activations, f32 sums in another
-order). The model step on the kernel path against the plain composition
+order; 0.05 for gradients), and for K2-K5 also RMS(d) / RMS(ref) < 0.01. The model step on the kernel path against the plain composition
 (use_pallas_attention off, different rounding points): RMS 0.01 and max 0.1
 in normalized output units, twice and four times the bf16-vs-f32 deviation
 of docs/PARITY.md (RMS 0.005, max 0.026).
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -105,3 +112,189 @@ def test_forecast_step_at_full_width_runs_the_kernel(cuda_device):
         assert bool(torch.isfinite(got).all())
         d = (got - ref).float()
         assert d.abs().max().item() < 0.1 and d.pow(2).mean().sqrt().item() < 0.01
+
+
+def _bounded(got, ref, tol=0.04, rms_tol=0.01):
+    """max|d| / max(1, max|ref|) < tol and RMS(d) / RMS(ref) < rms_tol."""
+    d = (got.float() - ref.float())
+    ref = ref.float()
+    return ((d.abs().max() / max(1.0, ref.abs().max().item())).item() < tol
+            and (d.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item() < rms_tol)
+
+
+@pytest.mark.parametrize("b,c,heads,masked", [
+    (1, 192, 6, False), (1, 192, 6, True), (2, 384, 12, True)])
+def test_cuda_attention_fwd_and_bwd_match_plain_versions(cuda_device, b, c, heads, masked):
+    """K2 and K3 through autograd against their plain versions; six grads."""
+    args, (window, heads, scale) = _inputs(9, cuda_device, b, 4, 12, 48, c, heads, masked)
+    x, wqkv, bqkv, wproj, bproj, bias, mask = args[:7]
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, wqkv, bqkv, wproj, bproj, bias)]
+    fwd, bwd = tfba.ATTN_FWD_LAUNCHES, tfba.ATTN_BWD_LAUNCHES
+    y = tfba.fused_block_attention(*leaves[:6], mask, None, None, window, heads, scale)
+    g = (torch.randn(y.shape, generator=torch.Generator(cuda_device).manual_seed(1),
+                     device=cuda_device) * 0.1).to(torch.bfloat16)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (tfba.ATTN_FWD_LAUNCHES - fwd, tfba.ATTN_BWD_LAUNCHES - bwd) == (1, 1)
+    assert _bounded(y, tfba.fused_block_attention_reference(*args[:7], window, heads, scale))
+    ref = tfba.fused_block_attention_bwd_reference(x, wqkv, bqkv, wproj, bias, mask, g,
+                                                   window, heads, scale)
+    for name, leaf, r in zip(("x", "wqkv", "bqkv", "wproj", "bproj", "bias"), leaves, ref):
+        assert leaf.grad.dtype == r.dtype and _bounded(leaf.grad, r, tol=0.05), name
+
+
+@pytest.mark.parametrize("c", [192, 384])
+def test_cuda_residual_postnorm_fwd_and_bwd_match_plain_versions(cuda_device, c):
+    """K4 and K5 through autograd against their plain versions, with a
+    per-sample branch scale."""
+    from pangu_tpu_torch.ops import fused_epilogue as tfep
+
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    bf = torch.bfloat16
+
+    def rn(*shape, dtype=bf, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(shape, generator=gen, device=cuda_device)).to(dtype)
+
+    shortcut, a = rn(2, 4, 12, 48, c), rn(2, 4, 12, 48, c)
+    gamma, beta = rn(c, dtype=torch.float32, mean=1.0, std=0.1), rn(c, dtype=torch.float32, std=0.1)
+    s = torch.tensor([0.0, 1.25], device=cuda_device).reshape(2, 1, 1, 1, 1)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (shortcut, a, gamma, beta, s)]
+    fwd, bwd = tfep.FWD_LAUNCHES, tfep.BWD_LAUNCHES
+    out = tfep.fused_residual_postnorm(*leaves)
+    g = rn(*out.shape)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (tfep.FWD_LAUNCHES - fwd, tfep.BWD_LAUNCHES - bwd) == (1, 1)
+    rows = a.numel() // c
+    s_rows = s.expand(2, 4, 12, 48, 1).reshape(rows).contiguous()
+    ref = tfep.fused_residual_postnorm_reference(shortcut.reshape(rows, c), a.reshape(rows, c),
+                                                 gamma, beta, s_rows)
+    assert _bounded(out.reshape(rows, c), ref)
+    da, dgamma, dbeta, ds = tfep.fused_residual_postnorm_bwd_reference(
+        a.reshape(rows, c), g.reshape(rows, c), gamma, beta, s_rows)
+    assert torch.equal(leaves[0].grad, g)
+    for name, got, r in (("a", leaves[1].grad.reshape(rows, c), da), ("gamma", leaves[2].grad, dgamma),
+                         ("beta", leaves[3].grad, dbeta),
+                         ("s", leaves[4].grad.reshape(2), ds.reshape(2, -1).sum(1))):
+        assert _bounded(got, r, tol=0.05), name
+
+
+@pytest.mark.parametrize("c", [192, 384])
+def test_cuda_mlp_postnorm_fwd_and_bwd_match_plain_versions(cuda_device, c):
+    """K6 and K7 through autograd against their plain versions, all eight
+    gradients, with a per-sample branch scale."""
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    bf = torch.bfloat16
+
+    def rn(*shape, dtype=bf, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(shape, generator=gen, device=cuda_device)).to(dtype)
+
+    f32 = torch.float32
+    args = (rn(2, 4, 12, 48, c), rn(4 * c, c, std=c ** -0.5), rn(4 * c, std=0.02),
+            rn(c, 4 * c, std=(4 * c) ** -0.5), rn(c, std=0.02),
+            rn(c, dtype=f32, mean=1.0, std=0.1), rn(c, dtype=f32, std=0.1),
+            torch.tensor([0.0, 1.25], device=cuda_device).reshape(2, 1, 1, 1, 1))
+    leaves = [t.detach().clone().requires_grad_(True) for t in args]
+    fwd, bwd = tfm.FWD_LAUNCHES, tfm.BWD_LAUNCHES
+    out = tfm.fused_mlp_postnorm(*leaves)
+    g = rn(*out.shape)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (tfm.FWD_LAUNCHES - fwd, tfm.BWD_LAUNCHES - bwd) == (1, 1)
+    rows = out.numel() // c
+    s_rows = args[7].expand(2, 4, 12, 48, 1).reshape(rows).contiguous()
+    x2 = args[0].reshape(rows, c)
+    assert _bounded(out.reshape(rows, c),
+                    tfm.fused_mlp_postnorm_reference(x2, *args[1:7], s_rows))
+    ref = tfm.fused_mlp_postnorm_bwd_reference(x2, g.reshape(rows, c), *args[1:7], s_rows)
+    ref = ref[:7] + (ref[7].reshape(2, -1).sum(1),)
+    for name, leaf, r in zip(("x", "w1", "b1", "w2", "b2", "gamma", "beta", "s"), leaves, ref):
+        assert leaf.grad.dtype == r.dtype and _bounded(leaf.grad.reshape(r.shape), r,
+                                                       tol=0.05), name
+
+
+def test_cuda_training_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    """On a CUDA tensor the training wrappers launch or raise: no plain
+    fallback for f32 activations, a width outside (192, 384) or a row count
+    the MLP kernels do not take."""
+    from pangu_tpu_torch.ops import fused_epilogue as tfep
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+
+    for dtype, c, heads in ((torch.float32, 192, 6), (torch.bfloat16, 128, 4)):
+        args, statics = _inputs(10, cuda_device, 1, 4, 12, 48, c, heads, True, dtype=dtype)
+        before = (tfba.ATTN_FWD_LAUNCHES, tfba.ATTN_BWD_LAUNCHES)
+        with pytest.raises(ValueError):
+            tfba.fused_block_attention(*args[:7], None, None, *statics)
+        with pytest.raises(ValueError):
+            tfba.fused_block_attention_bwd(*args[:4], args[5], args[6], args[0], *statics)
+        assert (tfba.ATTN_FWD_LAUNCHES, tfba.ATTN_BWD_LAUNCHES) == before
+    x = torch.zeros(64, 192, device=cuda_device)
+    ln = torch.ones(192, device=cuda_device)
+    with pytest.raises(ValueError):
+        tfep.fused_residual_postnorm(x, x, ln, ln, torch.ones(64, 1, device=cuda_device))
+    w1, w2 = torch.zeros(768, 192, device=cuda_device), torch.zeros(192, 768, device=cuda_device)
+    b1, b2 = torch.zeros(768, device=cuda_device), torch.zeros(192, device=cuda_device)
+    bf = torch.bfloat16
+    before = (tfm.FWD_LAUNCHES, tfm.BWD_LAUNCHES)
+    for rows, dtype in ((96, torch.float32), (64, bf)):  # f32 rows; 64 rows, not a multiple of 96
+        xr = torch.zeros(rows, 192, device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError):
+            tfm.fused_mlp_postnorm(xr, w1.to(dtype), b1.to(dtype), w2.to(dtype), b2.to(dtype),
+                                   ln, ln, torch.ones(rows, 1, device=cuda_device))
+    assert (tfm.FWD_LAUNCHES, tfm.BWD_LAUNCHES) == before
+
+
+def test_flagship_train_step_launches_the_training_kernels(cuda_device):
+    """One flagship train step (remat on): K2, K4 and K6 run 32 times (the
+    checkpoint recompute runs them again), K3, K5 and K7 16 times; loss and
+    gradients finite."""
+    from pangu_tpu_torch import pangu_pretrain
+    from pangu_tpu_torch.ops import fused_epilogue as tfep
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+    from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
+
+    cfg = pangu_pretrain(24, compute_dtype="bfloat16", matmul_precision="default",
+                         use_pallas_attention=True)
+    m = cfg.model
+    model = PanguModel(m).to(cuda_device)
+    init_params(model, seed=0)
+    aux = synthetic_aux_constants(m, cfg.train, device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    fields = [aux.upper_mean + aux.upper_std * torch.randn(
+        (1, m.upper_vars, m.levels, m.lat, m.lon), generator=gen, device=cuda_device),
+              aux.surface_mean + aux.surface_std * torch.randn(
+        (1, m.surface_vars, m.lat, m.lon), generator=gen, device=cuda_device)]
+    batch = Batch(*fields, *(f + 0.1 * torch.randn(f.shape, generator=gen, device=cuda_device)
+                             for f in fields))
+    step = make_train_step(model, cfg, make_optimizer(model, cfg))
+
+    def counts():
+        return (tfba.ATTN_FWD_LAUNCHES, tfba.ATTN_BWD_LAUNCHES, tfep.FWD_LAUNCHES,
+                tfep.BWD_LAUNCHES, tfm.FWD_LAUNCHES, tfm.BWD_LAUNCHES)
+
+    before = counts()
+    loss = step(batch, aux, torch.Generator(cuda_device).manual_seed(4))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (32, 16, 32, 16, 32, 16)
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+def test_chip_smoke_passes_and_lists_the_seven_kernels(cuda_device):
+    """``python3 chip_smoke.py`` exits 0; the line before the last lists K1-K7
+    with their launches over the forecast (K1) and the 3 timed train steps."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=repo, capture_output=True,
+                          text=True, timeout=1200)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = proc.stdout.strip().splitlines()
+    kernels = {k["name"]: k for k in json.loads(lines[-2])["kernels"]}
+    assert {n: k["launches"] for n, k in kernels.items()} == {
+        "fused_earth_block": 48, "fused_block_attention": 96, "fused_block_attention_bwd": 48,
+        "fused_residual_postnorm": 96, "fused_residual_postnorm_bwd": 48,
+        "fused_mlp_postnorm": 96, "fused_mlp_postnorm_bwd": 48}
+    assert all(k["route"] == "cuda" and k["ms"] > 0 and k["plain_ms"] > 0
+               for k in kernels.values())
+    assert json.loads(lines[-1])["ok"] is True

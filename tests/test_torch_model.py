@@ -123,7 +123,7 @@ def test_block_matches_flax(tiny, layer, stage, shifted):
                    precision=HIGHEST).apply(
         {"params": tiny.params[f"layer{layer}"]["block0"]}, jnp.asarray(x), True)
     src = tiny.model.layers[f"EarthSpecificLayer{layer}"].blocks.EarthSpecificBlock0
-    block = EarthSpecificBlock(st, c, heads, shifted=shifted)
+    block = EarthSpecificBlock(st, c, heads, shifted=shifted).eval()
     block.load_state_dict(src.state_dict())
     with torch.inference_mode():
         got = block(torch.from_numpy(x))

@@ -128,6 +128,8 @@ def test_importing_the_port_does_not_import_jax():
         "import pangu_tpu_torch, pangu_tpu_torch.aux, pangu_tpu_torch.model\n"
         "import pangu_tpu_torch.ops.fused_block_attention, pangu_tpu_torch.ops._build\n"
         "import pangu_tpu_torch.rollout, pangu_tpu_torch.interop.from_jax\n"
+        "import pangu_tpu_torch.ops.fused_epilogue, pangu_tpu_torch.train, pangu_tpu_torch.metrics\n"
+        "import pangu_tpu_torch.utils.flops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
         "assert not bad, bad\n"
     )
