@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one CUDA card: build, kernel checks, the
-24 h forecast step and the train step at full geometry.
+24 h forecast step, the train step and its two A/B routes at full geometry.
 
     python3 chip_smoke.py
 
@@ -36,14 +36,33 @@ Phases (any failure exits non-zero before the last line is printed):
    weights, batch and drop-path draws as the warm-up step: against the plain
    bf16 step the loss within 1%, the gradient's global relative L2 < 1%,
    each earth-specific bias's relative L2 < 10% and every other parameter's
-   < 2% (the f32 figures are reported only).
+   < 2% (the f32 figures are reported only);
+9. the raw MLP K8 and its backward K9 against their plain versions at both
+   stage row counts: the output and all five gradients, the bounds of phase 3;
+10. the training block K11 and its backward K12 against their plain versions
+   at both stage shapes, unshifted and shifted, with per-sample scales s1 !=
+   s2: the output and all sixteen gradients, the bounds of phase 3; and K11 at
+   unit scales against K1, the same bounds (they differ only in rounding a
+   and x1 to bf16);
+11. the A/B routes of ``pangu_tpu_torch.scripts.bench_train_ab``:
+   ``fused_block`` (K11/K12, exactly 16 launches of each per step) and
+   ``unfused_tail`` (K2 32 / K3 16, K4 32 / K5 16, K8 32 / K9 16): one step
+   from phase 8's weights, batch and drop-path draws, finite loss and
+   gradients and the bounds of phase 8 against the plain bf16 step; then 3
+   timed steps through the script's helper, step time and peak memory.
 
 A ``detail:`` line holds the per-shape kernel results and the slices'
 numbers as JSON. The second-to-last line is a JSON object with one entry per
-kernel (``launches`` counted over the forecast steps for K1 and over the 3
-timed train steps for K2-K7; ``ms`` and ``plain_ms`` the mean per launch
-over one step's mix of 2 + 2 outer and 6 + 6 inner blocks); the last line
-is ``{"ok": true, "device": {...}}``.
+kernel: ``launches`` counted over the run of the kernel's path (the 3
+forecast steps for K1, the 3 timed steps of the default train step for
+K2-K7, of ``unfused_tail`` for K8/K9 and of ``fused_block`` for K11/K12);
+``ms``, ``plain_ms`` and ``bound_ms`` the mean per launch over one step's
+mix of 2 + 2 outer and 6 + 6 inner blocks. ``bound_ms`` is the larger of
+the bytes the function must move over 3.35 TB/s and its operations over the
+card's peak for their type (989 TFLOP/s for the bf16 products; 67 TFLOP/s
+for the f32 elementwise work of K4/K5), computed from the shapes;
+``library_ms`` is null: no single PyTorch call computes any of these
+functions. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -65,9 +84,11 @@ from pangu_tpu_torch.model import PanguModel
 from pangu_tpu_torch.model.attention import shift_attention_mask
 from pangu_tpu_torch.ops import _build
 from pangu_tpu_torch.ops import fused_block_attention as fba
+from pangu_tpu_torch.ops import fused_block_train as fbt
 from pangu_tpu_torch.ops import fused_epilogue as fep
 from pangu_tpu_torch.ops import fused_mlp as fmlp
 from pangu_tpu_torch.rollout import make_forecast_step
+from pangu_tpu_torch.scripts import bench_train_ab
 from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
 from pangu_tpu_torch.utils.flops import train_matmul_flops
 
@@ -84,8 +105,35 @@ TRAIN_BIAS_LEAF_TOL, TRAIN_LEAF_TOL = 0.1, 0.02
 TRAIN_LAUNCHES = {"fused_block_attention": 32, "fused_block_attention_bwd": 16,
                   "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
                   "fused_mlp_postnorm": 32, "fused_mlp_postnorm_bwd": 16}
+#: per flagship train step on the A/B routes (the K11 route is not checkpointed)
+AB_LAUNCHES = {
+    "fused_block": {"fused_earth_block_train": 16, "fused_earth_block_train_bwd": 16},
+    "unfused_tail": {"fused_block_attention": 32, "fused_block_attention_bwd": 16,
+                     "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
+                     "fused_mlp": 32, "fused_mlp_bwd": 16},
+}
 #: launches of each block shape per step: (stage, shifted) -> blocks
 PER_STEP = {("outer", False): 2, ("outer", True): 2, ("inner", False): 6, ("inner", True): 6}
+#: H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 CUDA cores, HBM3
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+#: (replaced TPU kernel, CUDA source) of every kernel, in table order
+KERNELS = {
+    "fused_earth_block": ("pangu_tpu/ops/fused_block_attention.py:555", "fused_earth_block.cu"),
+    "fused_block_attention": ("pangu_tpu/ops/fused_block_attention.py:188",
+                              "block_attention.cu"),
+    "fused_block_attention_bwd": ("pangu_tpu/ops/fused_block_attention.py:410",
+                                  "block_attention.cu"),
+    "fused_residual_postnorm": ("pangu_tpu/ops/fused_epilogue.py:87", "fused_epilogue.cu"),
+    "fused_residual_postnorm_bwd": ("pangu_tpu/ops/fused_epilogue.py:138", "fused_epilogue.cu"),
+    "fused_mlp_postnorm": ("pangu_tpu/ops/fused_mlp.py:470", "fused_mlp.cu"),
+    "fused_mlp_postnorm_bwd": ("pangu_tpu/ops/fused_mlp.py:526", "fused_mlp.cu"),
+    "fused_mlp": ("pangu_tpu/ops/fused_mlp.py:253", "fused_mlp.cu"),
+    "fused_mlp_bwd": ("pangu_tpu/ops/fused_mlp.py:300", "fused_mlp.cu"),
+    "fused_earth_block_train": ("pangu_tpu/ops/fused_block_train.py:341",
+                                "fused_block_train.cu"),
+    "fused_earth_block_train_bwd": ("pangu_tpu/ops/fused_block_train.py:432",
+                                    "fused_block_train.cu"),
+}
 
 
 def log(msg: str) -> None:
@@ -98,6 +146,43 @@ def card() -> None:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs the card")
+
+
+def bound(name: str, rows: int, c: int, heads: int = 0, n_types: int = 0,
+          shifted: bool = False) -> dict:
+    """The least time the card could take for one call of kernel ``name`` at
+    this shape: the larger of its compulsory bytes (each input read once,
+    each output written once) over the memory rate and its operations over
+    the peak rate of their type. Products count 2 FLOP per multiply-add at
+    the bf16 peak (a backward counts the forward it recomputes from its
+    inputs); the f32 elementwise work counts only where no product bounds
+    it (K4/K5)."""
+    t, r = 144, rows
+    rc2, rtc = r * c * c, r * t * c
+    act = 2 * r * c  # one bf16 (rows, C) tensor
+    tables = n_types * heads * t * t * 4 + (n_types * t * t * 4 if shifted else 0)
+    w_attn, w_mlp, ln = (4 * c * c + 4 * c) * 2, (8 * c * c + 5 * c) * 2, 2 * c * 4
+    work = {  # name: (bf16 product FLOP, f32 elementwise FLOP, bytes)
+        "fused_earth_block": (24 * rc2 + 4 * rtc, 0, 2 * act + tables + w_attn + w_mlp + 2 * ln),
+        "fused_block_attention": (8 * rc2 + 4 * rtc, 0, 2 * act + tables + w_attn),
+        "fused_block_attention_bwd": (22 * rc2 + 12 * rtc, 0,
+                                      3 * act + 2 * tables + 2 * w_attn),
+        "fused_residual_postnorm": (0, 10 * r * c, 3 * act + 4 * r + ln),
+        "fused_residual_postnorm_bwd": (0, 16 * r * c, 3 * act + 8 * r + 2 * ln),
+        "fused_mlp_postnorm": (16 * rc2, 0, 2 * act + 4 * r + w_mlp + ln),
+        "fused_mlp_postnorm_bwd": (48 * rc2, 0, 3 * act + 8 * r + 2 * w_mlp + 2 * ln),
+        "fused_mlp": (16 * rc2, 0, 2 * act + w_mlp),
+        "fused_mlp_bwd": (40 * rc2, 0, 3 * act + 2 * w_mlp),
+        "fused_earth_block_train": (24 * rc2 + 4 * rtc, 0,
+                                    2 * act + tables + w_attn + w_mlp + 2 * ln),
+        "fused_earth_block_train_bwd": (72 * rc2 + 12 * rtc, 0,
+                                        3 * act + 2 * tables + 2 * (w_attn + w_mlp) + 4 * ln),
+    }
+    mm, ew, nbytes = work[name]
+    ops_ms = (mm / PEAK_BF16 + ew / PEAK_F32) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
 def cuda_times_ms(fn, n: int = 12, warmup: int = 2) -> float:
@@ -164,12 +249,12 @@ def check_kernel(g, dev) -> dict:
                 raise AssertionError(f"kernel disagrees with its plain version at {name}")
             shapes.append(dict(stage=name, shifted=shifted, shape=list(args[0].shape),
                                heads=heads, launches_per_step=per_step, max_abs_err=max_abs,
-                               rms_err=rms, ms=ms, plain_ms=plain_ms))
+                               rms_err=rms, ms=ms, plain_ms=plain_ms,
+                               **bound("fused_earth_block", args[0].numel() // c, c, heads,
+                                       stage.n_type_windows, shifted)))
             del args
             torch.cuda.empty_cache()
-    return dict(shapes=shapes, max_abs_err=max(s["max_abs_err"] for s in shapes),
-                ms=sum(s["ms"] * s["launches_per_step"] for s in shapes) / 16,
-                plain_ms=sum(s["plain_ms"] * s["launches_per_step"] for s in shapes) / 16)
+    return {"fused_earth_block": shapes}
 
 
 def run_steps(step, upper, surface, n: int):
@@ -218,7 +303,7 @@ def check_slice(model, aux, dev) -> dict:
         (1, m.surface_vars, m.lat, m.lon), generator=gen, device=dev)
 
     torch.cuda.reset_peak_memory_stats(dev)
-    fba.LAUNCHES = 0
+    reset_counts()
     first, last, times = run_steps(make_forecast_step(model, aux), upper, surface, STEPS)
     launches = fba.LAUNCHES
     peak = torch.cuda.max_memory_allocated(dev)
@@ -256,19 +341,15 @@ def check_slice(model, aux, dev) -> dict:
 
 
 def launch_counts() -> dict:
-    return {"fused_earth_block": fba.LAUNCHES,
-            "fused_block_attention": fba.ATTN_FWD_LAUNCHES,
-            "fused_block_attention_bwd": fba.ATTN_BWD_LAUNCHES,
-            "fused_residual_postnorm": fep.FWD_LAUNCHES,
-            "fused_residual_postnorm_bwd": fep.BWD_LAUNCHES,
-            "fused_mlp_postnorm": fmlp.FWD_LAUNCHES,
-            "fused_mlp_postnorm_bwd": fmlp.BWD_LAUNCHES}
+    """Every kernel's launch count (K1 and the training kernels)."""
+    return {"fused_earth_block": fba.LAUNCHES, **bench_train_ab.launch_counts()}
 
 
 def reset_counts() -> None:
     fba.LAUNCHES = fba.ATTN_FWD_LAUNCHES = fba.ATTN_BWD_LAUNCHES = 0
     fep.FWD_LAUNCHES = fep.BWD_LAUNCHES = 0
-    fmlp.FWD_LAUNCHES = fmlp.BWD_LAUNCHES = 0
+    fmlp.FWD_LAUNCHES = fmlp.BWD_LAUNCHES = fmlp.RAW_FWD_LAUNCHES = fmlp.RAW_BWD_LAUNCHES = 0
+    fbt.FWD_LAUNCHES = fbt.BWD_LAUNCHES = 0
 
 
 def compare(got, ref) -> dict:
@@ -323,7 +404,9 @@ def check_attention(g, dev) -> dict:
                 err = check_outputs(f"K2 {label}", {"y": compare(
                     got, fba.fused_block_attention_reference(*fargs[:7], *fargs[9:]))})
                 del got
+                geo = (x.numel() // c, c, heads, stage.n_type_windows, shifted)
                 fwd.append(dict(stage=name, shifted=shifted, max_abs_err=err,
+                                **bound("fused_block_attention", *geo),
                                 ms=cuda_times_ms(lambda: fba.fused_block_attention(*fargs)),
                                 plain_ms=cuda_times_ms(lambda: fba.fused_block_attention_reference(
                                     *fargs[:7], *fargs[9:]), n=6)))
@@ -338,6 +421,7 @@ def check_attention(g, dev) -> dict:
                 torch.cuda.empty_cache()
                 bwd.append(dict(stage=name, shifted=shifted, max_abs_err=err,
                                 plain_peak_bytes=plain_peak,
+                                **bound("fused_block_attention_bwd", *geo),
                                 ms=cuda_times_ms(lambda: fba.fused_block_attention_bwd(*bargs)),
                                 plain_ms=cuda_times_ms(
                                     lambda: fba.fused_block_attention_bwd_reference(*bargs), n=6)))
@@ -371,6 +455,7 @@ def check_residual(g, dev) -> dict:
             err = check_outputs(f"K4 {name}", {"out": compare(
                 got, fep.fused_residual_postnorm_reference(*fargs))})
             fwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
+                            **bound("fused_residual_postnorm", rows, c),
                             ms=cuda_times_ms(lambda: fep.fused_residual_postnorm(
                                 shortcut, a, gamma, beta, s[:, None])),
                             plain_ms=cuda_times_ms(
@@ -381,6 +466,7 @@ def check_residual(g, dev) -> dict:
             err = check_outputs(f"K5 {name}", {n: compare(x, y) for n, x, y in zip(
                 ("da", "dgamma", "dbeta", "ds"), outs, ref)})
             bwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
+                            **bound("fused_residual_postnorm_bwd", rows, c),
                             ms=cuda_times_ms(lambda: fep.fused_residual_postnorm_bwd(*bargs)),
                             plain_ms=cuda_times_ms(
                                 lambda: fep.fused_residual_postnorm_bwd_reference(*bargs))))
@@ -418,6 +504,7 @@ def check_mlp(g, dev) -> dict:
                 got, fmlp.fused_mlp_postnorm_reference(*fargs))})
             del got
             fwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
+                            **bound("fused_mlp_postnorm", rows, c),
                             ms=cuda_times_ms(lambda: fmlp.fused_mlp_postnorm(
                                 x, *weights, s[:, None])),
                             plain_ms=cuda_times_ms(
@@ -433,6 +520,7 @@ def check_mlp(g, dev) -> dict:
             torch.cuda.empty_cache()
             bwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
                             plain_peak_bytes=plain_peak,
+                            **bound("fused_mlp_postnorm_bwd", rows, c),
                             ms=cuda_times_ms(lambda: fmlp.fused_mlp_postnorm_bwd(*bargs)),
                             plain_ms=cuda_times_ms(
                                 lambda: fmlp.fused_mlp_postnorm_bwd_reference(*bargs), n=6)))
@@ -443,6 +531,112 @@ def check_mlp(g, dev) -> dict:
         del fargs, bargs, x, gy, weights
         torch.cuda.empty_cache()
     return {"fused_mlp_postnorm": fwd, "fused_mlp_postnorm_bwd": bwd}
+
+
+def check_raw_mlp(g, dev) -> dict:
+    """Phase 9: K8 and K9 against their plain versions at both stage row
+    counts; all five gradients."""
+    fwd, bwd = [], []
+    names = ("dx", "dw1", "db1", "dw2", "db2")
+    for name, stage, c in (("outer", g.outer, 192), ("inner", g.inner, 384)):
+        gen = torch.Generator(device=dev).manual_seed(50 + len(fwd))
+        rows = stage.z * stage.h_pad * stage.w
+
+        def rn(*shape, std=1.0):
+            return (std * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+        x, gy = rn(rows, c), rn(rows, c)
+        weights = (rn(4 * c, c, std=c ** -0.5), rn(4 * c, std=0.02),
+                   rn(c, 4 * c, std=(4 * c) ** -0.5), rn(c, std=0.02))
+        with torch.no_grad():
+            got = fmlp.fused_mlp(x, *weights)
+            torch.cuda.synchronize()
+            err = check_outputs(f"K8 {name}", {"out": compare(
+                got, fmlp.fused_mlp_reference(x, *weights))})
+            del got
+            fwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
+                            **bound("fused_mlp", rows, c),
+                            ms=cuda_times_ms(lambda: fmlp.fused_mlp(x, *weights)),
+                            plain_ms=cuda_times_ms(lambda: fmlp.fused_mlp_reference(x, *weights),
+                                                   n=6)))
+            outs = fmlp.fused_mlp_bwd(x, gy, *weights)
+            torch.cuda.synchronize()
+            ref = fmlp.fused_mlp_bwd_reference(x, gy, *weights)
+            err = check_outputs(f"K9 {name}", {n: compare(a, b)
+                                               for n, a, b in zip(names, outs, ref)})
+            del outs, ref
+            torch.cuda.empty_cache()
+            bwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
+                            **bound("fused_mlp_bwd", rows, c),
+                            ms=cuda_times_ms(lambda: fmlp.fused_mlp_bwd(x, gy, *weights)),
+                            plain_ms=cuda_times_ms(
+                                lambda: fmlp.fused_mlp_bwd_reference(x, gy, *weights), n=6)))
+        log(f"K8 {name} rows={rows} C={c}: kernel {fwd[-1]['ms']:.4f} ms, plain "
+            f"{fwd[-1]['plain_ms']:.4f} ms, bound {fwd[-1]['bound_ms']:.4f} ms; K9 kernel "
+            f"{bwd[-1]['ms']:.4f} ms, plain {bwd[-1]['plain_ms']:.4f} ms, bound "
+            f"{bwd[-1]['bound_ms']:.4f} ms")
+        del x, gy, weights
+        torch.cuda.empty_cache()
+    return {"fused_mlp": fwd, "fused_mlp_bwd": bwd}
+
+
+def check_block_train(g, dev) -> dict:
+    """Phase 10: K11 and K12 against their plain versions at both stage
+    shapes, unshifted and shifted, with per-sample scales s1 != s2 (all
+    sixteen gradients); K11 at unit scales against K1."""
+    fwd, bwd = [], []
+    s1, s2 = torch.full((1,), 1.25, device=dev), torch.full((1,), 0.8, device=dev)
+    for name, stage, c, heads in (("outer", g.outer, 192, 6), ("inner", g.inner, 384, 12)):
+        for shifted in (False, True):
+            args, statics = block_inputs(stage, c, heads, shifted, dev, seed=60 + len(fwd))
+            gen = torch.Generator(device=dev).manual_seed(70 + len(fwd))
+            gy = torch.randn(args[0].shape, generator=gen, device=dev).to(torch.bfloat16)
+            label = f"{name} {'shifted' if shifted else 'unshifted'}"
+            geo = (args[0].numel() // c, c, heads, stage.n_type_windows, shifted)
+            with torch.no_grad():
+                got = fbt.fused_earth_block_train(*args, s1, s2, *statics)
+                torch.cuda.synchronize()
+                ref = fbt.fused_earth_block_train_reference(*args, s1, s2, *statics)
+                err = check_outputs(f"K11 {label}", {"out": compare(got, ref)})
+                del got, ref
+                one = torch.ones(1, device=dev)
+                check_outputs(f"K11 at unit scales vs K1 {label}", {"out": compare(
+                    fbt.fused_earth_block_train(*args, one, one, *statics),
+                    fba.fused_earth_block(*args, *statics))})
+                fwd.append(dict(stage=name, shifted=shifted, max_abs_err=err,
+                                **bound("fused_earth_block_train", *geo),
+                                ms=cuda_times_ms(
+                                    lambda: fbt.fused_earth_block_train(*args, s1, s2, *statics)),
+                                plain_ms=cuda_times_ms(
+                                    lambda: fbt.fused_earth_block_train_reference(
+                                        *args, s1, s2, *statics), n=6)))
+                bargs = (*args, s1, s2, gy, *statics)
+                grads = fbt.fused_earth_block_train_bwd(*bargs)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                ref = fbt.fused_earth_block_train_bwd_reference(*bargs)
+                plain_peak = torch.cuda.max_memory_allocated(dev)
+                err = check_outputs(f"K12 {label}", {n: compare(a, b) for n, a, b in zip(
+                    fbt.GRAD_NAMES, grads, ref)})
+                del grads, ref
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                fbt.fused_earth_block_train_bwd(*bargs)
+                peak = torch.cuda.max_memory_allocated(dev)
+                bwd.append(dict(stage=name, shifted=shifted, max_abs_err=err,
+                                peak_bytes=peak, plain_peak_bytes=plain_peak,
+                                **bound("fused_earth_block_train_bwd", *geo),
+                                ms=cuda_times_ms(lambda: fbt.fused_earth_block_train_bwd(*bargs)),
+                                plain_ms=cuda_times_ms(
+                                    lambda: fbt.fused_earth_block_train_bwd_reference(*bargs),
+                                    n=4, warmup=1)))
+            log(f"K11 {label}: kernel {fwd[-1]['ms']:.4f} ms, plain {fwd[-1]['plain_ms']:.4f} "
+                f"ms, bound {fwd[-1]['bound_ms']:.4f} ms; K12 kernel {bwd[-1]['ms']:.4f} ms, "
+                f"plain {bwd[-1]['plain_ms']:.4f} ms, bound {bwd[-1]['bound_ms']:.4f} ms (peak "
+                f"memory kernel {peak / 2**30:.3f} GiB, plain {plain_peak / 2**30:.3f} GiB)")
+            del args, bargs, gy
+            torch.cuda.empty_cache()
+    return {"fused_earth_block_train": fwd, "fused_earth_block_train_bwd": bwd}
 
 
 def train_batch(aux, m, dev) -> Batch:
@@ -491,14 +685,11 @@ def check_train(cfg, model, aux, dev) -> dict:
         for k in total:
             total[k] += counts[k]
     peak = torch.cuda.max_memory_allocated(dev)
+    want = {k: TRAIN_LAUNCHES.get(k, 0) for k in counts}
     for counts in runs:
-        got = {k: counts[k] for k in TRAIN_LAUNCHES}
-        if got != TRAIN_LAUNCHES or counts["fused_earth_block"]:
-            raise AssertionError(f"train step launches {counts}, want {TRAIN_LAUNCHES}")
-    if not all(map(math.isfinite, [loss0] + losses)):
-        raise AssertionError(f"train losses not finite: {[loss0] + losses}")
-    if not all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()):
-        raise AssertionError("a gradient of the last train step is not finite")
+        if counts != want:
+            raise AssertionError(f"train step launches {counts}, want {want}")
+    check_finite([loss0] + losses, model)
     unchanged = [k for k, p in model.named_parameters() if torch.equal(p.detach(), w0[k])]
     if unchanged:
         raise AssertionError(f"train steps left parameters unchanged: {unchanged[:5]}")
@@ -513,7 +704,7 @@ def check_train(cfg, model, aux, dev) -> dict:
     model.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
 
-    ref_norm = sum(g.float().pow(2).sum() for g in grads0.values()).sqrt().item()
+    ref = dict(w0=w0, batch=batch)
     for label, kw in (("plain", dict(use_pallas_attention=False)),
                       ("f32", dict(compute_dtype="float32", use_pallas_attention=False))):
         other = PanguModel(dataclasses.replace(m, **kw)).to(dev)
@@ -525,25 +716,90 @@ def check_train(cfg, model, aux, dev) -> dict:
             raise AssertionError(f"the {label} train step launched kernels: {counts}")
         named = dict(other.named_parameters())
         g_ref = {k: named[k].grad.float() for k in grads0}
-        d2 = {k: (grads0[k].float() - g_ref[k]).pow(2).sum().item() for k in grads0}
-        n2 = {k: g.pow(2).sum().item() for k, g in g_ref.items()}
-        rel_l2 = math.sqrt(sum(d2.values()) / sum(n2.values()))
-        leaf = sorted(((math.sqrt(d2[k] / max(n2[k], 1e-30)), k) for k in grads0), reverse=True)
-        worst_bias = [(k, v) for v, k in leaf if k.endswith("earth_specific_bias")][:3]
-        worst = [(k, v) for v, k in leaf if not k.endswith("earth_specific_bias")][:3]
-        loss_dev = abs(loss0 - loss) / abs(loss)
-        log(f"kernel train step vs {label} step: loss {loss0:.6g} vs {loss:.6g} (rel "
-            f"{loss_dev:.6g}), gradient rel L2 {rel_l2:.6g} (|g| kernel {ref_norm:.6g}), worst "
-            f"per-parameter rel L2: earth biases {worst_bias}, others {worst}; {label} step "
-            f"{t:.6f} s, peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
-        results[label] = dict(loss=loss, loss_rel_dev=loss_dev, grad_rel_l2=rel_l2,
-                              worst_bias_rel_l2=worst_bias, worst_other_rel_l2=worst, step_s=t,
+        dev_ = grad_deviation(f"kernel train step vs {label} step", loss0, grads0, loss, g_ref)
+        log(f"  {label} step {t:.6f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+        results[label] = dict(**dev_, loss=loss, step_s=t,
                               peak_bytes=torch.cuda.max_memory_allocated(dev))
-        if label == "plain" and not (loss_dev < TRAIN_LOSS_TOL and rel_l2 < TRAIN_GRAD_TOL
-                                     and worst_bias[0][1] < TRAIN_BIAS_LEAF_TOL
-                                     and worst[0][1] < TRAIN_LEAF_TOL):
-            raise AssertionError("the kernel train step disagrees with the plain bf16 step")
-        del other, named, g_ref
+        if label == "plain":
+            check_train_bounds("the kernel train step", dev_)
+            ref.update(plain_loss=loss, plain_grads=g_ref)
+        del other, named
+        torch.cuda.empty_cache()
+    return results, ref
+
+
+def check_finite(losses, model) -> None:
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train losses not finite: {losses}")
+    if not all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()):
+        raise AssertionError("a gradient of the last train step is not finite")
+
+
+def grad_deviation(label: str, loss0: float, grads0: dict, loss: float, g_ref: dict) -> dict:
+    """Loss deviation, the gradient's global relative L2 and the worst
+    per-parameter relative L2 (earth-specific biases apart) of one step's
+    gradients ``grads0`` against a reference step's ``g_ref``."""
+    d2 = {k: (grads0[k].float() - g_ref[k]).pow(2).sum().item() for k in grads0}
+    n2 = {k: g.pow(2).sum().item() for k, g in g_ref.items()}
+    rel_l2 = math.sqrt(sum(d2.values()) / sum(n2.values()))
+    leaf = sorted(((math.sqrt(d2[k] / max(n2[k], 1e-30)), k) for k in grads0), reverse=True)
+    worst_bias = [(k, v) for v, k in leaf if k.endswith("earth_specific_bias")][:3]
+    worst = [(k, v) for v, k in leaf if not k.endswith("earth_specific_bias")][:3]
+    loss_dev = abs(loss0 - loss) / abs(loss)
+    norm = math.sqrt(sum(g.float().pow(2).sum().item() for g in grads0.values()))
+    log(f"{label}: loss {loss0:.6g} vs {loss:.6g} (rel {loss_dev:.6g}), gradient rel L2 "
+        f"{rel_l2:.6g} (|g| {norm:.6g}), worst per-parameter rel L2: earth biases "
+        f"{worst_bias}, others {worst}")
+    return dict(loss_rel_dev=loss_dev, grad_rel_l2=rel_l2, worst_bias_rel_l2=worst_bias,
+                worst_other_rel_l2=worst)
+
+
+def check_train_bounds(label: str, d: dict) -> None:
+    """The bounds of phase 8 against the plain bf16 step."""
+    if not (d["loss_rel_dev"] < TRAIN_LOSS_TOL and d["grad_rel_l2"] < TRAIN_GRAD_TOL
+            and d["worst_bias_rel_l2"][0][1] < TRAIN_BIAS_LEAF_TOL
+            and d["worst_other_rel_l2"][0][1] < TRAIN_LEAF_TOL):
+        raise AssertionError(f"{label} disagrees with the plain bf16 step")
+
+
+def check_ab(cfg, aux, ref, dev) -> dict:
+    """Phase 11: the A/B routes through the A/B script's helpers, each from
+    phase 8's weights, batch and drop-path draws against the plain bf16 step,
+    then timed."""
+    results = {}
+    for name, per_step in AB_LAUNCHES.items():
+        want = {k: per_step.get(k, 0) for k in launch_counts()}
+        with bench_train_ab.variant_flags(name):
+            model = PanguModel(cfg.model).to(dev)
+            model.load_state_dict(ref["w0"])
+            step = make_train_step(model, cfg, make_optimizer(model, cfg))
+            torch.cuda.reset_peak_memory_stats(dev)
+            loss0, t_first, counts = timed_train_step(
+                step, ref["batch"], aux, torch.Generator(device=dev).manual_seed(3))
+            if counts != want:
+                raise AssertionError(f"{name} step launches {counts}, want {want}")
+            check_finite([loss0], model)
+            grads0 = {k: p.grad.clone() for k, p in model.named_parameters()}
+            d = grad_deviation(f"{name} train step vs plain step", loss0, grads0,
+                               ref["plain_loss"], ref["plain_grads"])
+            check_train_bounds(f"the {name} train step", d)
+            del grads0
+            gen, losses = torch.Generator(device=dev).manual_seed(4), []
+            reset_counts()
+            times = bench_train_ab.timed_steps(
+                lambda: losses.append(step(ref["batch"], aux, gen).item()), 0, STEPS, dev)
+            launches = launch_counts()
+            if launches != {k: v * STEPS for k, v in want.items()}:
+                raise AssertionError(f"{name}: {launches} launches in {STEPS} steps")
+            check_finite(losses, model)
+            peak = torch.cuda.max_memory_allocated(dev)
+        results[name] = dict(**d, loss=loss0, first_step_s=t_first, times_s=times,
+                             step_s=statistics.median(times), peak_bytes=peak,
+                             launches={k: v for k, v in launches.items() if v})
+        log(f"A/B {name}: first step {t_first:.6f} s, timed {[round(t, 6) for t in times]} s, "
+            f"launches per step {per_step}, peak memory {peak / 2**30:.3f} GiB")
+        del model, step
         torch.cuda.empty_cache()
     return results
 
@@ -563,36 +819,33 @@ def main() -> int:
     sl = check_slice(model, aux, dev)
     log(f"slice: kernel step {sl['step_s']:.6f} s, plain step {sl['plain']['step_s']:.6f} s, "
         f"f32 step {sl['f32']['step_s']:.6f} s")
-    train_kernels = {**check_attention(model.geom, dev), **check_residual(model.geom, dev),
-                     **check_mlp(model.geom, dev)}
-    tr = check_train(cfg, model, aux, dev)
+    shapes = {**kern, **check_attention(model.geom, dev), **check_residual(model.geom, dev),
+              **check_mlp(model.geom, dev), **check_raw_mlp(model.geom, dev),
+              **check_block_train(model.geom, dev)}
+    tr, ref = check_train(cfg, model, aux, dev)
     log(f"train slice: kernel step {tr['step_s']:.6f} s, plain bf16 step "
         f"{tr['plain']['step_s']:.6f} s, f32 step {tr['f32']['step_s']:.6f} s")
+    del model
+    torch.cuda.empty_cache()
+    ab = check_ab(cfg, aux, ref, dev)
+    log(f"A/B: default route {tr['step_s']:.6f} s, fused_block "
+        f"{ab['fused_block']['step_s']:.6f} s, unfused_tail {ab['unfused_tail']['step_s']:.6f} s")
 
-    log("detail: " + json.dumps({"fused_earth_block": kern["shapes"], "slice": sl,
-                                 **train_kernels, "train": tr}))
-    replaces = {"fused_block_attention": "pangu_tpu/ops/fused_block_attention.py:188",
-                "fused_block_attention_bwd": "pangu_tpu/ops/fused_block_attention.py:410",
-                "fused_residual_postnorm": "pangu_tpu/ops/fused_epilogue.py:87",
-                "fused_residual_postnorm_bwd": "pangu_tpu/ops/fused_epilogue.py:138",
-                "fused_mlp_postnorm": "pangu_tpu/ops/fused_mlp.py:470",
-                "fused_mlp_postnorm_bwd": "pangu_tpu/ops/fused_mlp.py:526"}
-    sources = {"fused_block_attention": "block_attention.cu",
-               "fused_residual_postnorm": "fused_epilogue.cu", "fused_mlp_postnorm": "fused_mlp.cu"}
-    kernels = [{
-        "name": "fused_earth_block", "route": "cuda",
-        "source": "pangu_tpu_torch/csrc/fused_earth_block.cu",
-        "replaces": "pangu_tpu/ops/fused_block_attention.py:555",
-        "launches": sl["launches"], "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-    }]
-    for name, shapes in train_kernels.items():
+    log("detail: " + json.dumps({"slice": sl, **shapes, "train": tr, "ab": ab}))
+    # launches over the run of each kernel's path
+    launches = {"fused_earth_block": sl["launches"], **tr["launches"],
+                **{k: ab["unfused_tail"]["launches"][k] for k in ("fused_mlp", "fused_mlp_bwd")},
+                **{k: ab["fused_block"]["launches"][k]
+                   for k in ("fused_earth_block_train", "fused_earth_block_train_bwd")}}
+    kernels = []
+    for name, (replaces, source) in KERNELS.items():
+        sh = shapes[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "pangu_tpu_torch/csrc/" + sources[name.removesuffix("_bwd")],
-            "replaces": replaces[name], "launches": tr["launches"][name],
-            "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
-            "ms": mix(shapes, "ms"), "plain_ms": mix(shapes, "plain_ms"),
+            "name": name, "route": "cuda", "source": "pangu_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(x["max_abs_err"] for x in sh),
+            "ms": mix(sh, "ms"), "plain_ms": mix(sh, "plain_ms"),
+            "bound_ms": mix(sh, "bound_ms"), "bound_by": sh[0]["bound_by"], "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,12 +3,13 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The port of :mod:`pangu_tpu`, module for module: ``aux``, ``ops``,
 ``model``, ``interop``, ``rollout``, ``metrics`` and ``train`` each mirror
-their JAX counterpart, which stays the numerical reference. The jax-free parts of ``pangu_tpu``
-(``config``, ``geometry``, ``utils.flops``, ``interop.torch_import``) are
-imported, not copied; nothing in this package imports jax.
+their JAX counterpart, which stays the numerical reference. The port keeps
+its own copies of the JAX package's jax-free modules (``config``,
+``geometry``, ``utils.flops``, ``interop.torch_import``); nothing in this
+package imports jax or any module of ``pangu_tpu``.
 
 Parameter names and shapes equal the reference torch state dict
-(``pangu_tpu.interop.torch_import.reference_key_map``), so a reference
+(``pangu_tpu_torch.interop.torch_import.reference_key_map``), so a reference
 ``.pth`` loads with ``load_state_dict`` and JAX params convert through
 :func:`pangu_tpu_torch.interop.from_jax.load_jax_params`.
 """
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from pangu_tpu.config import (  # noqa: F401
+from pangu_tpu_torch.config import (  # noqa: F401
     ModelConfig,
     PanguConfig,
     TrainConfig,

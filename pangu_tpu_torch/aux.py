@@ -21,8 +21,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from pangu_tpu.config import ModelConfig, TrainConfig
-from pangu_tpu.geometry import compute_geometry
+from pangu_tpu_torch.config import ModelConfig, TrainConfig
+from pangu_tpu_torch.geometry import compute_geometry
 
 
 @dataclass
@@ -55,9 +55,10 @@ def _on(device, **arrays) -> dict:
 
 
 def synthetic_aux_constants(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                            seed: int = 0, device="cpu") -> AuxConstants:
+                            seed: int = 0, device="cuda") -> AuxConstants:
     """Deterministic stand-in constants, equal to
-    ``pangu_tpu.aux.synthetic_aux_constants`` for the same seed."""
+    ``pangu_tpu.aux.synthetic_aux_constants`` for the same seed, on
+    ``device`` (the card unless the caller asks for the CPU)."""
     g = compute_geometry(model_cfg)
     rng = np.random.default_rng(seed)
     vs, vu, L = model_cfg.surface_vars, model_cfg.upper_vars, model_cfg.levels
@@ -84,10 +85,11 @@ def synthetic_aux_constants(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
 def load_aux_constants(model_cfg: ModelConfig, train_cfg: TrainConfig,
                        aux_dir: Optional[str] = None, horizon: int = 24,
-                       device="cpu") -> AuxConstants:
+                       device="cuda") -> AuxConstants:
     """Real constants from ``aux_dir`` (the files the ONNX importer writes:
     surface_mean/std.npy, upper_mean/std.npy, constantMask{h}.npy,
-    Constant_17_output_0.npy, optional custom_mask.npy), else synthetic."""
+    Constant_17_output_0.npy, optional custom_mask.npy), else synthetic; on
+    ``device`` (the card unless the caller asks for the CPU)."""
     if not (aux_dir and os.path.isdir(aux_dir)):
         return synthetic_aux_constants(model_cfg, train_cfg, device=device)
 

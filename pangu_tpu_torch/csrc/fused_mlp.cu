@@ -1,12 +1,16 @@
-// MLP tail of an Earth-Specific block in training, bf16 -- CUDA for Hopper
-// (sm_90a), forward and backward.
+// MLP of an Earth-Specific block in training, bf16 -- CUDA for Hopper
+// (sm_90a): the MLP tail with its post-norm residual, and the raw MLP, each
+// forward and backward.
 //
 // Replaces pangu_tpu/ops/fused_mlp.py::fused_mlp_postnorm (K6, the Pallas
 // kernel _make_postnorm_fwd_kernel) and its backward _postnorm_bwd (K7,
-// _make_postnorm_bwd_kernel). Per token row of x (rows, C):
+// _make_postnorm_bwd_kernel), and fused_mlp (K8, _make_raw_fwd_kernel) with
+// its backward _raw_bwd (K9, _make_raw_bwd_kernel). Per token row of x (rows, C):
 //
-//   forward   out = bf16(x + s * LN(GELU(x @ W1^T + b1) @ W2^T + b2))
-//   backward  dx, dW1, db1, dW2, db2, dgamma, dbeta, ds from g = dL/dout
+//   K6  out = bf16(x + s * LN(GELU(x @ W1^T + b1) @ W2^T + b2))
+//   K7  dx, dW1, db1, dW2, db2, dgamma, dbeta, ds from g = dL/dout
+//   K8  out = bf16(GELU(x @ W1^T + b1) @ W2^T + b2)
+//   K9  dx = bf16(dh W1), dW1, db1, dW2, db2 from g = dL/dout
 //
 // with the rounding points of the Pallas bodies: the GELU hidden a, the LN
 // input gradient dy and the hidden gradient dh are rounded to bf16 where they
@@ -36,16 +40,25 @@
 //      split over the rows with f32 partials summed in order.
 //    Every cross-CTA sum goes through per-CTA partials reduced in a fixed
 //    order (reduce_partials): the result is the same on every run.
+//  * mlp_raw_kernel<C> (K8): K6 without the LayerNorm and the residual.
+//  * K9 is K7 without its row pass: the hidden pass (mlp_hidden_bwd_rows) runs
+//    on g itself as the output gradient and adds no residual to dx; db2 is
+//    the column sum of g (gemm.cuh colsum), dW2 = g^T a and dW1 = dh^T x the
+//    row-split products. The Pallas body carries dW1, dW2, db1 and db2 in VMEM
+//    across its sequential grid; here they are per-CTA f32 partials summed in
+//    order, as above.
 //
 // What bounds it on an H100: ~4 x rows x C x 4C FLOP forward (316 GFLOP at
 // the outer stage) against two (rows, C) bf16 passes (0.4 GB): compute; the
 // backward does ~3x the FLOP and moves the two hidden slabs (1.6 GB at the
-// outer stage) once each way. The products are wmma fragments loaded from
-// shared memory, as in K1's tail; wgmma is later work.
+// outer stage) once each way. K8/K9 are bound the same way. The products are
+// wmma fragments loaded from shared memory, as in K1's tail; wgmma is later
+// work.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // pangu_tpu_torch/ops/fused_mlp.py; the plain PyTorch versions are
-// fused_mlp_postnorm_reference and fused_mlp_postnorm_bwd_reference there.
+// fused_mlp_postnorm_reference, fused_mlp_postnorm_bwd_reference,
+// fused_mlp_reference and fused_mlp_bwd_reference there.
 
 #include "gemm.cuh"
 #include "mlp_tile.cuh"
@@ -55,40 +68,18 @@ namespace {
 template <int C>
 struct MlpLayout : MlpTile<C> {
   using M = MlpTile<C>;
-  static constexpr int WR_LD = C + 8;  // staged (32, C) chunk of W1 rows (dx)
   // forward: x, h, bf16 hidden, two stages; y (f32) reuses it all after the MLP
   static constexpr int F_WORK = M::XB_BYTES + M::H_BYTES + M::HB_BYTES + 2 * M::STAGE_BYTES;
   static constexpr int F_RED = 3 * TAIL_WARPS * C * 4;  // backward partials, at the end
   static constexpr int F_SMEM = cmax(cmax(F_WORK, M::Y_BYTES), F_RED);
   // hidden backward: x, dy, h, dP (then dh), bf16 dh, two stages, db1 sums
-  static constexpr int B_STAGE = cmax(2 * HC * M::W1_LD * 2, 32 * WR_LD * 2);
+  static constexpr int B_STAGE = hidden_bwd_stage_bytes<C>();
   static constexpr int B_ROWS = 2 * M::XB_BYTES + 2 * M::H_BYTES;  // dx f32 reuses it
   static constexpr int B_SMEM = B_ROWS + M::HB_BYTES + 2 * B_STAGE + 4 * C * 4;
   static_assert(B_STAGE % 32 == 0, "wmma needs 256-bit aligned tiles");
   static_assert(M::Y_BYTES <= B_ROWS, "dx fits the row buffers");
   static_assert(F_SMEM <= 232448 && B_SMEM <= 232448, "fits one CTA's shared memory");
 };
-
-// d/dh GELU(h) = Phi(h) + h phi(h), exact-erf form
-__device__ __forceinline__ float gelu_grad(float h) {
-  return 0.5f * (1.f + erff(h * 0.70710678118654752f)) +
-         h * expf(-0.5f * h * h) * 0.3989422804014327f;
-}
-
-// CTAs of `kernel` that fit the card at once: the grid of the row loops.
-template <class K>
-int resident_ctas(K kernel, int smem, long long tiles) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TAIL_THREADS, smem) !=
-          cudaSuccess)
-    return 0;
-  const long long n = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  return (int)(n < tiles ? n : tiles);
-}
 
 // K6 (BWD false): out = bf16(x + s * LN(y)). Backward pass 1 (BWD true): ds,
 // dy = bf16(LN backward of s g) and the per-CTA partials of dgamma, dbeta, db2.
@@ -194,10 +185,9 @@ mlp_postnorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   }
 }
 
-// Backward pass 2: per 64-column hidden chunk, recompute h = x W1^T + b1 beside
-// dP = dy W2[:, chunk]; a = bf16(GELU(h)) and dh = bf16(dP GELU'(h)) go to their
-// (rows, 4C) slabs, db1 sums the f32 dh, dx accumulates dh W1[chunk, :]; then
-// dx = bf16(dx + g). Loops over 48-row tiles; db1 partials per CTA.
+// Backward pass 2: the hidden pass (mlp_hidden_bwd_rows) with dy as the MLP
+// output's gradient; then dx = bf16(dh W1 + g), or bf16(dh W1) with gy null
+// (K9). Loops over 48-row tiles; db1 partials per CTA.
 template <int C>
 __global__ void __launch_bounds__(TAIL_THREADS, 1)
 mlp_hidden_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
@@ -217,7 +207,7 @@ mlp_hidden_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   bf16* S1 = S0 + L::B_STAGE / 2;
   float* db1 = reinterpret_cast<float*>(smem + L::B_ROWS + L::HB_BYTES + 2 * L::B_STAGE);
   float* Ds = reinterpret_cast<float*>(smem);  // dx, after the last chunk
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int mt = warp >> 2, ng = warp & 3;
   for (int c = threadIdx.x; c < H4; c += TAIL_THREADS) db1[c] = 0.f;
 
@@ -228,78 +218,9 @@ mlp_hidden_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     cp_async_commit();  // completed by the first chunk's wait
     FragC dacc[L::NT];
     for (int i = 0; i < L::NT; ++i) wmma::fill_fragment(dacc[i], 0.f);
-    for (int h0 = 0; h0 < H4; h0 += HC) {
-      FragC hacc, pacc;
-      wmma::fill_fragment(hacc, 0.f);
-      wmma::fill_fragment(pacc, 0.f);
-      // h and dP together over C in steps of 64: W1 rows h0.. (col-major B) and
-      // W2 columns h0.. (row-major B) of the same 64 input channels
-      pipelined(
-          C / 64, S0, S1,
-          [&](int i, bf16* st) {
-            stage_tile(st, L::W1_LD, w1 + (long long)h0 * C + i * 64, C, HC, 64);
-            stage_tile(st + HC * L::W1_LD, L::W1_LD, w2 + (long long)i * 64 * H4 + h0, H4, 64,
-                       HC);
-          },
-          [&](int i, bf16* st) {
-            for (int kk = 0; kk < 64; kk += 16) {
-              FragA a, d;
-              wmma::load_matrix_sync(a, XB + mt * 16 * L::XB_LD + i * 64 + kk, L::XB_LD);
-              wmma::load_matrix_sync(d, DB + mt * 16 * L::XB_LD + i * 64 + kk, L::XB_LD);
-              FragBt w;
-              wmma::load_matrix_sync(w, st + ng * 16 * L::W1_LD + kk, L::W1_LD);
-              wmma::mma_sync(hacc, a, w, hacc);
-              FragB w2f;
-              wmma::load_matrix_sync(w2f, st + HC * L::W1_LD + kk * L::W1_LD + ng * 16, L::W1_LD);
-              wmma::mma_sync(pacc, d, w2f, pacc);
-            }
-          });
-      float* Ht = H + mt * 16 * L::H_LD + ng * 16;
-      float* Pt = P + mt * 16 * L::H_LD + ng * 16;
-      wmma::store_matrix_sync(Ht, hacc, L::H_LD, wmma::mem_row_major);
-      wmma::store_matrix_sync(Pt, pacc, L::H_LD, wmma::mem_row_major);
-      __syncwarp();
-      {  // lane: row r of the warp's 16 x 16 tile, 8 columns from c0
-        const int r = lane >> 1, c0 = (lane & 1) * 8;
-        const long long at = (row0 + mt * 16 + r) * H4 + h0 + ng * 16 + c0;
-        __align__(16) bf16 av[8], dv[8];
-        for (int e = 0; e < 8; ++e) {
-          const float h = Ht[r * L::H_LD + c0 + e] + __bfloat162float(b1[h0 + ng * 16 + c0 + e]);
-          const float dh = Pt[r * L::H_LD + c0 + e] * gelu_grad(h);
-          av[e] = __float2bfloat16(gelu(h));
-          dv[e] = __float2bfloat16(dh);
-          Pt[r * L::H_LD + c0 + e] = dh;
-          HB[(mt * 16 + r) * L::HB_LD + ng * 16 + c0 + e] = dv[e];
-        }
-        *reinterpret_cast<uint4*>(a_out + at) = *reinterpret_cast<const uint4*>(av);
-        *reinterpret_cast<uint4*>(dh_out + at) = *reinterpret_cast<const uint4*>(dv);
-      }
-      // dx += dh W1[h0:h0+64, :] (row-major B), 32 hidden rows per stage; the
-      // first barrier inside makes every warp's dh tile visible
-      pipelined(
-          HC / 32, S0, S1,
-          [&](int i, bf16* st) {
-            stage_tile(st, L::WR_LD, w1 + (long long)(h0 + i * 32) * C, C, 32, C);
-          },
-          [&](int i, bf16* st) {
-            for (int kk = 0; kk < 32; kk += 16) {
-              FragA a;
-              wmma::load_matrix_sync(a, HB + mt * 16 * L::HB_LD + i * 32 + kk, L::HB_LD);
-              for (int j = 0; j < L::NT; ++j) {
-                FragB w;
-                wmma::load_matrix_sync(w, st + kk * L::WR_LD + (ng + 4 * j) * 16, L::WR_LD);
-                wmma::mma_sync(dacc[j], a, w, dacc[j]);
-              }
-            }
-          });
-      // db1 of the chunk: column sums of the f32 dh, rows in order
-      for (int c = threadIdx.x; c < HC; c += TAIL_THREADS) {
-        float acc = 0.f;
-        for (int r = 0; r < TAIL_ROWS; ++r) acc += P[r * L::H_LD + c];
-        db1[h0 + c] += acc;
-      }
-    }
-    __syncthreads();  // P is read: dx goes over the row buffers
+    mlp_hidden_bwd_rows<C>(XB, DB, H, P, HB, S0, S1, w1, b1, w2, a_out, dh_out, row0, db1, dacc,
+                           [](int) {});
+    // P is read (the pass ends with a barrier): dx goes over the row buffers
     for (int j = 0; j < L::NT; ++j)
       wmma::store_matrix_sync(Ds + mt * 16 * L::Y_LD + (ng + 4 * j) * 16, dacc[j], L::Y_LD,
                               wmma::mem_row_major);
@@ -307,12 +228,49 @@ mlp_hidden_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     for (int v = threadIdx.x; v < TAIL_ROWS * C; v += TAIL_THREADS) {
       const int r = v / C, c = v - r * C;
       const long long at = (row0 + r) * C + c;
-      dx[at] = __float2bfloat16(Ds[r * L::Y_LD + c] + __bfloat162float(gy[at]));
+      dx[at] = __float2bfloat16(Ds[r * L::Y_LD + c] + (gy ? __bfloat162float(gy[at]) : 0.f));
     }
     __syncthreads();  // dx is read: the next tile stages over it
   }
   for (int c = threadIdx.x; c < H4; c += TAIL_THREADS)
     db1_part[(long long)blockIdx.x * H4 + c] = db1[c];
+}
+
+// K8: out = bf16(GELU(x W1^T + b1) W2^T + b2). Loops over 48-row tiles.
+template <int C>
+__global__ void __launch_bounds__(TAIL_THREADS, 1)
+mlp_raw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+               const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+               const bf16* __restrict__ b2, bf16* __restrict__ out, long long tiles) {
+  using L = MlpLayout<C>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* XB = reinterpret_cast<bf16*>(smem);
+  float* H = reinterpret_cast<float*>(smem + L::XB_BYTES);
+  bf16* HB = reinterpret_cast<bf16*>(smem + L::XB_BYTES + L::H_BYTES);
+  bf16* S0 = reinterpret_cast<bf16*>(smem + L::XB_BYTES + L::H_BYTES + L::HB_BYTES);
+  bf16* S1 = S0 + L::STAGE_BYTES / 2;
+  float* Ys = reinterpret_cast<float*>(smem);  // after the MLP
+  const int warp = threadIdx.x >> 5;
+  const int mt = warp >> 2, ng = warp & 3;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * TAIL_ROWS;
+    stage_tile(XB, L::XB_LD, x + row0 * C, C, TAIL_ROWS, C);
+    cp_async_commit();
+    FragC yacc[L::NT];
+    mlp_rows<C>(XB, H, HB, S0, S1, w1, b1, w2, yacc);
+    for (int j = 0; j < L::NT; ++j)
+      wmma::store_matrix_sync(Ys + mt * 16 * L::Y_LD + (ng + 4 * j) * 16, yacc[j], L::Y_LD,
+                              wmma::mem_row_major);
+    __syncthreads();
+    for (int v = threadIdx.x; v < TAIL_ROWS * C / 8; v += TAIL_THREADS) {
+      const int r = v / (C / 8), c = (v - r * (C / 8)) * 8;
+      __align__(16) bf16 o[8];
+      for (int e = 0; e < 8; ++e)
+        o[e] = __float2bfloat16(Ys[r * L::Y_LD + c + e] + __bfloat162float(b2[c + e]));
+      *reinterpret_cast<uint4*>(out + (row0 + r) * C + c) = *reinterpret_cast<const uint4*>(o);
+    }
+    __syncthreads();  // y is read: the next tile stages over it
+  }
 }
 
 struct Args {
@@ -371,6 +329,50 @@ cudaError_t launch_bwd(const Args& p, cudaStream_t stream) {
     return err;
   // dW2 (C, 4C) = dy^T a and dW1 (4C, C) = dh^T x, over the rows
   if ((err = gemm<false, true>(p.dy, C, p.a, 4 * C, C, 4 * C, p.rows,
+                               weight_grad_splits(C, 4 * C, p.rows), nullptr, p.dw2, p.part,
+                               stream)) != cudaSuccess)
+    return err;
+  return gemm<false, true>(p.dh, 4 * C, p.x, C, 4 * C, C, p.rows,
+                           weight_grad_splits(4 * C, C, p.rows), nullptr, p.dw1, p.part, stream);
+}
+
+template <int C>
+cudaError_t launch_raw_fwd(const Args& p, cudaStream_t stream) {
+  using L = MlpLayout<C>;
+  const long long tiles = p.rows / TAIL_ROWS;
+  const int grid = resident_ctas(mlp_raw_kernel<C>, L::F_SMEM, tiles);
+  if (grid < 1) return cudaErrorInvalidValue;
+  mlp_raw_kernel<C><<<grid, TAIL_THREADS, L::F_SMEM, stream>>>(p.x, p.w1, p.b1, p.w2, p.b2,
+                                                               p.out, tiles);
+  return cudaGetLastError();
+}
+
+template <int C>
+long long raw_bwd_scratch(long long rows) {
+  using L = MlpLayout<C>;
+  const long long g2 = resident_ctas(mlp_hidden_bwd_kernel<C>, L::B_SMEM, rows / TAIL_ROWS);
+  long long n = g2 * 4 * C;
+  if ((long long)COLSUM_BLOCKS * C > n) n = (long long)COLSUM_BLOCKS * C;
+  const long long w = (long long)weight_grad_splits(C, 4 * C, rows) * 4 * C * C;
+  return w > n ? w : n;
+}
+
+// K9: the hidden pass on g (no residual in dx), db1, db2 = sum of g, then
+// dW2 = g^T a and dW1 = dh^T x over the rows.
+template <int C>
+cudaError_t launch_raw_bwd(const Args& p, cudaStream_t stream) {
+  using L = MlpLayout<C>;
+  const long long tiles = p.rows / TAIL_ROWS;
+  const int g2 = resident_ctas(mlp_hidden_bwd_kernel<C>, L::B_SMEM, tiles);
+  if (g2 < 1) return cudaErrorInvalidValue;
+  mlp_hidden_bwd_kernel<C><<<g2, TAIL_THREADS, L::B_SMEM, stream>>>(
+      p.x, p.gy, nullptr, p.w1, p.b1, p.w2, p.a, p.dh, p.out, p.part, tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = reduce_partials(p.part, g2, 4LL * C, p.db1, nullptr, stream)) != cudaSuccess ||
+      (err = colsum(p.gy, p.rows, C, p.part, p.db2, stream)) != cudaSuccess)
+    return err;
+  if ((err = gemm<false, true>(p.gy, C, p.a, 4 * C, C, 4 * C, p.rows,
                                weight_grad_splits(C, 4 * C, p.rows), nullptr, p.dw2, p.part,
                                stream)) != cudaSuccess)
     return err;
@@ -456,6 +458,67 @@ int pangu_mlp_postnorm_bwd(const void* x, const void* gy, const void* w1, const 
   switch (C) {
     case 192: return (int)launch_bwd<192>(p, st);
     case 384: return (int)launch_bwd<384>(p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K8 on `stream`: out = bf16(GELU(x W1^T + b1) W2^T + b2). C 192 or 384 and rows
+// a multiple of 96, else cudaErrorInvalidValue.
+int pangu_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                  void* out, long long rows, int C, void* stream) {
+  if (!rows_ok(rows)) return (int)cudaErrorInvalidValue;
+  Args p{};
+  p.x = static_cast<const bf16*>(x);
+  p.w1 = static_cast<const bf16*>(w1);
+  p.b1 = static_cast<const bf16*>(b1);
+  p.w2 = static_cast<const bf16*>(w2);
+  p.b2 = static_cast<const bf16*>(b2);
+  p.out = static_cast<bf16*>(out);
+  p.rows = rows;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 192: return (int)launch_raw_fwd<192>(p, st);
+    case 384: return (int)launch_raw_fwd<384>(p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// f32 elements of scratch that pangu_mlp_bwd needs (0: C or rows not taken).
+long long pangu_mlp_bwd_scratch(long long rows, int C) {
+  if (!rows_ok(rows)) return 0;
+  switch (C) {
+    case 192: return raw_bwd_scratch<192>(rows);
+    case 384: return raw_bwd_scratch<384>(rows);
+    default: return 0;
+  }
+}
+
+// K9 on `stream`, from gy = dL/dout: dx (rows, C), dw1 (4C, C), db1 (4C), dw2
+// (C, 4C), db2 (C), all bf16. a_buf and dh_buf (rows, 4C) are bf16 scratch,
+// scratch has pangu_mlp_bwd_scratch(rows, C) floats.
+int pangu_mlp_bwd(const void* x, const void* gy, const void* w1, const void* b1, const void* w2,
+                  void* a_buf, void* dh_buf, void* scratch, void* dx, void* dw1, void* db1,
+                  void* dw2, void* db2, long long rows, int C, void* stream) {
+  if (!rows_ok(rows)) return (int)cudaErrorInvalidValue;
+  Args p{};
+  p.x = static_cast<const bf16*>(x);
+  p.gy = static_cast<const bf16*>(gy);
+  p.w1 = static_cast<const bf16*>(w1);
+  p.b1 = static_cast<const bf16*>(b1);
+  p.w2 = static_cast<const bf16*>(w2);
+  p.a = static_cast<bf16*>(a_buf);
+  p.dh = static_cast<bf16*>(dh_buf);
+  p.part = static_cast<float*>(scratch);
+  p.out = static_cast<bf16*>(dx);
+  p.dw1 = static_cast<bf16*>(dw1);
+  p.db1 = static_cast<bf16*>(db1);
+  p.dw2 = static_cast<bf16*>(dw2);
+  p.db2 = static_cast<bf16*>(db2);
+  p.rows = rows;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 192: return (int)launch_raw_bwd<192>(p, st);
+    case 384: return (int)launch_raw_bwd<384>(p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,12 @@
 // A tiled bf16 matrix product with f32 accumulation, and column sums, for the
 // training attention (block_attention.cu): the out-projection of the forward
 // (K2) and, in the backward (K3), dx = dqkv @ Wqkv and the deep weight-grad
-// products dWqkv = dqkv^T @ x and dWproj = g^T @ acc over every token row.
+// products dWqkv = dqkv^T @ x and dWproj = g^T @ acc over every token row;
+// the weight grads of the MLP backwards (fused_mlp.cu), and the products of
+// the training block backward K12 (fused_block_train.cu), whose dx is the sum
+// of two products and an addend (gemm_sum).
 //
-//   out(m, n) = sum_k A(m, k) B(k, n)
+//   out(m, n) = sum_k A(m, k) B(k, n)  [+ sum_k A2(m, k) B2(k, n) + addend(m, n)]
 //   A(m, k) = A[m * lda + k] (A_ROW) or A[k * lda + m] (A stored transposed)
 //   B(k, n) = B[k * ldb + n] (B_ROW) or B[n * ldb + k] (B stored transposed)
 //
@@ -45,7 +48,9 @@ template <bool A_ROW, bool B_ROW>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ B,
             long long ldb, int M, int N, long long kchunk, long long K,
-            const bf16* __restrict__ bias, bf16* __restrict__ out_bf16,
+            const bf16* __restrict__ A2, long long lda2, const bf16* __restrict__ B2,
+            long long ldb2, long long K2, const bf16* __restrict__ bias,
+            const bf16* __restrict__ addend, bf16* __restrict__ out_bf16,
             float* __restrict__ out_f32) {
   __shared__ __align__(128) unsigned char smem[G_SMEM];
   bf16* st0 = reinterpret_cast<bf16*>(smem);
@@ -62,19 +67,24 @@ gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ 
   for (int i = 0; i < 2; ++i)
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
   const int nk = kend > kbeg ? (int)((kend - kbeg) / GK) : 0;
-  if (nk > 0)
+  const int nk2 = (int)(K2 / GK);  // the second product (one K slice only)
+  if (nk + nk2 > 0)
     pipelined(
-        nk, st0, st0 + G_STAGE_ELEMS,
+        nk + nk2, st0, st0 + G_STAGE_ELEMS,
         [&](int i, bf16* st) {
-          const long long k0 = kbeg + (long long)i * GK;
+          const bool first = i < nk;
+          const bf16* a = first ? A : A2;
+          const bf16* b = first ? B : B2;
+          const long long la = first ? lda : lda2, lb = first ? ldb : ldb2;
+          const long long k0 = first ? kbeg + (long long)i * GK : (long long)(i - nk) * GK;
           if (A_ROW)
-            stage_tile(st, A_LD, A + m0 * lda + k0, lda, GM, GK);
+            stage_tile(st, A_LD, a + m0 * la + k0, la, GM, GK);
           else
-            stage_tile(st, A_LD, A + k0 * lda + m0, lda, GK, GM);
+            stage_tile(st, A_LD, a + k0 * la + m0, la, GK, GM);
           if (B_ROW)
-            stage_tile(st + G_A_ELEMS, B_LD, B + k0 * ldb + n0, ldb, GK, GN);
+            stage_tile(st + G_A_ELEMS, B_LD, b + k0 * lb + n0, lb, GK, GN);
           else
-            stage_tile(st + G_A_ELEMS, B_LD, B + (long long)n0 * ldb + k0, ldb, GN, GK);
+            stage_tile(st + G_A_ELEMS, B_LD, b + (long long)n0 * lb + k0, lb, GN, GK);
         },
         [&](int, bf16* st) {
           const bf16* As = st;
@@ -114,6 +124,7 @@ gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ 
       for (int e = 0; e < 8; ++e) {
         float y = Cs[r * G_C_LD + c + e];
         if (bias) y += __bfloat162float(bias[n0 + c + e]);
+        if (addend) y += __bfloat162float(addend[(m0 + r) * N + n0 + c + e]);
         tmp[e] = __float2bfloat16(y);
       }
       *reinterpret_cast<uint4*>(out_bf16 + (m0 + r) * N + n0 + c) =
@@ -140,11 +151,25 @@ cudaError_t gemm(const bf16* A, long long lda, const bf16* B, long long ldb, int
   long long kchunk = (K / GK + splits - 1) / splits * GK;
   const dim3 grid(M / GM, N / GN, splits);
   gemm_kernel<A_ROW, B_ROW><<<grid, GEMM_THREADS, 0, stream>>>(
-      A, lda, B, ldb, M, N, kchunk, K, splits == 1 ? bias : nullptr,
-      splits == 1 ? out_bf16 : nullptr, part);
+      A, lda, B, ldb, M, N, kchunk, K, nullptr, 0, nullptr, 0, 0, splits == 1 ? bias : nullptr,
+      nullptr, splits == 1 ? out_bf16 : nullptr, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   return reduce_partials(part, splits, (long long)M * N, out_bf16, nullptr, stream);
+}
+
+// out_bf16 = bf16(A B + A2 B2 (+ addend)), M x N, depths K and K2 (multiples
+// of 32), both products in the layouts A_ROW, B_ROW; addend (M x N bf16, row
+// stride N) may be null. The constraints of gemm, one K slice.
+template <bool A_ROW, bool B_ROW>
+cudaError_t gemm_sum(const bf16* A, long long lda, const bf16* B, long long ldb, long long K,
+                     const bf16* A2, long long lda2, const bf16* B2, long long ldb2, long long K2,
+                     int M, int N, const bf16* addend, bf16* out_bf16, cudaStream_t stream) {
+  if (M % GM || N % GN || K % GK || K2 % GK) return cudaErrorInvalidValue;
+  const dim3 grid(M / GM, N / GN, 1);
+  gemm_kernel<A_ROW, B_ROW><<<grid, GEMM_THREADS, 0, stream>>>(
+      A, lda, B, ldb, M, N, K, K, A2, lda2, B2, ldb2, K2, nullptr, addend, out_bf16, nullptr);
+  return cudaGetLastError();
 }
 
 // Split count of a weight-grad product: about eight CTAs per SM in all.

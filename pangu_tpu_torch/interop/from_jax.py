@@ -2,9 +2,10 @@
 or drawn from a seed (port-side counterpart of
 ``pangu_tpu/interop/torch_import.py``).
 
-The port's state dict IS the reference torch state dict, so the JAX package's
-own exporter ``state_dict_from_params`` is the converter; only numpy arrays
-cross the boundary.
+The port's state dict IS the reference torch state dict, so the exporter
+``state_dict_from_params`` (the port's copy of the JAX package's
+``interop/torch_import.py``) is the converter; only numpy arrays cross the
+boundary.
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from pangu_tpu.config import ModelConfig
-from pangu_tpu.interop.torch_import import state_dict_from_params
+from pangu_tpu_torch.config import ModelConfig
+from pangu_tpu_torch.interop.torch_import import state_dict_from_params
 from pangu_tpu_torch.model.attention import EarthAttention3D
 
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from pangu_tpu.geometry import StageGeometry
+from pangu_tpu_torch.geometry import StageGeometry
 from pangu_tpu_torch.ops.fused_block_attention import dense, dot_f32, fused_block_attention
 from pangu_tpu_torch.ops.windows import window_partition, window_reverse
 

@@ -14,11 +14,18 @@ The route keys on the module's mode, as the JAX package keys on
   with per-sample stochastic-depth scales ``s1``, ``s2``. With bf16 and
   ``use_kernel`` the attention is K2 (backward K3), the first residual K4
   (backward K5, ``ops.fused_epilogue``) and the MLP tail K6 (backward K7,
-  ``ops.fused_mlp``). Otherwise both residuals are the XLA formula
-  (``postnorm_residual``), which rounds LN(.) to the compute dtype first.
+  ``ops.fused_mlp``). Two A/B switches of the JAX package change that route:
+  ``ops.fused_block_train._TRAIN_FUSION = True`` runs each block (dropout 0)
+  as ONE call of the training block kernel K11 (backward K12), and
+  ``ops.fused_mlp._POSTNORM_FUSION = False`` runs the MLP tail as the raw MLP
+  K8 (backward K9) followed by the XLA formula of the residual. Without the
+  kernels both residuals are the XLA formula (``postnorm_residual``), which
+  rounds LN(.) to the compute dtype first.
 
 ``EarthSpecificLayer`` draws the scales and, with ``remat``, checkpoints each
-block (``torch.utils.checkpoint``, non-reentrant).
+block (``torch.utils.checkpoint``, non-reentrant) -- except a block on the
+K11 route, whose autograd Function saves only its inputs, so a recompute
+would only run K11 again.
 """
 
 from __future__ import annotations
@@ -30,11 +37,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pangu_tpu.geometry import StageGeometry
+from pangu_tpu_torch.geometry import StageGeometry
 from pangu_tpu_torch.model.attention import EarthAttention3D, shift_attention_mask
+from pangu_tpu_torch.ops import fused_block_train, fused_mlp
 from pangu_tpu_torch.ops.fused_block_attention import dense, fused_earth_block, layer_norm_f32
 from pangu_tpu_torch.ops.fused_epilogue import fused_residual_postnorm
-from pangu_tpu_torch.ops.fused_mlp import fused_mlp_postnorm
 
 
 def apply_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -81,6 +88,11 @@ class EarthSpecificBlock(nn.Module):
         mask = torch.from_numpy(shift_attention_mask(stage)) if shifted else None
         self.register_buffer("attn_mask", mask, persistent=False)
 
+    def train_fused(self, x: torch.Tensor) -> bool:
+        """Whether a training call on ``x`` takes the K11/K12 route."""
+        return (self.training and self.use_kernel and x.dtype == torch.bfloat16
+                and fused_block_train._TRAIN_FUSION and self.attention.dropout_rate == 0.0)
+
     def forward(self, x: torch.Tensor, s1: Optional[torch.Tensor] = None,
                 s2: Optional[torch.Tensor] = None) -> torch.Tensor:
         """In training, ``s1``/``s2`` are the stochastic-depth branch scales
@@ -97,18 +109,36 @@ class EarthSpecificBlock(nn.Module):
         if self.training:
             if s1 is None or s2 is None:
                 raise ValueError("a training block needs its drop-path scales s1 and s2")
-            x = self.attention(x, self.attn_mask)
+            cdt, attn, mlp = x.dtype, self.attention, self.linear
+            if self.train_fused(x):
+                x = fused_block_train.fused_earth_block_train(
+                    x,
+                    attn.linear1.weight.to(cdt), attn.linear1.bias.to(cdt),
+                    attn.linear2.weight.to(cdt), attn.linear2.bias.to(cdt),
+                    attn.earth_specific_bias[0].float(), self.attn_mask,
+                    self.norm1.weight.float(), self.norm1.bias.float(),
+                    mlp.linear1.weight.to(cdt), mlp.linear1.bias.to(cdt),
+                    mlp.linear2.weight.to(cdt), mlp.linear2.bias.to(cdt),
+                    self.norm2.weight.float(), self.norm2.bias.float(),
+                    s1.reshape(-1), s2.reshape(-1),
+                    st.window, self.heads, (self.dim // self.heads) ** -0.5,
+                )
+                if self.shifted:
+                    x = torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
+                return x
+            x = attn(x, self.attn_mask)
             if self.shifted:
                 x = torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
-            if not (self.use_kernel and x.dtype == torch.bfloat16):
+            if not (self.use_kernel and cdt == torch.bfloat16):
                 x = postnorm_residual(shortcut, x, self.norm1, s1)
-                return postnorm_residual(x, self.linear(x), self.norm2, s2)
-            cdt, mlp = x.dtype, self.linear
+                return postnorm_residual(x, mlp(x), self.norm2, s2)
             x = fused_residual_postnorm(shortcut, x, self.norm1.weight, self.norm1.bias, s1)
-            return fused_mlp_postnorm(
-                x, mlp.linear1.weight.to(cdt), mlp.linear1.bias.to(cdt),
-                mlp.linear2.weight.to(cdt), mlp.linear2.bias.to(cdt),
-                self.norm2.weight, self.norm2.bias, s2)
+            weights = (mlp.linear1.weight.to(cdt), mlp.linear1.bias.to(cdt),
+                       mlp.linear2.weight.to(cdt), mlp.linear2.bias.to(cdt))
+            if fused_mlp._POSTNORM_FUSION:
+                return fused_mlp.fused_mlp_postnorm(x, *weights, self.norm2.weight,
+                                                    self.norm2.bias, s2)
+            return postnorm_residual(x, fused_mlp.fused_mlp(x, *weights), self.norm2, s2)
 
         if self.use_kernel and x.dtype == torch.bfloat16 and not torch.is_grad_enabled():
             cdt = x.dtype
@@ -155,7 +185,8 @@ class EarthSpecificLayer(nn.Module):
     In training each block gets two fresh drop-path scales, drawn here,
     outside the checkpoint: a recompute under ``torch.utils.checkpoint`` does
     not replay an explicit generator, so scales drawn inside the block would
-    differ between the forward and its recompute."""
+    differ between the forward and its recompute. A block on the K11 route is
+    not checkpointed (see the module docstring)."""
 
     def __init__(self, stage: StageGeometry, dim: int, heads: int,
                  drop_path_rates: Sequence[float], mlp_ratio: int = 4,
@@ -182,7 +213,7 @@ class EarthSpecificLayer(nn.Module):
                 continue
             s1 = drop_path_scale(x.shape[0], rate, generator, x.device)
             s2 = drop_path_scale(x.shape[0], rate, generator, x.device)
-            if self.remat:
+            if self.remat and not block.train_fused(x):
                 x = checkpoint(block, x, s1, s2, use_reentrant=False)
             else:
                 x = block(x, s1, s2)

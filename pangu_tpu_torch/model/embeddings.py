@@ -19,8 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pangu_tpu.config import ModelConfig
-from pangu_tpu.geometry import Geometry
+from pangu_tpu_torch.config import ModelConfig
+from pangu_tpu_torch.geometry import Geometry
 from pangu_tpu_torch.aux import AuxConstants
 from pangu_tpu_torch.ops.fused_block_attention import dense
 

@@ -5,7 +5,7 @@ grid) -> up -> layer3 (C, full grid) -> concat skip -> recovery.
 
 Submodule names are the reference's (``_input_layer``, ``layers``,
 ``downsample``, ``upsample``, ``_output_layer``), so ``state_dict()`` keys and
-shapes equal ``pangu_tpu.interop.torch_import.reference_key_map``.
+shapes equal ``pangu_tpu_torch.interop.torch_import.reference_key_map``.
 """
 
 from __future__ import annotations
@@ -16,8 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from pangu_tpu.config import ModelConfig
-from pangu_tpu.geometry import compute_geometry
+from pangu_tpu_torch.config import ModelConfig
+from pangu_tpu_torch.geometry import compute_geometry
 from pangu_tpu_torch import dtype_of
 from pangu_tpu_torch.aux import AuxConstants
 from pangu_tpu_torch.model.blocks import DownSample, EarthSpecificLayer, UpSample

@@ -25,7 +25,8 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__f
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 #: every kernel source of the port, one shared library each
-SOURCES = ("fused_earth_block.cu", "block_attention.cu", "fused_epilogue.cu", "fused_mlp.cu")
+SOURCES = ("fused_earth_block.cu", "block_attention.cu", "fused_epilogue.cu", "fused_mlp.cu",
+           "fused_block_train.cu")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

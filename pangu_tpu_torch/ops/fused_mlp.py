@@ -1,5 +1,5 @@
-"""The MLP tail of an Earth-Specific block in training (port of
-``pangu_tpu/ops/fused_mlp.py::fused_mlp_postnorm``).
+"""The MLP of an Earth-Specific block in training (port of
+``pangu_tpu/ops/fused_mlp.py``: ``fused_mlp_postnorm`` and ``fused_mlp``).
 
 ``fused_mlp_postnorm(x, w1, b1, w2, b2, ln_scale, ln_bias, branch_scale)``
 computes, per token row,
@@ -13,6 +13,16 @@ the end (K6). Its ``torch.autograd`` backward is K7: the hidden and the MLP
 output recomputed, then dx, dW1, db1, dW2, db2, dgamma, dbeta and ds, with
 the weight and bias grads rounded to their argument's dtype and ds summed
 back to the branch scale's shape.
+
+``fused_mlp(x, w1, b1, w2, b2)`` is the raw MLP, ``GELU(x @ W1^T + b1) @
+W2^T + b2`` in x's dtype, the hidden rounded after an f32 GELU and the output
+once from f32 (K8). Its backward is K9, the Pallas body's formula: the hidden
+h recomputed in f32, ``db2 = sum g``, ``dW2 = g^T a`` with a = GELU(h) in
+x's dtype, ``dh = (g W2) GELU'(h)`` with h unrounded, dh rounded for ``dW1 =
+dh^T x`` and ``dx = dh W1`` (no residual); the weight and bias grads in
+their argument's dtype. It serves the ``_POSTNORM_FUSION = False`` route of
+the training block (``model/blocks.py``), which composes K8 with the plain
+post-norm residual.
 
 Weights use nn.Linear's (out, in) layout: w1 (4C, C), w2 (C, 4C).
 
@@ -39,6 +49,14 @@ _LN_EPS = 1e-5
 #: kernel launches of the forward (K6) and the backward (K7) in this process
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+#: kernel launches of the raw MLP forward (K8) and backward (K9) in this process
+RAW_FWD_LAUNCHES = 0
+RAW_BWD_LAUNCHES = 0
+
+#: A/B switch (the JAX package's name and default): False routes the training
+#: block's MLP tail through the raw MLP (K8/K9) and the plain post-norm
+#: residual instead of K6/K7 (model/blocks.py)
+_POSTNORM_FUSION = True
 
 
 def gelu_grad(h: torch.Tensor) -> torch.Tensor:
@@ -88,6 +106,29 @@ def fused_mlp_postnorm_bwd_reference(x, g, w1, b1, w2, b2, ln_scale, ln_bias, s)
             dy.sum(0).to(b2.dtype), dgamma, dbeta, ds)
 
 
+def fused_mlp_reference(x, w1, b1, w2, b2) -> torch.Tensor:
+    """Plain PyTorch version of K8 on rows: x (R, C)."""
+    a = F.gelu(dot_f32(x, w1.t()) + b1.float()).to(x.dtype)
+    return (dot_f32(a, w2.t()) + b2.float()).to(x.dtype)
+
+
+def fused_mlp_bwd_reference(x, g, w1, b1, w2, b2):
+    """Plain PyTorch version of K9 on rows, the Pallas body's formula (not
+    autograd): from g = dL/dout (R, C), returns dx (x's dtype), dw1, db1, dw2
+    and db2 (their argument's dtype). dh is rounded to x's dtype where it
+    feeds a product; db1 sums the unrounded dh."""
+    dt = x.dtype
+    h = dot_f32(x, w1.t()) + b1.float()
+    a = F.gelu(h).to(dt)
+    dw2 = dot_f32(g.t(), a)
+    del a
+    dh = dot_f32(g, w2) * gelu_grad(h)
+    del h
+    dhw = dh.to(dt)
+    return (dot_f32(dhw, w1).to(dt), dot_f32(dhw.t(), x).to(w1.dtype), dh.sum(0).to(b1.dtype),
+            dw2.to(w2.dtype), g.float().sum(0).to(b2.dtype))
+
+
 def _library() -> ctypes.CDLL:
     from pangu_tpu_torch.ops._build import load_library
 
@@ -100,6 +141,12 @@ def _library() -> ctypes.CDLL:
         lib.pangu_mlp_postnorm_bwd_scratch.restype = ctypes.c_longlong
         lib.pangu_mlp_postnorm_bwd.argtypes = [ctypes.c_void_p] * 21 + tail
         lib.pangu_mlp_postnorm_bwd.restype = ctypes.c_int
+        lib.pangu_mlp_fwd.argtypes = [ctypes.c_void_p] * 6 + tail
+        lib.pangu_mlp_fwd.restype = ctypes.c_int
+        lib.pangu_mlp_bwd_scratch.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        lib.pangu_mlp_bwd_scratch.restype = ctypes.c_longlong
+        lib.pangu_mlp_bwd.argtypes = [ctypes.c_void_p] * 13 + tail
+        lib.pangu_mlp_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -167,19 +214,13 @@ def _bwd_launch(x, g, w1, b1, w2, b2, ln_scale, ln_bias, s):
 
 def _check(x, w1, b1, w2, b2, ln_scale, ln_bias) -> None:
     """Raise ValueError on any argument the functions do not take (x rows)."""
-    if x.dim() != 2:
-        raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
+    _check_raw(x, w1, b1, w2, b2)
     c = x.shape[-1]
-    hidden = w1.shape[0]
-    want = {"w1": (w1, (hidden, c)), "b1": (b1, (hidden,)), "w2": (w2, (c, hidden)),
-            "b2": (b2, (c,)), "ln_scale": (ln_scale, (c,)), "ln_bias": (ln_bias, (c,))}
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    for name, t in (("ln_scale", ln_scale), ("ln_bias", ln_bias)):
+        if tuple(t.shape) != (c,):
+            raise ValueError(f"{name} must be ({c},), got {tuple(t.shape)}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused_mlp_postnorm runs on CUDA or CPU tensors, got {x.device}")
 
 
 def fused_mlp_postnorm_bwd(x, g, w1, b1, w2, b2, ln_scale, ln_bias, s):
@@ -240,3 +281,107 @@ def fused_mlp_postnorm(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: 
         raise ValueError(f"branch_scale {tuple(branch_scale.shape)} does not broadcast "
                          f"to {tuple(x.shape[:-1]) + (1,)}") from e
     return _MlpPostnorm.apply(x.contiguous(), w1, b1, w2, b2, ln_scale, ln_bias, branch_scale)
+
+
+# ---- K8 / K9: the raw MLP ----------------------------------------------------------
+
+
+def _raw_fwd_launch(x, w1, b1, w2, b2) -> torch.Tensor:
+    global RAW_FWD_LAUNCHES
+    tensors = (x, w1, b1, w2, b2)
+    _check_kernel_args("fused_mlp", x, w1, tensors, ())
+    lib = _library()
+    rows, c = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pangu_mlp_fwd(*[t.data_ptr() for t in tensors], out.data_ptr(), rows, c, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_mlp CUDA launch failed: cudaError_t {rc}")
+    RAW_FWD_LAUNCHES += 1
+    return out
+
+
+def _raw_bwd_launch(x, g, w1, b1, w2, b2):
+    global RAW_BWD_LAUNCHES
+    tensors = (x, g, w1, b1, w2)
+    _check_kernel_args("fused_mlp_bwd", x, w1, tensors + (b2,), ())
+    lib = _library()
+    rows, c = x.shape
+    dev = x.device
+    with torch.cuda.device(dev):
+        n_scratch = lib.pangu_mlp_bwd_scratch(rows, c)
+        if n_scratch <= 0:
+            raise RuntimeError("fused_mlp_bwd: no scratch size for this shape")
+        bufs = (torch.empty(rows, 4 * c, dtype=x.dtype, device=dev),
+                torch.empty(rows, 4 * c, dtype=x.dtype, device=dev),
+                torch.empty(n_scratch, dtype=torch.float32, device=dev))
+        grads = (torch.empty_like(x), torch.empty_like(w1), torch.empty_like(b1),
+                 torch.empty_like(w2), torch.empty_like(b2))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pangu_mlp_bwd(*[t.data_ptr() for t in tensors + bufs + grads], rows, c, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_mlp_bwd CUDA launch failed: cudaError_t {rc}")
+    RAW_BWD_LAUNCHES += 1
+    return grads
+
+
+def _check_raw(x, w1, b1, w2, b2) -> None:
+    """Raise ValueError on any MLP argument the functions do not take (x
+    rows; the weights in x's dtype)."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
+    c, hidden = x.shape[-1], w1.shape[0]
+    want = {"w1": (w1, (hidden, c)), "b1": (b1, (hidden,)), "w2": (w2, (c, hidden)),
+            "b2": (b2, (c,))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != x.device or t.dtype != x.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, x {x.dtype} on {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the MLP kernels run on CUDA or CPU tensors, got {x.device}")
+
+
+def fused_mlp_bwd(x, g, w1, b1, w2, b2):
+    """K9 on rows, from ``g`` = dL/dout (R, C): (dx, dw1, db1, dw2, db2), as
+    :func:`fused_mlp_bwd_reference` returns them."""
+    _check_raw(x, w1, b1, w2, b2)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must be {tuple(x.shape)} {x.dtype} on {x.device}, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    if x.device.type == "cpu":
+        return fused_mlp_bwd_reference(x, g, w1, b1, w2, b2)
+    return _raw_bwd_launch(x, g, w1, b1, w2, b2)
+
+
+class _Mlp(torch.autograd.Function):
+    """K8 forward, K9 backward (the plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1])
+        ctx.save_for_backward(x2, w1, b1, w2, b2)
+        ctx.shape = shape
+        if x.device.type == "cpu":
+            out = fused_mlp_reference(x2, w1, b1, w2, b2)
+        else:
+            out = _raw_fwd_launch(x2, w1, b1, w2, b2)
+        return out.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w1, b1, w2, b2 = ctx.saved_tensors
+        dx, dw1, db1, dw2, db2 = fused_mlp_bwd(x2, g.reshape(x2.shape).contiguous(),
+                                               w1, b1, w2, b2)
+        return dx.reshape(ctx.shape), dw1, db1, dw2, db2
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor) -> torch.Tensor:
+    """(..., C) -> GELU(x @ w1^T + b1) @ w2^T + b2 in x's dtype, differentiable
+    in x, the weights and the biases. Raises ValueError on arguments the
+    function does not take."""
+    _check_raw(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2)
+    return _Mlp.apply(x.contiguous(), w1, b1, w2, b2)

@@ -18,7 +18,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from pangu_tpu.config import PanguConfig
+from pangu_tpu_torch.config import PanguConfig
 from pangu_tpu_torch.aux import AuxConstants, norm_data
 from pangu_tpu_torch.train.loss import weighted_l1_loss
 from pangu_tpu_torch.train.schedule import multistep_lr

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (marker ``gpu``; skips without one):
 the inference block K1, the training attention K2/K3, the post-norm
-residual K4/K5 and the MLP tail K6/K7 against their plain versions, the
-forecast step and a flagship train step through the kernels.
+residual K4/K5, the MLP tail K6/K7, the raw MLP K8/K9 and the training block
+K11/K12 against their plain versions, the forecast step and flagship train
+steps on the default route and the two A/B routes through the kernels.
 
 Imports torch and numpy only, so it runs where jax is absent; the repo's
 conftest imports jax, so on such a machine run it as
@@ -27,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from pangu_tpu.config import pangu_tiny
+from pangu_tpu_torch.config import pangu_tiny
 from pangu_tpu_torch.aux import synthetic_aux_constants
 from pangu_tpu_torch.interop.from_jax import init_params
 from pangu_tpu_torch.model import PanguModel
@@ -282,9 +283,114 @@ def test_flagship_train_step_launches_the_training_kernels(cuda_device):
     assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
 
 
-def test_chip_smoke_passes_and_lists_the_seven_kernels(cuda_device):
-    """``python3 chip_smoke.py`` exits 0; the line before the last lists K1-K7
-    with their launches over the forecast (K1) and the 3 timed train steps."""
+@pytest.mark.parametrize("c", [192, 384])
+def test_cuda_raw_mlp_fwd_and_bwd_match_plain_versions(cuda_device, c):
+    """K8 and K9 through autograd against their plain versions, five grads."""
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+
+    gen = torch.Generator(cuda_device).manual_seed(11)
+
+    def rn(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen, device=cuda_device)).to(torch.bfloat16)
+
+    args = (rn(2, 4, 12, 48, c), rn(4 * c, c, std=c ** -0.5), rn(4 * c, std=0.02),
+            rn(c, 4 * c, std=(4 * c) ** -0.5), rn(c, std=0.02))
+    leaves = [t.detach().clone().requires_grad_(True) for t in args]
+    fwd, bwd = tfm.RAW_FWD_LAUNCHES, tfm.RAW_BWD_LAUNCHES
+    out = tfm.fused_mlp(*leaves)
+    g = rn(*out.shape)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (tfm.RAW_FWD_LAUNCHES - fwd, tfm.RAW_BWD_LAUNCHES - bwd) == (1, 1)
+    rows = out.numel() // c
+    x2 = args[0].reshape(rows, c)
+    assert _bounded(out.reshape(rows, c), tfm.fused_mlp_reference(x2, *args[1:]))
+    ref = tfm.fused_mlp_bwd_reference(x2, g.reshape(rows, c), *args[1:])
+    for name, leaf, r in zip(("x", "w1", "b1", "w2", "b2"), leaves, ref):
+        assert leaf.grad.dtype == r.dtype and _bounded(leaf.grad.reshape(r.shape), r,
+                                                       tol=0.05), name
+
+
+@pytest.mark.parametrize("b,c,heads,masked", [
+    (1, 192, 6, False), (2, 192, 6, True), (2, 384, 12, True)])
+def test_cuda_block_train_fwd_and_bwd_match_plain_versions(cuda_device, b, c, heads, masked):
+    """K11 and K12 through autograd against their plain versions, sixteen
+    grads (the mask has none); per-sample scales s1 != s2; the backward gives
+    the same bits twice; K11 at unit scales against K1."""
+    from pangu_tpu_torch.ops import fused_block_train as tfbt
+
+    args, statics = _inputs(12, cuda_device, b, 4, 12, 48, c, heads, masked)
+    s1 = torch.tensor([1.25, 0.8][:b], device=cuda_device)
+    s2 = torch.tensor([0.8, 0.0][:b], device=cuda_device).reshape(b, 1)  # b = 2: one dropped
+    diff = args[:6] + args[7:] + (s1, s2)
+    leaves = [t.detach().clone().requires_grad_(True) for t in diff]
+    fwd, bwd = tfbt.FWD_LAUNCHES, tfbt.BWD_LAUNCHES
+    out = tfbt.fused_earth_block_train(*leaves[:6], args[6], *leaves[6:], *statics)
+    g = (torch.randn(out.shape, generator=torch.Generator(cuda_device).manual_seed(13),
+                     device=cuda_device) * 0.1).to(torch.bfloat16)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (tfbt.FWD_LAUNCHES - fwd, tfbt.BWD_LAUNCHES - bwd) == (1, 1)
+    assert _bounded(out, tfbt.fused_earth_block_train_reference(*args, s1, s2, *statics))
+    ref = tfbt.fused_earth_block_train_bwd_reference(*args, s1, s2, g, *statics)
+    for name, leaf, r in zip(tfbt.GRAD_NAMES, leaves, ref):
+        assert leaf.grad.dtype == r.dtype and leaf.grad.shape == r.shape, name
+        assert _bounded(leaf.grad, r, tol=0.05), name
+    again = tfbt.fused_earth_block_train_bwd(*args, s1, s2, g, *statics)
+    assert all(torch.equal(a, leaf.grad) for a, leaf in zip(again, leaves))
+    one = torch.ones(b, device=cuda_device)
+    with torch.no_grad():
+        assert _bounded(tfbt.fused_earth_block_train(*args, one, one, *statics),
+                        tfba.fused_earth_block(*args, *statics))
+
+
+def test_cuda_ab_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    """On a CUDA tensor K8 and K11 launch or raise: no plain fallback for f32
+    activations, a width outside (192, 384) or a row count they do not
+    take."""
+    from pangu_tpu_torch.ops import fused_block_train as tfbt
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+
+    one = torch.ones(1, device=cuda_device)
+    for dtype, c, heads in ((torch.float32, 192, 6), (torch.bfloat16, 128, 4)):
+        args, statics = _inputs(14, cuda_device, 1, 4, 12, 48, c, heads, True, dtype=dtype)
+        with pytest.raises(ValueError):
+            tfbt.fused_earth_block_train(*args, one, one, *statics)
+    args, statics = _inputs(14, cuda_device, 1, 2, 6, 24, 192, 6, False)  # 288 rows
+    with pytest.raises(ValueError):
+        tfbt.fused_earth_block_train(*args, one, one, *statics)
+    w1 = torch.zeros(768, 192, device=cuda_device, dtype=torch.bfloat16)
+    b1 = torch.zeros(768, device=cuda_device, dtype=torch.bfloat16)
+    before = (tfbt.FWD_LAUNCHES, tfm.RAW_FWD_LAUNCHES)
+    for rows, dtype in ((96, torch.float32), (64, torch.bfloat16)):
+        xr = torch.zeros(rows, 192, device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError):
+            tfm.fused_mlp(xr, w1.to(dtype), b1.to(dtype), w1.t().contiguous().to(dtype),
+                          b1[:192].to(dtype))
+    assert (tfbt.FWD_LAUNCHES, tfm.RAW_FWD_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("variant,want", [
+    ("fused_block", {"fused_earth_block_train": 16, "fused_earth_block_train_bwd": 16}),
+    ("unfused_tail", {"fused_block_attention": 32, "fused_block_attention_bwd": 16,
+                      "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
+                      "fused_mlp": 32, "fused_mlp_bwd": 16})])
+def test_flagship_ab_route_steps_launch_their_kernels(cuda_device, variant, want):
+    """One flagship train step (remat on) per A/B route through the A/B
+    script: exactly the route's launches (K11 is not checkpointed), finite
+    step time and peak memory."""
+    from pangu_tpu_torch.scripts import bench_train_ab
+
+    res = bench_train_ab.run_variant(variant, warmup=0, steps=1, device=cuda_device)
+    assert res["launches_per_step"] == want
+    assert res["step_s"] > 0 and res["peak_bytes"] > 0
+
+
+def test_chip_smoke_passes_and_lists_the_eleven_kernels(cuda_device):
+    """``python3 chip_smoke.py`` exits 0; the line before the last lists K1-K9,
+    K11 and K12 with their launches over the run of their path: the forecast
+    (K1), the 3 timed default train steps (K2-K7), the 3 timed steps of
+    ``unfused_tail`` (K8/K9) and of ``fused_block`` (K11/K12)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=repo, capture_output=True,
                           text=True, timeout=1200)
@@ -294,7 +400,10 @@ def test_chip_smoke_passes_and_lists_the_seven_kernels(cuda_device):
     assert {n: k["launches"] for n, k in kernels.items()} == {
         "fused_earth_block": 48, "fused_block_attention": 96, "fused_block_attention_bwd": 48,
         "fused_residual_postnorm": 96, "fused_residual_postnorm_bwd": 48,
-        "fused_mlp_postnorm": 96, "fused_mlp_postnorm_bwd": 48}
+        "fused_mlp_postnorm": 96, "fused_mlp_postnorm_bwd": 48,
+        "fused_mlp": 96, "fused_mlp_bwd": 48,
+        "fused_earth_block_train": 48, "fused_earth_block_train_bwd": 48}
     assert all(k["route"] == "cuda" and k["ms"] > 0 and k["plain_ms"] > 0
-               for k in kernels.values())
+               and 0 < k["bound_ms"] < k["ms"] and k["bound_by"] in ("bytes", "operations")
+               and "library_ms" in k for k in kernels.values())
     assert json.loads(lines[-1])["ok"] is True

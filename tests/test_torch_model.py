@@ -34,6 +34,7 @@ from pangu_tpu.model.blocks import EarthSpecificBlock as JaxBlock
 from pangu_tpu.model.blocks import UpSample as JaxUpSample
 from pangu_tpu.model.embeddings import PatchEmbedding as JaxPatchEmbedding
 from pangu_tpu.model.embeddings import PatchRecovery as JaxPatchRecovery
+from pangu_tpu_torch import config as port_config
 from pangu_tpu_torch.aux import (
     load_aux_constants,
     norm_back_data,
@@ -44,6 +45,7 @@ from pangu_tpu_torch.interop.from_jax import load_jax_params
 from pangu_tpu_torch.model import PanguModel
 from pangu_tpu_torch.model.attention import shift_attention_mask
 from pangu_tpu_torch.model.blocks import EarthSpecificBlock
+from pangu_tpu_torch.geometry import compute_geometry as port_geometry
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_forward.npz")
 HIGHEST = jax.lax.Precision.HIGHEST
@@ -59,12 +61,14 @@ def tiny():
     surface = rng.standard_normal((1, m.surface_vars, m.lat, m.lon)).astype(np.float32)
     params = jax.jit(JaxPanguModel(m).init)(jax.random.PRNGKey(0), upper, surface, jaux)
     params = jax.tree_util.tree_map(np.asarray, params)
-    model = PanguModel(m)
-    load_jax_params(model, m, params)
+    tcfg = port_config.pangu_tiny()  # the port's own config, same preset
+    model = PanguModel(tcfg.model)
+    load_jax_params(model, tcfg.model, params)
     model.eval()
-    return SimpleNamespace(cfg=cfg, m=m, g=compute_geometry(m), jaux=jaux,
-                           aux=synthetic_aux_constants(m, cfg.train), params=params["params"],
-                           model=model, upper=upper, surface=surface)
+    return SimpleNamespace(cfg=cfg, m=m, g=compute_geometry(m), jaux=jaux, tcfg=tcfg,
+                           tg=port_geometry(tcfg.model),
+                           aux=synthetic_aux_constants(tcfg.model, tcfg.train, device="cpu"),
+                           params=params["params"], model=model, upper=upper, surface=surface)
 
 
 def _rel(got, ref) -> float:
@@ -123,7 +127,7 @@ def test_block_matches_flax(tiny, layer, stage, shifted):
                    precision=HIGHEST).apply(
         {"params": tiny.params[f"layer{layer}"]["block0"]}, jnp.asarray(x), True)
     src = tiny.model.layers[f"EarthSpecificLayer{layer}"].blocks.EarthSpecificBlock0
-    block = EarthSpecificBlock(st, c, heads, shifted=shifted).eval()
+    block = EarthSpecificBlock(getattr(tiny.tg, stage), c, heads, shifted=shifted).eval()
     block.load_state_dict(src.state_dict())
     with torch.inference_mode():
         got = block(torch.from_numpy(x))
@@ -174,8 +178,9 @@ def test_patch_recovery_matches_flax(tiny):
 @pytest.mark.parametrize("config,seed", [("tiny", 0), ("tiny", 5), ("pretrain", 0)])
 def test_synthetic_aux_equals_jax(config, seed):
     cfg = pangu_tiny() if config == "tiny" else pangu_pretrain()
+    tcfg = port_config.pangu_tiny() if config == "tiny" else port_config.pangu_pretrain()
     ref = jax_synthetic_aux(cfg.model, cfg.train, seed=seed)
-    got = synthetic_aux_constants(cfg.model, cfg.train, seed=seed)
+    got = synthetic_aux_constants(tcfg.model, tcfg.train, seed=seed, device="cpu")
     for name, value in vars(ref).items():
         mine = getattr(got, name)
         if isinstance(value, np.ndarray):
@@ -211,7 +216,8 @@ def test_load_aux_constants_from_dir_matches_jax(tiny, tmp_path):
     for name, shape in files.items():
         np.save(tmp_path / name, rng.standard_normal(shape).astype(np.float32))
     ref = jax_load_aux(m, tiny.cfg.train, str(tmp_path), horizon=24)
-    got = load_aux_constants(m, tiny.cfg.train, str(tmp_path), horizon=24)
+    got = load_aux_constants(tiny.tcfg.model, tiny.tcfg.train, str(tmp_path), horizon=24,
+                             device="cpu")
     for name, value in vars(ref).items():
         mine = getattr(got, name)
         if isinstance(value, np.ndarray):

@@ -30,6 +30,7 @@ from pangu_tpu.config import pangu_tiny
 from pangu_tpu.model import PanguModel as JaxPanguModel
 from pangu_tpu.rollout.autoregressive import make_forecast_step as jax_forecast_step
 from pangu_tpu.rollout.autoregressive import rollout_scan
+from pangu_tpu_torch import config as port_config
 from pangu_tpu_torch.aux import synthetic_aux_constants
 from pangu_tpu_torch.interop.from_jax import init_params, load_jax_params
 from pangu_tpu_torch.model import PanguModel
@@ -38,9 +39,6 @@ from pangu_tpu_torch.rollout import make_forecast_step, rollout
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "pangu_tpu_torch")
-#: the jax-free modules of the JAX package that the port imports
-SHARED = {"pangu_tpu", "pangu_tpu.config", "pangu_tpu.geometry", "pangu_tpu.utils.flops",
-          "pangu_tpu.interop.torch_import"}
 
 
 @pytest.fixture(scope="module")
@@ -54,12 +52,14 @@ def setup():
     jmodel = JaxPanguModel(m)
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), upper, surface, jaux)
     params = jax.tree_util.tree_map(np.asarray, params)
-    return dict(cfg=cfg, m=m, jaux=jaux, jmodel=jmodel, params=params,
-                aux=synthetic_aux_constants(m, cfg.train), upper=upper, surface=surface)
+    tcfg = port_config.pangu_tiny()  # the port's own config, same preset
+    return dict(cfg=cfg, m=m, tm=tcfg.model, jaux=jaux, jmodel=jmodel, params=params,
+                aux=synthetic_aux_constants(tcfg.model, tcfg.train, device="cpu"),
+                upper=upper, surface=surface)
 
 
 def _port(setup, **model_kw):
-    m = dataclasses.replace(setup["m"], **model_kw)
+    m = dataclasses.replace(setup["tm"], **model_kw)
     model = PanguModel(m)
     load_jax_params(model, m, setup["params"])
     return model
@@ -107,7 +107,7 @@ def test_bf16_step_against_jax_f32_step(setup):
 
 
 def test_init_params_is_seeded(setup):
-    m = setup["m"]
+    m = setup["tm"]
     a, b, c = PanguModel(m), PanguModel(m), PanguModel(m)
     init_params(a, seed=1)
     init_params(b, seed=1)
@@ -122,15 +122,24 @@ def test_init_params_is_seeded(setup):
     assert torch.equal(sa[ln + ".bias"], torch.zeros_like(sa[ln + ".bias"]))
 
 
+def _port_modules():
+    return sorted("pangu_tpu_torch" + (("." + rel[:-3].replace(os.sep, "."))
+                                       .replace(".__init__", "") if rel != "__init__.py" else "")
+                  for d, _, files in os.walk(PORT) for f in files if f.endswith(".py")
+                  for rel in [os.path.relpath(os.path.join(d, f), PORT)])
+
+
 def test_importing_the_port_does_not_import_jax():
+    """A fresh process that imports every module of the port and
+    chip_smoke.py (its imports; main() is not run) holds no jax, jaxlib or
+    flax and no module of the JAX package."""
     code = (
-        "import sys\n"
-        "import pangu_tpu_torch, pangu_tpu_torch.aux, pangu_tpu_torch.model\n"
-        "import pangu_tpu_torch.ops.fused_block_attention, pangu_tpu_torch.ops._build\n"
-        "import pangu_tpu_torch.rollout, pangu_tpu_torch.interop.from_jax\n"
-        "import pangu_tpu_torch.ops.fused_epilogue, pangu_tpu_torch.train, pangu_tpu_torch.metrics\n"
-        "import pangu_tpu_torch.utils.flops\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "import importlib, sys\n"
+        f"for name in {_port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pangu_tpu'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -146,8 +155,8 @@ def _python_sources():
 
 @pytest.mark.parametrize("path", _python_sources())
 def test_no_port_source_imports_jax(path):
-    """Source level: no import of jax/flax, and of the JAX package only its
-    jax-free modules; the smoke script names no module of the JAX package."""
+    """Source level: no import of jax, jaxlib, flax or any module of the JAX
+    package (the port keeps its own copies of the jax-free ones)."""
     with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
@@ -158,6 +167,4 @@ def test_no_port_source_imports_jax(path):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "flax"), (path, name)
-            if name.split(".")[0] == "pangu_tpu":
-                assert name in SHARED and path != "chip_smoke.py", (path, name)
+            assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "pangu_tpu"), (path, name)

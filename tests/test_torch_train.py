@@ -16,7 +16,10 @@ Tolerances:
   the JAX bf16 XLA step): loss and every gradient within 0.04 / 0.05 after
   scaling by max(1, max|ref|), the bounds of tests/test_kernel_interpret.py,
   and the global relative L2 of the gradient below 5%, the bound chip_smoke.py
-  holds the kernel step to against the plain bf16 step.
+  holds the kernel step to against the plain bf16 step;
+* the two A/B routes (``fused_block``: K11/K12; ``unfused_tail``: K8/K9 and
+  the plain residual), bf16, against the default bf16 route and against the
+  JAX f32 gradient, under the same bf16 bounds.
 """
 
 import dataclasses
@@ -36,12 +39,15 @@ from pangu_tpu.model import PanguModel as JaxPanguModel
 from pangu_tpu.train import loss as jax_loss
 from pangu_tpu.train import step as jax_step
 from pangu_tpu.train.schedule import multistep_lr as jax_multistep_lr
+from pangu_tpu_torch import config as port_config
 from pangu_tpu_torch.aux import synthetic_aux_constants
 from pangu_tpu_torch.interop.from_jax import load_jax_opt_state, load_jax_params
 from pangu_tpu_torch.model import PanguModel
 from pangu_tpu_torch.ops import fused_block_attention as tfba
+from pangu_tpu_torch.ops import fused_block_train as tfbt
 from pangu_tpu_torch.ops import fused_epilogue as tfep
 from pangu_tpu_torch.ops import fused_mlp as tfm
+from pangu_tpu_torch.scripts.bench_train_ab import variant_flags
 from pangu_tpu_torch.train import Batch, make_eval_step, make_optimizer, make_train_step
 from pangu_tpu_torch.train.loss import weighted_l1_loss
 from pangu_tpu_torch.train.schedule import multistep_lr
@@ -87,8 +93,10 @@ def run():
     micro_grads = [grads_fn(params, jax_step.Batch(*(a[i] for a in micro)), jaux)
                    for i in range(2)]
     tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    tcfg = port_config.pangu_tiny(drop_path_max=0.0)  # the port's own config, same preset
     return SimpleNamespace(
-        cfg=cfg, m=m, jaux=jaux, aux=synthetic_aux_constants(m, cfg.train), arrays=arrays,
+        cfg=cfg, m=m, tcfg=tcfg, jaux=jaux,
+        aux=synthetic_aux_constants(tcfg.model, tcfg.train, device="cpu"), arrays=arrays,
         micro=micro, jmodel=jmodel, params=tree(params), loss1=float(loss1),
         grads=state_dict_from_params(m, tree(grads)),
         micro_grads=[state_dict_from_params(m, tree(g)) for _, g in micro_grads],
@@ -104,8 +112,8 @@ def _rel(got, ref) -> float:
 
 
 def _port(run, params, **model_kw):
-    m = dataclasses.replace(run.m, **model_kw)
-    cfg = dataclasses.replace(run.cfg, model=m)
+    m = dataclasses.replace(run.tcfg.model, **model_kw)
+    cfg = dataclasses.replace(run.tcfg, model=m)
     model = PanguModel(m)
     load_jax_params(model, m, params)
     return cfg, model
@@ -151,7 +159,7 @@ def test_resumed_optimizer_state_takes_the_jax_second_step(run):
     the second step: parameters and moments agree with JAX's second step."""
     cfg, model = _port(run, run.state1.params)
     opt = make_optimizer(model, cfg)
-    load_jax_opt_state(opt, model, run.m, run.state1.opt_state)
+    load_jax_opt_state(opt, model, run.tcfg.model, run.state1.opt_state)
     assert optimizer_step_count(opt) == 1
     make_train_step(model, cfg, opt)(_batch(run.arrays), run.aux)
     named = dict(model.named_parameters())
@@ -184,7 +192,7 @@ def test_drop_path_gradients_equal_with_and_without_remat(run):
         assert torch.equal(g, with_dp[k]), k
     _, model = _port(run, run.params)
     model.train()
-    loss_fn(model, _batch(run.arrays), run.aux, run.cfg).backward()
+    loss_fn(model, _batch(run.arrays), run.aux, run.tcfg).backward()
     assert any(not torch.equal(p.grad, with_dp[k]) for k, p in model.named_parameters())
 
 
@@ -199,7 +207,7 @@ def test_eval_step_matches_jax_eval_loss(run):
     _, model = _port(run, run.params)
     ref = jax_step.make_eval_step(run.jmodel, run.cfg)(run.params, jax_step.Batch(*run.arrays),
                                                        run.jaux)
-    got = make_eval_step(model, run.cfg)(_batch(run.arrays), run.aux)
+    got = make_eval_step(model, run.tcfg)(_batch(run.arrays), run.aux)
     assert abs(float(got) - float(ref)) / abs(float(ref)) < 1e-4
 
 
@@ -254,12 +262,59 @@ def test_bf16_kernel_route_train_step_matches_jax_bf16(run, bf16_run):
     loss = make_train_step(model, cfg, make_optimizer(model, cfg))(_batch(run.arrays), run.aux)
     assert before == counts()
     assert abs(float(loss) - ref_loss) / max(1.0, abs(ref_loss)) < 0.04
-    named = dict(model.named_parameters())
+    _assert_bf16_grads_close({k: p.grad.numpy() for k, p in model.named_parameters()}, ref_grads)
+
+
+def _assert_bf16_grads_close(got_grads, ref_grads):
+    """Every gradient within 0.05 after scaling by max(1, max|ref|), the
+    global relative L2 below 5%."""
     num = den = 0.0
     for k, ref in ref_grads.items():
-        got = named[k].grad.numpy()
+        got = got_grads[k]
         scale = max(1.0, float(np.abs(ref).max()))
         np.testing.assert_allclose(got / scale, ref / scale, rtol=0, atol=0.05, err_msg=k)
         num += float(((got - ref) ** 2).sum())
         den += float((ref ** 2).sum())
     assert np.sqrt(num / den) < 0.05
+
+
+def _bf16_port_grads(run, **model_kw):
+    """Loss and gradients of one bf16 kernel-route step of the port (remat
+    on: the checkpoint recomputes a block's forward unless K11 runs it)."""
+    cfg, model = _port(run, run.params, compute_dtype="bfloat16", use_pallas_attention=True,
+                       remat=True, **model_kw)
+    loss = make_train_step(model, cfg, make_optimizer(model, cfg))(_batch(run.arrays), run.aux)
+    return float(loss), {k: p.grad.numpy() for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("variant", ["fused_block", "unfused_tail"])
+def test_ab_route_train_step_matches_default_route_and_jax_f32(run, monkeypatch, variant):
+    """A tiny bf16 train step on each A/B route (plain versions on the CPU,
+    no launch) against the default bf16 route and against JAX's f32
+    ``jax.grad``. The route's kernels are counted through their plain
+    versions: 4 blocks, remat on -- K11 runs once per block (no checkpoint
+    around it), K8 twice (the recompute)."""
+    calls = dict.fromkeys(("k11", "k12", "k8", "k9", "k6"), 0)
+    for mod, fn, key in ((tfbt, "fused_earth_block_train_reference", "k11"),
+                         (tfbt, "fused_earth_block_train_bwd_reference", "k12"),
+                         (tfm, "fused_mlp_reference", "k8"), (tfm, "fused_mlp_bwd_reference", "k9"),
+                         (tfm, "fused_mlp_postnorm_reference", "k6")):
+        def counted(*a, _real=getattr(mod, fn), _key=key, **kw):
+            calls[_key] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, fn, counted)
+    launches = (tfbt.FWD_LAUNCHES, tfbt.BWD_LAUNCHES, tfm.RAW_FWD_LAUNCHES, tfm.RAW_BWD_LAUNCHES)
+    default_loss, default_grads = _bf16_port_grads(run)
+    assert calls["k6"] == 8 and calls["k11"] == calls["k8"] == 0
+    calls.update(dict.fromkeys(calls, 0))
+    with variant_flags(variant):
+        loss, grads = _bf16_port_grads(run)
+    want = ({"k11": 4, "k12": 4, "k8": 0, "k9": 0, "k6": 0} if variant == "fused_block"
+            else {"k11": 0, "k12": 0, "k8": 8, "k9": 4, "k6": 0})
+    assert calls == want
+    assert launches == (tfbt.FWD_LAUNCHES, tfbt.BWD_LAUNCHES, tfm.RAW_FWD_LAUNCHES,
+                        tfm.RAW_BWD_LAUNCHES)
+    assert abs(loss - default_loss) / max(1.0, abs(default_loss)) < 0.04
+    assert abs(loss - run.loss1) / max(1.0, abs(run.loss1)) < 0.04
+    _assert_bf16_grads_close(grads, default_grads)
+    _assert_bf16_grads_close(grads, run.grads)
