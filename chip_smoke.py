@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: build, kernel checks, the
-24 h forecast step, the train step and its two A/B routes at full geometry.
+24 h forecast step, the train step and its two A/B routes at full geometry,
+the two-kernel inference block, and the three kernel A/B scripts.
 
     python3 chip_smoke.py
 
@@ -49,20 +50,48 @@ Phases (any failure exits non-zero before the last line is printed):
    ``unfused_tail`` (K2 32 / K3 16, K4 32 / K5 16, K8 32 / K9 16): one step
    from phase 8's weights, batch and drop-path draws, finite loss and
    gradients and the bounds of phase 8 against the plain bf16 step; then 3
-   timed steps through the script's helper, step time and peak memory.
+   timed steps through the script's helper, step time and peak memory;
+12. the inference MLP tail K10 (``fused_mlp_block``) at both stage row counts
+   and K2's LN-epilogue mode at both stages, unshifted and shifted, against
+   their plain versions (the bounds of phase 3); K10 against K6 at s = 1
+   (whether the bits are equal); the two-kernel inference block,
+   ``EarthAttention3D(x, mask, epilogue=norm1)`` then ``Mlp(., ln=norm2,
+   fused=True)``, against K1 on the same weights and input at both stages;
+   then the path: the two-kernel block at one forecast step's mix of 2 + 2
+   outer and 6 + 6 inner blocks, exactly one launch of each kernel per block;
+13. the tensor-core micro-bench ``pangu_tpu_torch.scripts.bench_mxu_micro``:
+   each variant at one sweep against its plain version (max|d| / max|ref| <
+   1e-4 for bf16, where only the order of f32 sums differs; < 1e-6 for int8,
+   whose sums are exact there), and the timed call (256 sweeps, its split and
+   repeat) against 256 x the plain version (< 1e-4 for all four: there the f32
+   sums pass 2^24), then the script's run: per sweep ms,
+   microseconds per window, TFLOP/s (TOP/s) and ``library_ms`` of
+   ``torch.einsum`` for ``loop``;
+14. the attention-forward A/B ``bench_attn_fwd_ab``: ``shipped`` (K2),
+   ``batched``, ``dbl`` at W = 360 and ``quad`` at W = 336 (and ``quad`` at
+   360 raises) against their plain versions (phase 3's bounds) and against
+   ``shipped`` with the JAX script's metric (max|d| <= 0.05); then the
+   script's run, ms per call;
+15. the attention-backward A/B ``bench_attn_bwd_ab``: ``shipped`` (K3) and
+   ``local_accum``, all six outputs against their plain versions, the JAX
+   metric against ``shipped`` (<= 0.05), ``local_accum``'s same bits on two
+   runs, the refused variants raise; then the script's run, ms per call.
 
 A ``detail:`` line holds the per-shape kernel results and the slices'
 numbers as JSON. The second-to-last line is a JSON object with one entry per
 kernel: ``launches`` counted over the run of the kernel's path (the 3
 forecast steps for K1, the 3 timed steps of the default train step for
-K2-K7, of ``unfused_tail`` for K8/K9 and of ``fused_block`` for K11/K12);
-``ms``, ``plain_ms`` and ``bound_ms`` the mean per launch over one step's
-mix of 2 + 2 outer and 6 + 6 inner blocks. ``bound_ms`` is the larger of
-the bytes the function must move over 3.35 TB/s and its operations over the
-card's peak for their type (989 TFLOP/s for the bf16 products; 67 TFLOP/s
-for the f32 elementwise work of K4/K5), computed from the shapes;
-``library_ms`` is null: no single PyTorch call computes any of these
-functions. The last line is ``{"ok": true, "device": {...}}``.
+K2-K7, of ``unfused_tail`` for K8/K9 and of ``fused_block`` for K11/K12,
+phase 12's block mix for K10 and the LN mode, each script's timed run for
+its variants); ``ms``, ``plain_ms`` and ``bound_ms`` the mean per launch over
+one step's mix of 2 + 2 outer and 6 + 6 inner blocks (the scripts: per call
+at their one shape; the micro-bench: per sweep). ``bound_ms`` is the larger
+of the bytes the function must move over 3.35 TB/s and its operations over
+the card's peak for their type (989 TFLOP/s for the bf16 products, 1,979
+TOP/s for int8; 67 TFLOP/s for the f32 elementwise work of K4/K5), computed
+from the shapes; ``library_ms`` is the time of ``torch.einsum`` for the
+micro-bench's ``loop`` and null elsewhere: no single PyTorch call computes
+the other functions. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -81,20 +110,22 @@ from pangu_tpu_torch import pangu_pretrain
 from pangu_tpu_torch.aux import synthetic_aux_constants
 from pangu_tpu_torch.interop.from_jax import init_params
 from pangu_tpu_torch.model import PanguModel
-from pangu_tpu_torch.model.attention import shift_attention_mask
+from pangu_tpu_torch.model.attention import EarthAttention3D, shift_attention_mask
+from pangu_tpu_torch.model.blocks import Mlp
 from pangu_tpu_torch.ops import _build
 from pangu_tpu_torch.ops import fused_block_attention as fba
 from pangu_tpu_torch.ops import fused_block_train as fbt
 from pangu_tpu_torch.ops import fused_epilogue as fep
 from pangu_tpu_torch.ops import fused_mlp as fmlp
 from pangu_tpu_torch.rollout import make_forecast_step
-from pangu_tpu_torch.scripts import bench_train_ab
+from pangu_tpu_torch.scripts import (bench_attn_bwd_ab, bench_attn_fwd_ab, bench_mxu_micro,
+                                     bench_train_ab)
+from pangu_tpu_torch.scripts.ab_common import (KERNEL_RMS_TOL, KERNEL_TOL, PEAK_BF16, PEAK_BYTES,
+                                               compare, cuda_times_ms)
 from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
 from pangu_tpu_torch.utils.flops import train_matmul_flops
 
 STEPS = 3
-KERNEL_TOL = 0.04  # max|d| / max(1, max|ref|), tests/test_kernel_interpret.py
-KERNEL_RMS_TOL = 0.01  # RMS(d) / RMS(ref)
 STEP_MAX_TOL, STEP_RMS_TOL = 0.1, 0.01  # normalized units, kernel vs plain and f32 steps
 #: kernel vs plain bf16 train step: loss, the gradient's global relative L2, and the
 #: worst relative L2 of one earth-specific bias and of one other parameter (PERF.md
@@ -114,8 +145,8 @@ AB_LAUNCHES = {
 }
 #: launches of each block shape per step: (stage, shifted) -> blocks
 PER_STEP = {("outer", False): 2, ("outer", True): 2, ("inner", False): 6, ("inner", True): 6}
-#: H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 CUDA cores, HBM3
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+#: H100 SXM f32 CUDA-core peak (NVIDIA's data sheet; bf16, int8 and HBM3 in ab_common)
+PEAK_F32 = 67e12
 #: (replaced TPU kernel, CUDA source) of every kernel, in table order
 KERNELS = {
     "fused_earth_block": ("pangu_tpu/ops/fused_block_attention.py:555", "fused_earth_block.cu"),
@@ -133,6 +164,14 @@ KERNELS = {
                                 "fused_block_train.cu"),
     "fused_earth_block_train_bwd": ("pangu_tpu/ops/fused_block_train.py:432",
                                     "fused_block_train.cu"),
+    "fused_mlp_block": ("pangu_tpu/ops/fused_mlp.py:96", "fused_mlp.cu"),
+    "fused_block_attention_ln": ("pangu_tpu/ops/fused_block_attention.py:188",
+                                 "block_attention.cu"),
+    **{f"bench_mxu_micro:{v}": ("scripts/bench_mxu_micro.py:112", "bench_mxu_micro.cu")
+       for v in bench_mxu_micro.VARIANTS},
+    **{f"bench_attn_fwd_ab:{v}": ("scripts/bench_attn_fwd_ab.py:165", "bench_attn_fwd_ab.cu")
+       for v in ("batched", "dbl", "quad")},
+    "bench_attn_bwd_ab:local_accum": ("scripts/bench_attn_bwd_ab.py:355", "bench_attn_bwd_ab.cu"),
 }
 
 
@@ -177,27 +216,14 @@ def bound(name: str, rows: int, c: int, heads: int = 0, n_types: int = 0,
                                     2 * act + tables + w_attn + w_mlp + 2 * ln),
         "fused_earth_block_train_bwd": (72 * rc2 + 12 * rtc, 0,
                                         3 * act + 2 * tables + 2 * (w_attn + w_mlp) + 4 * ln),
+        "fused_mlp_block": (16 * rc2, 0, 2 * act + w_mlp + ln),
+        "fused_block_attention_ln": (8 * rc2 + 4 * rtc, 0, 2 * act + tables + w_attn + ln),
     }
     mm, ew, nbytes = work[name]
     ops_ms = (mm / PEAK_BF16 + ew / PEAK_F32) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-
-
-def cuda_times_ms(fn, n: int = 12, warmup: int = 2) -> float:
-    """Median per-call time of ``fn()`` from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def block_inputs(stage, c: int, heads: int, shifted: bool, dev, seed: int):
@@ -341,26 +367,24 @@ def check_slice(model, aux, dev) -> dict:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch count (K1 and the training kernels)."""
-    return {"fused_earth_block": fba.LAUNCHES, **bench_train_ab.launch_counts()}
+    """Every kernel's launch count."""
+    return {"fused_earth_block": fba.LAUNCHES, **bench_train_ab.launch_counts(),
+            "fused_mlp_block": fmlp.BLOCK_LAUNCHES,
+            "fused_block_attention_ln": fba.ATTN_LN_LAUNCHES,
+            **{f"bench_mxu_micro:{v}": n for v, n in bench_mxu_micro.LAUNCHES.items()},
+            **{f"bench_attn_fwd_ab:{v}": n for v, n in bench_attn_fwd_ab.LAUNCHES.items()},
+            "bench_attn_bwd_ab:local_accum": bench_attn_bwd_ab.LAUNCHES}
 
 
 def reset_counts() -> None:
-    fba.LAUNCHES = fba.ATTN_FWD_LAUNCHES = fba.ATTN_BWD_LAUNCHES = 0
+    fba.LAUNCHES = fba.ATTN_FWD_LAUNCHES = fba.ATTN_BWD_LAUNCHES = fba.ATTN_LN_LAUNCHES = 0
     fep.FWD_LAUNCHES = fep.BWD_LAUNCHES = 0
     fmlp.FWD_LAUNCHES = fmlp.BWD_LAUNCHES = fmlp.RAW_FWD_LAUNCHES = fmlp.RAW_BWD_LAUNCHES = 0
+    fmlp.BLOCK_LAUNCHES = 0
     fbt.FWD_LAUNCHES = fbt.BWD_LAUNCHES = 0
-
-
-def compare(got, ref) -> dict:
-    """max|d|, RMS(d) and the bounds of phase 3 for one output."""
-    d = got.float() - ref.float()
-    ref = ref.float()
-    out = dict(max_abs=d.abs().max().item(), rms=d.pow(2).mean().sqrt().item(),
-               ref_max=ref.abs().max().item(), ref_rms=ref.pow(2).mean().sqrt().item())
-    out["ok"] = (out["max_abs"] / max(1.0, out["ref_max"]) < KERNEL_TOL
-                 and out["rms"] / max(out["ref_rms"], 1e-30) < KERNEL_RMS_TOL)
-    return out
+    bench_mxu_micro.LAUNCHES.update(dict.fromkeys(bench_mxu_micro.LAUNCHES, 0))
+    bench_attn_fwd_ab.LAUNCHES.update(dict.fromkeys(bench_attn_fwd_ab.LAUNCHES, 0))
+    bench_attn_bwd_ab.LAUNCHES = 0
 
 
 def check_outputs(label: str, outputs: dict) -> float:
@@ -804,6 +828,177 @@ def check_ab(cfg, aux, ref, dev) -> dict:
     return results
 
 
+def two_kernel_modules(stage, args, c: int, heads: int, dev):
+    """EarthAttention3D (kernel route) and Mlp holding one block's weights of
+    ``block_inputs`` (bf16 values in f32 parameters, exactly representable),
+    in eval mode."""
+    attn = EarthAttention3D(c, heads, stage, use_kernel=True).to(dev).eval()
+    mlp = Mlp(c).to(dev).eval()
+    with torch.no_grad():
+        for p, a in ((attn.linear1.weight, args[1]), (attn.linear1.bias, args[2]),
+                     (attn.linear2.weight, args[3]), (attn.linear2.bias, args[4]),
+                     (attn.earth_specific_bias, args[5][None]), (mlp.linear1.weight, args[9]),
+                     (mlp.linear1.bias, args[10]), (mlp.linear2.weight, args[11]),
+                     (mlp.linear2.bias, args[12])):
+            p.copy_(a.float())
+    return attn, mlp
+
+
+def two_kernel_block(attn, mlp, x, mask, args):
+    """The two-kernel inference block through the module entry points."""
+    y = attn(x, mask, epilogue=(args[7], args[8]))
+    return mlp(y, ln=(args[13], args[14]), fused=True)
+
+
+def check_inference_tail(g, dev) -> dict:
+    """Phase 12: K10 and K2's LN-epilogue mode against their plain versions,
+    K10 against K6 at s = 1, the two-kernel block against K1; then the path,
+    one forecast step's mix of blocks through the module entry points."""
+    mlp_rows, ln_shapes, setups = [], [], {}
+    for name, stage, c, heads in (("outer", g.outer, 192, 6), ("inner", g.inner, 384, 12)):
+        for shifted in (False, True):
+            args, statics = block_inputs(stage, c, heads, shifted, dev, seed=80 + len(ln_shapes))
+            x, mask = args[0], args[6]
+            label = f"{name} {'shifted' if shifted else 'unshifted'}"
+            geo = (x.numel() // c, c, heads, stage.n_type_windows, shifted)
+            fargs = (*args[:7], args[7], args[8], *statics)
+            with torch.no_grad():
+                got = fba.fused_block_attention(*fargs)
+                torch.cuda.synchronize()
+                err = check_outputs(f"K2 LN {label}", {"y": compare(
+                    got, fba.fused_block_attention_reference(*args[:7], *statics, args[7],
+                                                             args[8]))})
+                ln_shapes.append(dict(stage=name, shifted=shifted, max_abs_err=err,
+                                      **bound("fused_block_attention_ln", *geo),
+                                      ms=cuda_times_ms(lambda: fba.fused_block_attention(*fargs)),
+                                      plain_ms=cuda_times_ms(
+                                          lambda: fba.fused_block_attention_reference(
+                                              *args[:7], *statics, args[7], args[8]), n=6)))
+                attn, mlp = two_kernel_modules(stage, args, c, heads, dev)
+                two = two_kernel_block(attn, mlp, x, mask, args)
+                check_outputs(f"two-kernel block vs K1 {label}", {"out": compare(
+                    two, fba.fused_earth_block(*args, *statics))})
+                del got, two
+                if not shifted:  # K10 does not see the shift: one row shape per stage
+                    rows2 = x.reshape(-1, c)
+                    margs = (rows2, *args[9:13], args[13], args[14])
+                    got = fmlp.fused_mlp_block(*margs)
+                    torch.cuda.synchronize()
+                    err = check_outputs(f"K10 {name}", {"out": compare(
+                        got, fmlp.fused_mlp_block_reference(*margs))})
+                    k6 = fmlp.fused_mlp_postnorm(*margs, torch.ones(rows2.shape[0], 1,
+                                                                   device=dev))
+                    same = torch.equal(got, k6)
+                    d6 = (got.float() - k6.float()).abs().max().item()
+                    log(f"K10 {name} against K6 at s = 1: same bits {same}, max|d| {d6:.6g}")
+                    del got, k6
+                    mlp_rows.append(dict(stage=name, rows=rows2.shape[0], c=c, max_abs_err=err,
+                                         equals_k6=same, **bound("fused_mlp_block", *geo[:2]),
+                                         ms=cuda_times_ms(lambda: fmlp.fused_mlp_block(*margs)),
+                                         plain_ms=cuda_times_ms(
+                                             lambda: fmlp.fused_mlp_block_reference(*margs), n=6)))
+            setups[(name, shifted)] = (attn, mlp, x, mask, args)
+            log(f"K2 LN {label}: kernel {ln_shapes[-1]['ms']:.4f} ms, plain "
+                f"{ln_shapes[-1]['plain_ms']:.4f} ms, bound {ln_shapes[-1]['bound_ms']:.4f} ms")
+    for sh in mlp_rows:
+        log(f"K10 {sh['stage']} rows={sh['rows']}: kernel {sh['ms']:.4f} ms, plain "
+            f"{sh['plain_ms']:.4f} ms, bound {sh['bound_ms']:.4f} ms")
+    # the path: one forecast step's mix of blocks through the module entry points
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for key, n in PER_STEP.items():
+            attn, mlp, x, mask, args = setups[key]
+            for _ in range(n):
+                out = two_kernel_block(attn, mlp, x, mask, args)
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"two-kernel block {key} is not finite")
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {k: (16 if k in ("fused_mlp_block", "fused_block_attention_ln") else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"two-kernel block path launches {counts}, want {want}")
+    log(f"two-kernel block path: 16 blocks (2 + 2 outer, 6 + 6 inner), 16 launches of K2 LN "
+        f"and of K10, {path_s:.6f} s")
+    del setups
+    torch.cuda.empty_cache()
+    return {"fused_mlp_block": mlp_rows, "fused_block_attention_ln": ln_shapes}, dict(
+        path_s=path_s, launches={k: v for k, v in counts.items() if v})
+
+
+def check_script(name: str, module, checks: dict, refused, dev) -> tuple:
+    """Phases 13-15: a script's variants were checked (``checks``); each
+    refused variant must raise ValueError; then the script's timed run, with
+    the launch counts read around it."""
+    bad = [v for v, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"{name}: {bad} disagree with their plain versions")
+    for v, call in refused:
+        try:
+            call(v)
+        except ValueError as e:
+            log(f"{name} {v} refused: {e}")
+        else:
+            raise AssertionError(f"{name}: {v} did not raise")
+    reset_counts()
+    res = module.run(checked=False, device=dev)
+    prefix = module.__name__.rsplit(".", 1)[-1] + ":"  # the script's own kernels
+    counts = {k: v for k, v in launch_counts().items() if v and k.startswith(prefix)}
+    for v, r in res.items():
+        r.update(checks.get(v, {}))
+        log(f"{name} {v}: " + json.dumps({k: x for k, x in r.items() if k != "outputs"}))
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def check_mxu_micro(dev) -> tuple:
+    """Phase 13: each micro-bench variant against its plain version at one
+    sweep and at the timed call's sweeps, then the script's run."""
+    qkv, qkv8 = bench_mxu_micro.make_inputs(dev)
+    checks = {v: bench_mxu_micro.check(v, qkv8 if v == "loop_int8" else qkv)
+              for v in bench_mxu_micro.VARIANTS}
+    del qkv, qkv8
+    return check_script("mxu micro", bench_mxu_micro, checks, (), dev)
+
+
+def check_attn_fwd_ab(dev) -> tuple:
+    """Phase 14: each forward variant against its plain version and against
+    shipped (the JAX metric); quad at W = 360 raises; then the script's run."""
+    m = bench_attn_fwd_ab
+    base, bias = m.make_args(dev)
+    tables, ship_cache, checks = {}, {}, {}
+    for v in m.VARIANTS:
+        checks[v] = m.compare_variant(v, m.variant_args(v, base, bias, tables), bias, ship_cache)
+        log(f"attn fwd A/B {v}: " + json.dumps(checks[v]))
+    quad360 = (*base, bias)  # refused on the lon-window count before the table is read
+    del tables, ship_cache
+    res = check_script("attn fwd A/B", m, checks,
+                       [("quad at W=360", lambda v: m.variant_call("quad", *quad360))], dev)
+    del base, bias, quad360
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_attn_bwd_ab(dev) -> tuple:
+    """Phase 15: both backward variants against their plain versions,
+    local_accum against shipped and itself; the refused variants raise; then
+    the script's run."""
+    m = bench_attn_bwd_ab
+    args = m.make_args(dev)
+    ship_cache = {}
+    checks = {v: m.compare_variant(v, args, ship_cache) for v in m.VARIANTS}
+    for v, c in checks.items():
+        check_outputs(f"attn bwd A/B {v}", c["outputs"])
+    log(f"attn bwd A/B local_accum: vs shipped {checks['local_accum']['vs_shipped']:.6g}, the "
+        f"same bits on two runs: {checks['local_accum']['same_bits']}")
+    del args, ship_cache
+    torch.cuda.empty_cache()
+    return check_script("attn bwd A/B", m, checks,
+                        [(v, m.check_variant) for v in m.REFUSED], dev)
+
+
 def main() -> int:
     card()
     dev = torch.device("cuda:0")
@@ -815,6 +1010,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc {_build.BUILD_SECONDS})")
 
     cfg, model, aux = build_model(dev)
+    model_geom = model.geom
     kern = check_kernel(model.geom, dev)
     sl = check_slice(model, aux, dev)
     log(f"slice: kernel step {sl['step_s']:.6f} s, plain step {sl['plain']['step_s']:.6f} s, "
@@ -831,22 +1027,41 @@ def main() -> int:
     log(f"A/B: default route {tr['step_s']:.6f} s, fused_block "
         f"{ab['fused_block']['step_s']:.6f} s, unfused_tail {ab['unfused_tail']['step_s']:.6f} s")
 
-    log("detail: " + json.dumps({"slice": sl, **shapes, "train": tr, "ab": ab}))
+    tail, tail_path = check_inference_tail(model_geom, dev)
+    shapes.update(tail)
+    micro, micro_counts = check_mxu_micro(dev)
+    fwd_ab, fwd_counts = check_attn_fwd_ab(dev)
+    bwd_ab, bwd_counts = check_attn_bwd_ab(dev)
+
+    log("detail: " + json.dumps({"slice": sl, **shapes, "train": tr, "ab": ab,
+                                 "two_kernel_path": tail_path, "mxu_micro": micro,
+                                 "attn_fwd_ab": fwd_ab, "attn_bwd_ab": bwd_ab}))
     # launches over the run of each kernel's path
     launches = {"fused_earth_block": sl["launches"], **tr["launches"],
                 **{k: ab["unfused_tail"]["launches"][k] for k in ("fused_mlp", "fused_mlp_bwd")},
                 **{k: ab["fused_block"]["launches"][k]
-                   for k in ("fused_earth_block_train", "fused_earth_block_train_bwd")}}
+                   for k in ("fused_earth_block_train", "fused_earth_block_train_bwd")},
+                **tail_path["launches"], **micro_counts, **fwd_counts, **bwd_counts}
+    scripts = {**{f"bench_mxu_micro:{v}": r for v, r in micro.items()},
+               **{f"bench_attn_fwd_ab:{v}": r for v, r in fwd_ab.items()},
+               **{f"bench_attn_bwd_ab:{v}": r for v, r in bwd_ab.items()}}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
-        sh = shapes[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": "pangu_tpu_torch/csrc/" + source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(x["max_abs_err"] for x in sh),
-            "ms": mix(sh, "ms"), "plain_ms": mix(sh, "plain_ms"),
-            "bound_ms": mix(sh, "bound_ms"), "bound_by": sh[0]["bound_by"], "library_ms": None,
-        })
+        entry = {"name": name, "route": "cuda", "source": "pangu_tpu_torch/csrc/" + source,
+                 "replaces": replaces, "launches": launches.get(name, 0)}
+        if name in scripts:
+            r = scripts[name]
+            entry.update(max_abs_err=r.get("max_abs_err", r.get("max_abs")), ms=r["ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                         library_ms=r["library_ms"])
+        else:
+            sh = shapes[name]
+            entry.update(max_abs_err=max(x["max_abs_err"] for x in sh), ms=mix(sh, "ms"),
+                         plain_ms=mix(sh, "plain_ms"), bound_ms=mix(sh, "bound_ms"),
+                         bound_by=sh[0]["bound_by"], library_ms=None)
+        if not entry["launches"]:
+            raise AssertionError(f"{name} was not launched on its path")
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,10 @@
 // head and writes the attention output acc for the dWproj product; and, as
 // attention_bwd_kernel<true>, the attention part of the training block
 // backward K12 (fused_block_train.cu), which is given dO (the `gy` argument,
-// (rows, C) bf16) and writes no acc.
+// (rows, C) bf16) and writes no acc. attention_bwd_kernel<false, true> is the
+// `local_accum` schedule of the attention-backward A/B (bench_attn_bwd_ab.cu):
+// instead of the acc slab it accumulates the head's slice of dWqkv and dWproj
+// in f32 registers across its windows and writes one partial per (type, head).
 
 #pragma once
 
@@ -34,14 +37,30 @@ static_assert(WR_S % 32 == 0 && WR_P % 32 == 0 && WR_BYTES % 32 == 0 && DO_BYTES
               "wmma needs 256-bit aligned tiles");
 static_assert(16 * 4 * D * 4 <= WR_S, "the qkv and dO rows of a warp fit its f32 region");
 
-template <bool DO_GIVEN>
+// ---- the on-chip weight grads of the local_accum schedule (C = 192 only)
+constexpr int LC = 192;
+constexpr int LQ_LD = 3 * D + 8;               // a warp's bf16 dq|dk|dv rows, in its P region
+constexpr int LA_LD = D + 8;                   // its bf16 acc rows, in its dS region
+constexpr int L_TILES = (3 * D / 16 + D / 16) * (LC / 16);  // 96 16x16 tiles: dWqkv_h, dWproj_h
+constexpr int L_PER_WARP = (L_TILES + BWD_WARPS - 1) / BWD_WARPS;  // 11
+constexpr int L_CHUNK_TILES = L_TILES / (LC / KC);                  // 32 per 64 channels
+static_assert(16 * LQ_LD * 2 <= WR_P && 16 * LA_LD * 2 <= WR_P, "the rows fit the regions");
+static_assert(2 * T * XS_LD * 2 <= QKV_BYTES + DO_BYTES, "an x and a g chunk fit qkv and dO");
+using FragAcm = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
+
+// LOCAL: dWqkv rows (seg C + head D + j, all C) and dWproj columns (head D + j)
+// of this (type, head), summed over its windows, go to wgrad_part: n_types
+// (3C, C) partials, then n_types (C, C) partials (nn.Linear layouts). acc_out
+// is then not written.
+template <bool DO_GIVEN, bool LOCAL = false>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gy,
                      const bf16* __restrict__ wqkv, const bf16* __restrict__ bqkv,
                      const bf16* __restrict__ wproj, const float* __restrict__ bias,
                      const float* __restrict__ mask, bf16* __restrict__ dqkv,
                      bf16* __restrict__ acc_out, float* __restrict__ dbias,
-                     float* __restrict__ dbqkv_part, Geom g, float scale) {
+                     float* __restrict__ dbqkv_part, Geom g, float scale,
+                     float* __restrict__ wgrad_part) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qkv = reinterpret_cast<bf16*>(smem);
   bf16* dO = reinterpret_cast<bf16*>(smem + QKV_BYTES);
@@ -67,6 +86,9 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gy,
   const float* mask_rows = mask ? mask + ((long long)type * T + q0) * T : nullptr;
   float* dbias_rows = dbias + ((long long)(type * g.heads + head) * T + q0) * T;
   float bsum[3] = {0.f, 0.f, 0.f};  // dbqkv partials: column lane of dq, dk, dv
+  FragC wacc[LOCAL ? L_PER_WARP : 1];  // LOCAL: tiles warp + BWD_WARPS f of the 96
+  for (int f = 0; f < (LOCAL ? L_PER_WARP : 0); ++f) wmma::fill_fragment(wacc[f], 0.f);
+  uint4 acc_keep[2];  // LOCAL: the lane's 16 bf16 acc values of this window
 
   for (int b = 0; b < g.B; ++b) {
     for (int wi = 0; wi < wn; ++wi) {
@@ -214,9 +236,14 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gy,
         const long long row = token_row(g, b, zi, hi, wi, q0 + r);
         __align__(16) bf16 t16[16];
         for (int j = 0; j < 16; ++j) t16[j] = __float2bfloat16(O[r * D + c0 + j]);
-        uint4* dst = reinterpret_cast<uint4*>(acc_out + row * C + head * D + c0);
-        dst[0] = reinterpret_cast<const uint4*>(t16)[0];
-        dst[1] = reinterpret_cast<const uint4*>(t16)[1];
+        if (LOCAL) {
+          acc_keep[0] = reinterpret_cast<const uint4*>(t16)[0];
+          acc_keep[1] = reinterpret_cast<const uint4*>(t16)[1];
+        } else {
+          uint4* dst = reinterpret_cast<uint4*>(acc_out + row * C + head * D + c0);
+          dst[0] = reinterpret_cast<const uint4*>(t16)[0];
+          dst[1] = reinterpret_cast<const uint4*>(t16)[1];
+        }
         __syncwarp();
       }
 
@@ -306,6 +333,79 @@ attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gy,
         }
       }
       __syncthreads();  // the regions are staging space again
+
+      if constexpr (LOCAL) {
+        // ---- this window's dWqkv_h += dqkv_h^T x and dWproj_h^T += acc_h^T g: the
+        // warp's bf16 dq|dk|dv rows (still f32 in S) go to its P region, its acc
+        // rows to its dS region; x and g come again, 64 channels at a time, into
+        // the dead qkv and dO tiles
+        bf16* dqw = reinterpret_cast<bf16*>(wr + WR_S);
+        bf16* accw = reinterpret_cast<bf16*>(wr + WR_S + WR_P);
+        for (int e = lane; e < 16 * 3 * D; e += 32) {
+          const int rr = e / (3 * D), cc = e - rr * (3 * D);
+          dqw[rr * LQ_LD + cc] = __float2bfloat16(S[e]);
+        }
+        {
+          const int rr = lane >> 1, cc = (lane & 1) * 16;
+          reinterpret_cast<uint4*>(accw + rr * LA_LD + cc)[0] = acc_keep[0];
+          reinterpret_cast<uint4*>(accw + rr * LA_LD + cc)[1] = acc_keep[1];
+        }
+        bf16* xs = reinterpret_cast<bf16*>(smem);
+        bf16* gs = xs + T * XS_LD;
+        for (int i = 0; i < LC / KC; ++i) {
+          for (int v = threadIdx.x; v < T * (KC / 8); v += BWD_THREADS) {
+            const int t = v / (KC / 8), cv = v - t * (KC / 8);
+            const long long at = token_row(g, b, zi, hi, wi, t) * LC + i * KC + cv * 8;
+            cp_async16(xs + t * XS_LD + cv * 8, x + at);
+            cp_async16(gs + t * XS_LD + cv * 8, gy + at);
+          }
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();  // the chunks and every warp's rows are in place
+#pragma unroll
+          for (int f = 0; f < L_PER_WARP; ++f) {
+            const int tile = warp + BWD_WARPS * f;
+            if (tile >= L_TILES || tile / L_CHUNK_TILES != i) continue;
+            const int local = tile % L_CHUNK_TILES, mt = local / 4, nt = local % 4;
+            for (int tt = 0; tt < T / 16; ++tt) {
+              const unsigned char* rw = regions + tt * WR_BYTES + WR_S;
+              FragAcm a;
+              FragB bb;
+              if (mt < 6) {
+                wmma::load_matrix_sync(a, reinterpret_cast<const bf16*>(rw) + mt * 16, LQ_LD);
+                wmma::load_matrix_sync(bb, xs + tt * 16 * XS_LD + nt * 16, XS_LD);
+              } else {
+                wmma::load_matrix_sync(a, reinterpret_cast<const bf16*>(rw + WR_P) + (mt - 6) * 16,
+                                       LA_LD);
+                wmma::load_matrix_sync(bb, gs + tt * 16 * XS_LD + nt * 16, XS_LD);
+              }
+              wmma::mma_sync(wacc[f], a, bb, wacc[f]);
+            }
+          }
+          __syncthreads();  // the chunks are read
+        }
+      }
+    }
+  }
+
+  if constexpr (LOCAL) {  // this (type, head)'s weight-grad partial
+    const int n_types = gridDim.x / g.heads;
+#pragma unroll
+    for (int f = 0; f < L_PER_WARP; ++f) {
+      const int tile = warp + BWD_WARPS * f;
+      if (tile >= L_TILES) continue;
+      const int i = tile / L_CHUNK_TILES, local = tile % L_CHUNK_TILES;
+      const int mt = local / 4, col0 = i * KC + (local % 4) * 16;
+      if (mt < 6) {  // dWqkv rows seg C + head D + j0.., (3C, C) row-major
+        const int seg = mt / 2, j0 = (mt % 2) * 16;
+        float* p = wgrad_part + (long long)type * 3 * LC * LC +
+                   (long long)(seg * LC + head * D + j0) * LC + col0;
+        wmma::store_matrix_sync(p, wacc[f], LC, wmma::mem_row_major);
+      } else {  // dWproj (C_out, C_in): tile (in head D + m, out col0 + n)
+        float* p = wgrad_part + (long long)n_types * 3 * LC * LC + (long long)type * LC * LC +
+                   (long long)col0 * LC + head * D + (mt - 6) * 16;
+        wmma::store_matrix_sync(p, wacc[f], LC, wmma::mem_col_major);
+      }
     }
   }
 

@@ -2,12 +2,16 @@
 // and its flash backward.
 //
 // Replaces pangu_tpu/ops/fused_block_attention.py::fused_block_attention (K2,
-// the Pallas kernel _make_kernel(with_epilogue=False)) and its custom-vjp
-// backward _backward_pallas (K3, _make_bwd_kernel). On the (rolled,
-// window-padded) token grid x (B, Z, Hp, W, C):
+// the Pallas kernel _make_kernel, both modes) and its custom-vjp backward
+// _backward_pallas (K3, _make_bwd_kernel). On the (rolled, window-padded)
+// token grid x (B, Z, Hp, W, C):
 //
 //   forward   y = bf16(attn(x) @ Wproj^T + bproj), attn as in K1 (window_attention.cuh)
+//   LN mode   y = bf16(x + LN1(attn(x) @ Wproj^T + bproj)), projection, LayerNorm
+//             and residual in f32 (with_epilogue=True; K1's token tail without the
+//             MLP, block_tail.cuh)
 //   backward  from the cotangent g of y: dx, dWqkv, dbqkv, dWproj, dbproj, dbias
+//             (the LN mode's backward is XLA in the JAX package: no kernel)
 //
 // with the rounding points of the Pallas bodies: q|k|v, the probabilities fed
 // to the products, dO = bf16(g @ Wproj), dS and dqkv are rounded to bf16; p,
@@ -48,6 +52,7 @@
 // fused_block_attention_reference and fused_block_attention_bwd_reference there.
 
 #include "attention_bwd.cuh"
+#include "block_tail.cuh"
 #include "gemm.cuh"
 
 namespace {
@@ -89,6 +94,43 @@ int pangu_block_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
                                 s);
 }
 
+// K2's LN-epilogue mode: y = bf16(x + LN1(attn(x) @ Wproj^T + bproj)) on `stream`;
+// attn_buf is (rows, C) bf16 scratch; C 192 or 384. `mask` may be null.
+int pangu_block_attention_ln_fwd(const void* x, const void* wqkv, const void* bqkv,
+                                 const void* wproj, const void* bproj, const void* bias,
+                                 const void* mask, const void* ln_s, const void* ln_b,
+                                 void* attn_buf, void* out, int B, int Z, int Hp, int W, int C,
+                                 int heads, int wz, int wh, int ww, float scale, void* stream) {
+  if (!geometry_ok(B, Z, Hp, W, C, heads, wz, wh, ww) || (C != 192 && C != 384))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const Geom g{B, Z, Hp, W, C, heads, wz, wh, ww};
+  const long long windows = (long long)B * (Z / wz) * (Hp / wh) * (W / ww);
+  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  window_attention_kernel<<<(unsigned)(windows * heads), ATT_THREADS, ATT_SMEM, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const bf16*>(bqkv), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<bf16*>(attn_buf), g, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long rows = windows * T;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* ab = static_cast<const bf16*>(attn_buf);
+  const bf16* wp = static_cast<const bf16*>(wproj);
+  const bf16* bp = static_cast<const bf16*>(bproj);
+  const float* ls = static_cast<const float*>(ln_s);
+  const float* lb = static_cast<const float*>(ln_b);
+  bf16* ob = static_cast<bf16*>(out);
+  err = (C == 192) ? launch_tail<192, false, false>(rows, s, xb, ab, wp, bp, ls, lb, nullptr,
+                                                    nullptr, nullptr, nullptr, nullptr, nullptr,
+                                                    nullptr, nullptr, rows, ob)
+                   : launch_tail<384, false, false>(rows, s, xb, ab, wp, bp, ls, lb, nullptr,
+                                                    nullptr, nullptr, nullptr, nullptr, nullptr,
+                                                    nullptr, nullptr, rows, ob);
+  return (int)err;
+}
+
 // f32 elements of scratch that pangu_block_attention_bwd needs.
 long long pangu_block_attention_bwd_scratch(long long rows, int C, int n_types) {
   const long long a = (long long)weight_grad_splits(3 * C, C, rows) * 3 * C * C;
@@ -127,7 +169,8 @@ int pangu_block_attention_bwd(const void* x, const void* gy, const void* wqkv, c
   attention_bwd_kernel<false><<<(unsigned)(n_types * heads), BWD_THREADS, BWD_SMEM, s>>>(
       xb, gb, static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
       static_cast<const bf16*>(wproj), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), dq, ac, static_cast<float*>(dbias), part, g, scale);
+      static_cast<const float*>(mask), dq, ac, static_cast<float*>(dbias), part, g, scale,
+      nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = reduce_partials(part, n_types, 3LL * C, static_cast<bf16*>(dbqkv), nullptr, s)) !=
       cudaSuccess)

@@ -6,6 +6,8 @@
 // token_tail_kernel<C, true> that of the training block K11
 // (fused_block_train.cu): per-sample branch scales s1, s2, and the attention
 // output a and x1 rounded to bf16 as the unfused training chain writes them.
+// token_tail_kernel<C, false, false> stops after LN1 and writes bf16(x1): the
+// LN-epilogue mode of the training attention K2 (block_attention.cu).
 
 #pragma once
 
@@ -43,7 +45,7 @@ __device__ __forceinline__ void layer_norm_row(float (&v)[C / 32], const float* 
   }
 }
 
-template <int C, bool TRAIN>
+template <int C, bool TRAIN, bool MLP = true>
 __global__ void __launch_bounds__(TAIL_THREADS, 1)
 token_tail_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
                   const bf16* __restrict__ wproj, const bf16* __restrict__ bproj,
@@ -99,7 +101,7 @@ token_tail_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
 
   // ---- x1 = x + s1 LN1(y + bproj), kept f32 (inference) or rounded to bf16
   // with the attention output a = y + bproj before it (TRAIN, the unfused
-  // chain's writes); bf16(x1) is the MLP input
+  // chain's writes); bf16(x1) is the MLP input, or the output (MLP false)
   for (int r = warp; r < TAIL_ROWS; r += TAIL_WARPS) {
     float v[C / 32];
     for (int j = 0; j < C / 32; ++j) {
@@ -112,10 +114,15 @@ token_tail_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
       const int c = lane + 32 * j;
       float x1 = __bfloat162float(x[(row0 + r) * C + c]) + sc1 * v[j];
       if (TRAIN) x1 = __bfloat162float(__float2bfloat16(x1));
+      if (!MLP) {
+        out[(row0 + r) * C + c] = __float2bfloat16(x1);
+        continue;
+      }
       Y[r * L::Y_LD + c] = x1;
       XB[r * L::XB_LD + c] = __float2bfloat16(x1);
     }
   }
+  if (!MLP) return;
   __syncthreads();
 
   // ---- z = GELU(x1 @ W1 + b1) @ W2, over 64-column chunks of the hidden
@@ -142,8 +149,8 @@ token_tail_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
 }
 
 // One CTA per 48 rows; rows_per_sample a multiple of 48 (TRAIN: s1, s2 one f32
-// per sample; else null).
-template <int C, bool TRAIN>
+// per sample; else null). MLP false: out = bf16(x1); the MLP arguments may be null.
+template <int C, bool TRAIN, bool MLP = true>
 cudaError_t launch_tail(long long rows, cudaStream_t stream, const bf16* x, const bf16* attn,
                         const bf16* wproj, const bf16* bproj, const float* ln1_s,
                         const float* ln1_b, const bf16* w1, const bf16* b1, const bf16* w2,
@@ -151,10 +158,11 @@ cudaError_t launch_tail(long long rows, cudaStream_t stream, const bf16* x, cons
                         const float* s2, long long rows_per_sample, bf16* out) {
   using L = TailLayout<C>;
   if (rows % TAIL_ROWS || rows_per_sample % TAIL_ROWS) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(token_tail_kernel<C, TRAIN>,
+  cudaError_t err = cudaFuncSetAttribute(token_tail_kernel<C, TRAIN, MLP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
-  token_tail_kernel<C, TRAIN><<<(unsigned)(rows / TAIL_ROWS), TAIL_THREADS, L::SMEM, stream>>>(
+  token_tail_kernel<C, TRAIN, MLP>
+      <<<(unsigned)(rows / TAIL_ROWS), TAIL_THREADS, L::SMEM, stream>>>(
       x, attn, wproj, bproj, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, s1, s2,
       rows_per_sample, out);
   return cudaGetLastError();

@@ -498,7 +498,7 @@ cudaError_t launch_bwd(const BwdArgs& p, const Geom& g, float scale, cudaStream_
     return err;
   attention_bwd_kernel<true><<<(unsigned)(n_types * g.heads), BWD_THREADS, BWD_SMEM, s>>>(
       p.x, p.dO, p.wqkv, p.bqkv, nullptr, p.bias, p.mask, p.dqkv, nullptr, p.dbias, p.part, g,
-      scale);
+      scale, nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = reduce_partials(p.part, n_types, 3LL * C, p.dbqkv, nullptr, s)) != cudaSuccess)
     return err;

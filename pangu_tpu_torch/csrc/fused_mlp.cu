@@ -4,10 +4,13 @@
 //
 // Replaces pangu_tpu/ops/fused_mlp.py::fused_mlp_postnorm (K6, the Pallas
 // kernel _make_postnorm_fwd_kernel) and its backward _postnorm_bwd (K7,
-// _make_postnorm_bwd_kernel), and fused_mlp (K8, _make_raw_fwd_kernel) with
-// its backward _raw_bwd (K9, _make_raw_bwd_kernel). Per token row of x (rows, C):
+// _make_postnorm_bwd_kernel), fused_mlp (K8, _make_raw_fwd_kernel) with its
+// backward _raw_bwd (K9, _make_raw_bwd_kernel), and the inference MLP tail
+// fused_mlp_block (K10, _make_kernel; its backward is XLA in the JAX package,
+// so it has no kernel here either). Per token row of x (rows, C):
 //
 //   K6  out = bf16(x + s * LN(GELU(x @ W1^T + b1) @ W2^T + b2))
+//   K10 out = bf16(x + LN(GELU(x @ W1^T + b1) @ W2^T + b2))
 //   K7  dx, dW1, db1, dW2, db2, dgamma, dbeta, ds from g = dL/dout
 //   K8  out = bf16(GELU(x @ W1^T + b1) @ W2^T + b2)
 //   K9  dx = bf16(dh W1), dW1, db1, dW2, db2 from g = dL/dout
@@ -40,6 +43,8 @@
 //      split over the rows with f32 partials summed in order.
 //    Every cross-CTA sum goes through per-CTA partials reduced in a fixed
 //    order (reduce_partials): the result is the same on every run.
+//  * mlp_postnorm_kernel<C, false, false> (K10): K6 without the branch scale,
+//    so it reads no scale vector; with s = 1 the two give the same bits.
 //  * mlp_raw_kernel<C> (K8): K6 without the LayerNorm and the residual.
 //  * K9 is K7 without its row pass: the hidden pass (mlp_hidden_bwd_rows) runs
 //    on g itself as the output gradient and adds no residual to dx; db2 is
@@ -81,10 +86,11 @@ struct MlpLayout : MlpTile<C> {
   static_assert(F_SMEM <= 232448 && B_SMEM <= 232448, "fits one CTA's shared memory");
 };
 
-// K6 (BWD false): out = bf16(x + s * LN(y)). Backward pass 1 (BWD true): ds,
-// dy = bf16(LN backward of s g) and the per-CTA partials of dgamma, dbeta, db2.
+// K6 (BWD false): out = bf16(x + s * LN(y)); K10 (SCALED false too): out =
+// bf16(x + LN(y)), s not read. Backward pass 1 (BWD true): ds, dy = bf16(LN
+// backward of s g) and the per-CTA partials of dgamma, dbeta, db2.
 // y = GELU(x W1^T + b1) W2^T + b2, recomputed. Loops over 48-row tiles.
-template <int C, bool BWD>
+template <int C, bool BWD, bool SCALED = true>
 __global__ void __launch_bounds__(TAIL_THREADS, 1)
 mlp_postnorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                     const bf16* __restrict__ b1, const bf16* __restrict__ w2,
@@ -132,7 +138,7 @@ mlp_postnorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       sq = warp_sum(sq);
       const float mu = sum / C;
       const float rs = rsqrtf(sq / C - mu * mu + kLnEps);
-      const float sc = s[row];
+      const float sc = SCALED ? s[row] : 1.f;
       if (!BWD) {
         for (int j = 0; j < C / 32; ++j) {
           const int c = lane + 32 * j;
@@ -293,6 +299,19 @@ cudaError_t launch_fwd(const Args& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// K10: K6's forward with no branch scale.
+template <int C>
+cudaError_t launch_block_fwd(const Args& p, cudaStream_t stream) {
+  using L = MlpLayout<C>;
+  const long long tiles = p.rows / TAIL_ROWS;
+  const int grid = resident_ctas(mlp_postnorm_kernel<C, false, false>, L::F_SMEM, tiles);
+  if (grid < 1) return cudaErrorInvalidValue;
+  mlp_postnorm_kernel<C, false, false><<<grid, TAIL_THREADS, L::F_SMEM, stream>>>(
+      p.x, p.w1, p.b1, p.w2, p.b2, p.gamma, p.beta, nullptr, nullptr, p.out, nullptr, nullptr,
+      tiles);
+  return cudaGetLastError();
+}
+
 template <int C>
 long long bwd_scratch(long long rows) {
   using L = MlpLayout<C>;
@@ -407,6 +426,30 @@ int pangu_mlp_postnorm_fwd(const void* x, const void* w1, const void* b1, const 
   switch (C) {
     case 192: return (int)launch_fwd<192>(p, st);
     case 384: return (int)launch_fwd<384>(p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K10 on `stream`: out = bf16(x + LN(GELU(x W1^T + b1) W2^T + b2)). C 192 or 384
+// and rows a multiple of 96, else cudaErrorInvalidValue.
+int pangu_mlp_block_fwd(const void* x, const void* w1, const void* b1, const void* w2,
+                        const void* b2, const void* gamma, const void* beta, void* out,
+                        long long rows, int C, void* stream) {
+  if (!rows_ok(rows)) return (int)cudaErrorInvalidValue;
+  Args p{};
+  p.x = static_cast<const bf16*>(x);
+  p.w1 = static_cast<const bf16*>(w1);
+  p.b1 = static_cast<const bf16*>(b1);
+  p.w2 = static_cast<const bf16*>(w2);
+  p.b2 = static_cast<const bf16*>(b2);
+  p.gamma = static_cast<const float*>(gamma);
+  p.beta = static_cast<const float*>(beta);
+  p.out = static_cast<bf16*>(out);
+  p.rows = rows;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 192: return (int)launch_block_fwd<192>(p, st);
+    case 384: return (int)launch_block_fwd<384>(p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

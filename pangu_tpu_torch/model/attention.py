@@ -6,9 +6,11 @@ training with bf16 compute and ``use_kernel`` set it runs the training
 attention K2 (``ops.fused_block_attention.fused_block_attention``), whose
 backward is the flash backward K3; otherwise the plain windowed path
 (partition, per-head scores + earth bias [+ shift mask], f32 softmax,
-reverse), the JAX package's XLA path. The fused inference block does not
-call it: ``EarthSpecificBlock`` hands its weights to the block kernel
-instead.
+reverse), the JAX package's XLA path. With ``epilogue=(ln_scale, ln_bias)``
+and ``use_kernel`` set it runs K2's LN-epilogue mode ``x + LN(attn(x))`` in
+any mode; without ``use_kernel`` the epilogue raises, as the JAX module
+asserts. The fused inference block does not call it: ``EarthSpecificBlock``
+hands its weights to the block kernel instead.
 """
 
 from __future__ import annotations
@@ -69,18 +71,25 @@ class EarthAttention3D(nn.Module):
         self.earth_specific_bias = nn.Parameter(
             torch.zeros(1, stage.n_type_windows, heads, t, t))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, Z, Hp, W, C) in the compute dtype -> same shape and dtype."""
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                epilogue: Optional[tuple] = None) -> torch.Tensor:
+        """(B, Z, Hp, W, C) in the compute dtype -> same shape and dtype;
+        ``epilogue`` (ln_scale, ln_bias) adds the block's post-norm residual
+        ``x + LN(.)``."""
         cdt = x.dtype
         b, z, hp, w, c = x.shape
         d = c // self.heads
         if self.training and self.dropout_rate > 0.0:
             raise NotImplementedError("attention dropout in training is not ported")
-        if self.training and self.use_kernel and cdt == torch.bfloat16:
+        if epilogue is not None and not self.use_kernel:
+            raise ValueError("the fused epilogue needs the kernel route (use_kernel)")
+        if epilogue is not None or (self.training and self.use_kernel and cdt == torch.bfloat16):
+            ln_s, ln_b = (None, None) if epilogue is None else (epilogue[0].float(),
+                                                                epilogue[1].float())
             return fused_block_attention(
                 x, self.linear1.weight.to(cdt), self.linear1.bias.to(cdt),
                 self.linear2.weight.to(cdt), self.linear2.bias.to(cdt),
-                self.earth_specific_bias[0].float(), mask, None, None,
+                self.earth_specific_bias[0].float(), mask, ln_s, ln_b,
                 self.window, self.heads, d ** -0.5)
         xw = window_partition(x, self.window)  # (B, nW, nT, T, C)
         n_w, n_t, t = xw.shape[1:4]

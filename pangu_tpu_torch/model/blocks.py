@@ -59,14 +59,26 @@ def postnorm_residual(x: torch.Tensor, y: torch.Tensor, norm: nn.LayerNorm,
 
 
 class Mlp(nn.Module):
-    """Linear(4x) -> exact GELU -> Linear; returns the raw MLP output."""
+    """Linear(4x) -> exact GELU -> Linear; returns the raw MLP output, or
+    with ``fused=True`` the whole block tail ``x + LN(mlp(x))`` as one call of
+    the inference MLP kernel K10 (``ops.fused_mlp.fused_mlp_block``), ``ln``
+    the LayerNorm's (scale, bias)."""
 
     def __init__(self, dim: int, ratio: int = 4):
         super().__init__()
         self.linear1 = nn.Linear(dim, dim * ratio)
         self.linear2 = nn.Linear(dim * ratio, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ln: Optional[tuple] = None,
+                fused: bool = False) -> torch.Tensor:
+        if fused:
+            if ln is None:
+                raise ValueError("the fused MLP tail needs ln = (scale, bias)")
+            cdt = x.dtype
+            return fused_mlp.fused_mlp_block(
+                x, self.linear1.weight.to(cdt), self.linear1.bias.to(cdt),
+                self.linear2.weight.to(cdt), self.linear2.bias.to(cdt),
+                ln[0].float(), ln[1].float())
         h = F.gelu(dense(x, self.linear1.weight, self.linear1.bias))
         return dense(h, self.linear2.weight, self.linear2.bias)
 

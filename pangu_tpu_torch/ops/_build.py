@@ -26,7 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 #: every kernel source of the port, one shared library each
 SOURCES = ("fused_earth_block.cu", "block_attention.cu", "fused_epilogue.cu", "fused_mlp.cu",
-           "fused_block_train.cu")
+           "fused_block_train.cu", "bench_mxu_micro.cu", "bench_attn_fwd_ab.cu",
+           "bench_attn_bwd_ab.cu")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -10,7 +10,11 @@ rolled) window-padded grid ``x`` (B, Z, Hp, W, C):
 ``fused_block_attention`` (K2) is the attention sublayer alone for
 training, ``y = attn(x) @ Wproj^T + bproj``, with a ``torch.autograd``
 backward that is the flash backward K3 (scores recomputed per window, never
-stored): dx, dWqkv, dbqkv, dWproj, dbproj and dbias.
+stored): dx, dWqkv, dbqkv, dWproj, dbproj and dbias. Given ``ln_scale`` and
+``ln_bias`` it is the LN-epilogue mode ``y = x + LN1(attn(x) @ Wproj^T +
+bproj)`` (the first kernel of the two-kernel inference block); its backward
+has no kernel, as in the JAX package: the autograd of
+:func:`attention_xla_reference`, the twin of the JAX ``_xla_reference``.
 
 On a CUDA tensor each launches the hand-written sm_90a kernels of
 ``csrc/fused_earth_block.cu`` or ``csrc/block_attention.cu`` (built with nvcc
@@ -44,6 +48,8 @@ LAUNCHES = 0
 #: launches of the training attention forward (K2) and backward (K3)
 ATTN_FWD_LAUNCHES = 0
 ATTN_BWD_LAUNCHES = 0
+#: launches of K2's LN-epilogue mode
+ATTN_LN_LAUNCHES = 0
 
 
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -114,23 +120,54 @@ def fused_earth_block_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
 
 def fused_block_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
                                     window: Tuple[int, int, int], heads: int,
-                                    scale: float) -> torch.Tensor:
+                                    scale: float, ln_scale=None, ln_bias=None) -> torch.Tensor:
     """Plain PyTorch version of K2, dtype-generic: the attention output
-    projected, ``attn(x) @ Wproj^T + bproj``, rounded once at the end."""
+    projected, ``attn(x) @ Wproj^T + bproj``, rounded once at the end; with
+    ``ln_scale``/``ln_bias`` the projection, ``x + LN(.)`` in f32, then the
+    one rounding."""
     a = window_attention_reference(x, wqkv, bqkv, bias, mask, window, heads, scale)
-    return dense(a, wproj, bproj)
+    if ln_scale is None:
+        return dense(a, wproj, bproj)
+    y = layer_norm_f32(dot_f32(a, wproj.t()) + bproj.float(), ln_scale.float(), ln_bias.float())
+    return (x.float() + y).to(x.dtype)
+
+
+def attention_xla_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                            window: Tuple[int, int, int], heads: int, scale: float,
+                            ln_scale=None, ln_bias=None) -> torch.Tensor:
+    """The JAX package's ``_xla_reference`` of K2 (q scaled in x's dtype
+    before the scores; qkv, the probabilities and the attention output
+    rounded to x's dtype), differentiable by autograd: the backward of the
+    LN-epilogue mode."""
+    dt = x.dtype
+    b, z, hp, w, c = x.shape
+    d = c // heads
+    xw = window_partition(x, window)
+    n_w, n_t, t = xw.shape[1:4]
+    qkv = (dot_f32(xw, wqkv.t()) + bqkv.float()).to(dt)
+    q, k, v = qkv.reshape(b, n_w, n_t, t, 3, heads, d).permute(4, 0, 1, 2, 5, 3, 6)
+    s = dot_f32(q * scale, k.transpose(-1, -2)) + bias.float()
+    if mask is not None:
+        s = s + mask.float()[:, None]
+    p = torch.softmax(s, dim=-1).to(dt)
+    a = dot_f32(p, v).to(dt).permute(0, 1, 2, 4, 3, 5).reshape(b, n_w, n_t, t, c)
+    y = dot_f32(a, wproj.t()) + bproj.float()
+    if ln_scale is not None:
+        y = layer_norm_f32(y, ln_scale.float(), ln_bias.float()) + xw.float()
+    return window_reverse(y.to(dt), window, z, hp, w)
 
 
 def fused_block_attention_bwd_reference(x, wqkv, bqkv, wproj, bias, mask, g,
                                         window: Tuple[int, int, int], heads: int,
-                                        scale: float):
+                                        scale: float, round_grads: bool = True):
     """Plain PyTorch version of K3: the flash backward of K2 written out with
     the Pallas body's rounding points (q|k|v, the probabilities, dO, dS and
     dq|dk|dv in x's dtype; p, dP and every sum f32), not autograd. ``g`` is
     dL/dy. Returns (dx, dwqkv, dbqkv, dwproj, dbproj, dbias): weight grads in
     nn.Linear's layout, rounded to their argument's dtype (dbproj to wproj's,
-    as the Pallas wrapper does), dbias f32 summed over batch and lon
-    windows."""
+    as the Pallas wrapper does; f32 with ``round_grads`` False, as the
+    attention-backward A/B variants return them), dbias f32 summed over batch
+    and lon windows."""
     dt = x.dtype
     b, z, hp, w, c = x.shape
     d = c // heads
@@ -175,6 +212,8 @@ def fused_block_attention_bwd_reference(x, wqkv, bqkv, wproj, bias, mask, g,
     dwqkv = dot_f32(rows(dqkv).t(), rows(xw))
     dwproj = dot_f32(rows(gw).t(), rows(acc))
     dbproj = rows(gw).float().sum(0)
+    if not round_grads:
+        return dx, dwqkv, dbqkv, dwproj, dbproj, dbias
     return (dx, dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dwproj.to(wproj.dtype),
             dbproj.to(wproj.dtype), dbias)
 
@@ -313,6 +352,9 @@ def _train_library() -> ctypes.CDLL:
         lib.pangu_block_attention_bwd.argtypes = (
             [ctypes.c_void_p] * 16 + ints + [ctypes.c_float, ctypes.c_void_p])
         lib.pangu_block_attention_bwd.restype = ctypes.c_int
+        lib.pangu_block_attention_ln_fwd.argtypes = (
+            [ctypes.c_void_p] * 11 + ints + [ctypes.c_float, ctypes.c_void_p])
+        lib.pangu_block_attention_ln_fwd.restype = ctypes.c_int
     return lib
 
 
@@ -339,6 +381,27 @@ def _attention_fwd_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, window, heads
     if rc != 0:
         raise RuntimeError(f"fused_block_attention CUDA launch failed: cudaError_t {rc}")
     ATTN_FWD_LAUNCHES += 1
+    return out
+
+
+def _attention_ln_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, ln_scale, ln_bias,
+                         window, heads, scale):
+    global ATTN_LN_LAUNCHES
+    tensors = (x, wqkv, bqkv, wproj, bproj, bias, mask, ln_scale, ln_bias)
+    _check_kernel_args("fused_block_attention (LN epilogue)", tensors, x, window, heads)
+    geom = _geometry(x, window, heads)
+    lib = _train_library()
+    attn = torch.empty_like(x)
+    out = torch.empty_like(x)
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pangu_block_attention_ln_fwd(*ptrs, attn.data_ptr(), out.data_ptr(), *geom,
+                                              ctypes.c_float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_block_attention (LN epilogue) CUDA launch failed: "
+                           f"cudaError_t {rc}")
+    ATTN_LN_LAUNCHES += 1
     return out
 
 
@@ -406,15 +469,50 @@ class _BlockAttention(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+class _BlockAttentionLN(torch.autograd.Function):
+    """K2's LN-epilogue mode forward (the plain version on CPU tensors); the
+    backward is the autograd of :func:`attention_xla_reference`, as the JAX
+    ``_bwd`` is its vjp."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, bias, mask, ln_scale, ln_bias, window, heads,
+                scale):
+        ctx.statics = (window, heads, scale)
+        ctx.mask = mask
+        ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, bias, ln_scale, ln_bias)
+        if x.device.type == "cpu":
+            return fused_block_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                                   window, heads, scale, ln_scale, ln_bias)
+        return _attention_ln_launch(x, wqkv, bqkv, wproj, bproj, bias, mask, ln_scale, ln_bias,
+                                    window, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            x, wqkv, bqkv, wproj, bproj, bias, ln_scale, ln_bias = ins
+            out = attention_xla_reference(x, wqkv, bqkv, wproj, bproj, bias, ctx.mask,
+                                          *ctx.statics, ln_scale, ln_bias)
+            grads = torch.autograd.grad(out, ins, g)
+        return (*grads[:6], None, *grads[6:], None, None, None)
+
+
 def fused_block_attention(x, wqkv, bqkv, wproj, bproj, bias, mask: Optional[torch.Tensor],
                           ln_scale, ln_bias, window: Tuple[int, int, int], heads: int,
                           scale: float) -> torch.Tensor:
-    """The attention sublayer for training (K2), ``attn(x) @ Wproj^T + bproj``
-    on the grid, differentiable in x, the weights, the biases and the earth
-    bias through the flash backward K3 (the mask is not differentiable). The
-    LN epilogue mode (``ln_scale``/``ln_bias``) of the JAX op has no caller
-    and is not ported: it raises NotImplementedError."""
-    if ln_scale is not None or ln_bias is not None:
-        raise NotImplementedError("the LN epilogue mode of fused_block_attention is not ported")
+    """The attention sublayer (K2), ``attn(x) @ Wproj^T + bproj`` on the
+    grid, differentiable in x, the weights, the biases and the earth bias
+    through the flash backward K3 (the mask is not differentiable). With
+    ``ln_scale``/``ln_bias`` (C,) f32 the LN-epilogue mode ``x + LN(.)``,
+    differentiable in the LayerNorm parameters too."""
     _check_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, heads)
-    return _BlockAttention.apply(x, wqkv, bqkv, wproj, bproj, bias, mask, window, heads, scale)
+    if ln_scale is None and ln_bias is None:
+        return _BlockAttention.apply(x, wqkv, bqkv, wproj, bproj, bias, mask, window, heads,
+                                     scale)
+    c = x.shape[-1]
+    if ln_scale is None or ln_bias is None:
+        raise ValueError("the LN epilogue needs both ln_scale and ln_bias")
+    _check_tensors(x, {"ln_scale": (ln_scale, (c,), torch.float32),
+                       "ln_bias": (ln_bias, (c,), torch.float32)})
+    return _BlockAttentionLN.apply(x, wqkv, bqkv, wproj, bproj, bias, mask, ln_scale, ln_bias,
+                                   window, heads, scale)

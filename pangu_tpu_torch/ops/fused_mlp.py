@@ -1,5 +1,5 @@
-"""The MLP of an Earth-Specific block in training (port of
-``pangu_tpu/ops/fused_mlp.py``: ``fused_mlp_postnorm`` and ``fused_mlp``).
+"""The MLP of an Earth-Specific block (port of ``pangu_tpu/ops/fused_mlp.py``:
+``fused_mlp_postnorm``, ``fused_mlp`` and ``fused_mlp_block``).
 
 ``fused_mlp_postnorm(x, w1, b1, w2, b2, ln_scale, ln_bias, branch_scale)``
 computes, per token row,
@@ -23,6 +23,12 @@ dh^T x`` and ``dx = dh W1`` (no residual); the weight and bias grads in
 their argument's dtype. It serves the ``_POSTNORM_FUSION = False`` route of
 the training block (``model/blocks.py``), which composes K8 with the plain
 post-norm residual.
+
+``fused_mlp_block(x, w1, b1, w2, b2, ln_scale, ln_bias)`` is the inference
+MLP tail ``x + LN(GELU(x @ W1^T + b1) @ W2^T + b2)``, K6 without the branch
+scale (K10). Its backward has no kernel, as in the JAX package: it is the
+autograd of :func:`mlp_block_xla`, the twin of the JAX ``_xla_reference``
+(which rounds the hidden to x's dtype before the GELU, unlike the kernel).
 
 Weights use nn.Linear's (out, in) layout: w1 (4C, C), w2 (C, 4C).
 
@@ -52,6 +58,8 @@ BWD_LAUNCHES = 0
 #: kernel launches of the raw MLP forward (K8) and backward (K9) in this process
 RAW_FWD_LAUNCHES = 0
 RAW_BWD_LAUNCHES = 0
+#: kernel launches of the inference MLP tail (K10) in this process
+BLOCK_LAUNCHES = 0
 
 #: A/B switch (the JAX package's name and default): False routes the training
 #: block's MLP tail through the raw MLP (K8/K9) and the plain post-norm
@@ -147,6 +155,8 @@ def _library() -> ctypes.CDLL:
         lib.pangu_mlp_bwd_scratch.restype = ctypes.c_longlong
         lib.pangu_mlp_bwd.argtypes = [ctypes.c_void_p] * 13 + tail
         lib.pangu_mlp_bwd.restype = ctypes.c_int
+        lib.pangu_mlp_block_fwd.argtypes = [ctypes.c_void_p] * 8 + tail
+        lib.pangu_mlp_block_fwd.restype = ctypes.c_int
     return lib
 
 
@@ -385,3 +395,75 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     function does not take."""
     _check_raw(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2)
     return _Mlp.apply(x.contiguous(), w1, b1, w2, b2)
+
+
+# ---- K10: the inference MLP tail -----------------------------------------------------
+
+
+def fused_mlp_block_reference(x, w1, b1, w2, b2, ln_scale, ln_bias) -> torch.Tensor:
+    """Plain PyTorch version of K10 on rows (the Pallas body's rounding
+    points: the hidden rounded to x's dtype after an f32 GELU; the MLP output,
+    LayerNorm and residual in f32, one rounding at the end)."""
+    a = F.gelu(dot_f32(x, w1.t()) + b1.float()).to(x.dtype)
+    y = layer_norm_f32(dot_f32(a, w2.t()) + b2.float(), ln_scale.float(), ln_bias.float())
+    return (x.float() + y).to(x.dtype)
+
+
+def mlp_block_xla(x, w1, b1, w2, b2, ln_scale, ln_bias) -> torch.Tensor:
+    """The JAX package's ``_xla_reference`` of K10 on rows, whose autograd is
+    K10's backward: the pre-activation rounded to x's dtype, then the GELU."""
+    h = F.gelu((dot_f32(x, w1.t()) + b1.float()).to(x.dtype))
+    y = layer_norm_f32(dot_f32(h, w2.t()) + b2.float(), ln_scale.float(), ln_bias.float())
+    return (y + x.float()).to(x.dtype)
+
+
+def _block_launch(x, w1, b1, w2, b2, ln_scale, ln_bias) -> torch.Tensor:
+    global BLOCK_LAUNCHES
+    tensors = (x, w1, b1, w2, b2, ln_scale, ln_bias)
+    _check_kernel_args("fused_mlp_block", x, w1, tensors[:5], tensors[5:])
+    lib = _library()
+    rows, c = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pangu_mlp_block_fwd(*[t.data_ptr() for t in tensors], out.data_ptr(),
+                                     rows, c, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_mlp_block CUDA launch failed: cudaError_t {rc}")
+    BLOCK_LAUNCHES += 1
+    return out
+
+
+class _MlpBlock(torch.autograd.Function):
+    """K10 forward (the plain version on CPU tensors); the backward is the
+    autograd of :func:`mlp_block_xla`, as the JAX ``_bwd`` is its vjp."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, ln_scale, ln_bias):
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1])
+        ctx.save_for_backward(x2, w1, b1, w2, b2, ln_scale, ln_bias)
+        ctx.shape = shape
+        if x.device.type == "cpu":
+            out = fused_mlp_block_reference(x2, w1, b1, w2, b2, ln_scale, ln_bias)
+        else:
+            out = _block_launch(x2, w1, b1, w2, b2, ln_scale, ln_bias)
+        return out.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = mlp_block_xla(*ins)
+            grads = torch.autograd.grad(out, ins, g.reshape(out.shape))
+        return (grads[0].reshape(ctx.shape), *grads[1:])
+
+
+def fused_mlp_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                    b2: torch.Tensor, ln_scale: torch.Tensor,
+                    ln_bias: torch.Tensor) -> torch.Tensor:
+    """(..., C) -> x + LN(GELU(x @ w1^T + b1) @ w2^T + b2) in x's dtype (K10),
+    differentiable in x, the weights, the biases and the LayerNorm
+    parameters. Raises ValueError on arguments the function does not take."""
+    _check(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, ln_scale, ln_bias)
+    return _MlpBlock.apply(x.contiguous(), w1, b1, w2, b2, ln_scale, ln_bias)

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card (marker ``gpu``; skips without one):
 the inference block K1, the training attention K2/K3, the post-norm
-residual K4/K5, the MLP tail K6/K7, the raw MLP K8/K9 and the training block
-K11/K12 against their plain versions, the forecast step and flagship train
-steps on the default route and the two A/B routes through the kernels.
+residual K4/K5, the MLP tail K6/K7, the raw MLP K8/K9, the training block
+K11/K12, the inference MLP tail K10, K2's LN-epilogue mode (and the two-kernel
+block they make, against K1) and the A/B kernels of the three scripts S1-S3
+against their plain versions, the forecast step and flagship train steps on
+the default route and the two A/B routes through the kernels.
 
 Imports torch and numpy only, so it runs where jax is absent; the repo's
 conftest imports jax, so on such a machine run it as
@@ -386,11 +388,97 @@ def test_flagship_ab_route_steps_launch_their_kernels(cuda_device, variant, want
     assert res["step_s"] > 0 and res["peak_bytes"] > 0
 
 
-def test_chip_smoke_passes_and_lists_the_eleven_kernels(cuda_device):
-    """``python3 chip_smoke.py`` exits 0; the line before the last lists K1-K9,
-    K11 and K12 with their launches over the run of their path: the forecast
-    (K1), the 3 timed default train steps (K2-K7), the 3 timed steps of
-    ``unfused_tail`` (K8/K9) and of ``fused_block`` (K11/K12)."""
+@pytest.mark.parametrize("c,heads", [(192, 6), (384, 12)])
+def test_cuda_inference_tail_kernels_match_plain_versions(cuda_device, c, heads):
+    """K10 and K2's LN mode against their plain versions (K10 with the same
+    bits as K6 at s = 1); the two-kernel block through the module entry points
+    against K1 (they differ by one bf16 rounding of x1), one launch each."""
+    from pangu_tpu_torch.model.attention import EarthAttention3D
+    from pangu_tpu_torch.model.blocks import Mlp
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+
+    args, statics = _inputs(40, cuda_device, 1, 4, 12, 48, c, heads, True)
+    x, mask = args[0], args[6]
+    rows = x.reshape(-1, c)
+    margs = (rows, *args[9:13], args[13], args[14])
+    got = tfm.fused_mlp_block(*margs)
+    torch.cuda.synchronize()
+    ref = tfm.fused_mlp_block_reference(*margs)
+    assert (got.float() - ref.float()).abs().max().item() / max(1.0, ref.float().abs().max()
+                                                                 .item()) < 0.04
+    assert torch.equal(got, tfm.fused_mlp_postnorm(*margs, torch.ones(rows.shape[0], 1,
+                                                                      device=cuda_device)))
+    fargs = (*args[:7], args[7], args[8], *statics)
+    got = tfba.fused_block_attention(*fargs)
+    torch.cuda.synchronize()
+    ref = tfba.fused_block_attention_reference(*args[:7], *statics, args[7], args[8])
+    d = (got.float() - ref.float())
+    assert d.abs().max().item() / max(1.0, ref.float().abs().max().item()) < 0.04
+    assert (d.pow(2).mean().sqrt() / ref.float().pow(2).mean().sqrt()).item() < 0.01
+
+    class Stage:  # the module reads only these of a StageGeometry
+        window, tokens_per_window, n_type_windows = WINDOW, T, args[5].shape[0]
+
+    attn = EarthAttention3D(c, heads, Stage, use_kernel=True).to(cuda_device).eval()
+    mlp = Mlp(c).to(cuda_device).eval()
+    with torch.no_grad():
+        for p, a in ((attn.linear1.weight, args[1]), (attn.linear1.bias, args[2]),
+                     (attn.linear2.weight, args[3]), (attn.linear2.bias, args[4]),
+                     (attn.earth_specific_bias, args[5][None]), (mlp.linear1.weight, args[9]),
+                     (mlp.linear1.bias, args[10]), (mlp.linear2.weight, args[11]),
+                     (mlp.linear2.bias, args[12])):
+            p.copy_(a.float())
+        before = (tfba.ATTN_LN_LAUNCHES, tfm.BLOCK_LAUNCHES)
+        two = mlp(attn(x, mask, epilogue=(args[7], args[8])), ln=(args[13], args[14]),
+                  fused=True)
+        torch.cuda.synchronize()
+        assert (tfba.ATTN_LN_LAUNCHES, tfm.BLOCK_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        ref = tfba.fused_earth_block(*args, *statics)
+    d = (two.float() - ref.float())
+    assert d.abs().max().item() / max(1.0, ref.float().abs().max().item()) < 0.04
+    assert (d.pow(2).mean().sqrt() / ref.float().pow(2).mean().sqrt()).item() < 0.01
+
+
+@pytest.mark.parametrize("variant", ["loop", "blockdiag", "qblockdiag", "loop_int8"])
+def test_cuda_mxu_micro_matches_plain_version(cuda_device, variant):
+    from pangu_tpu_torch.scripts import bench_mxu_micro as m
+
+    qkv, qkv8 = m.make_inputs(cuda_device)
+    x = (qkv8 if variant == "loop_int8" else qkv)[:4].contiguous()
+    for sweeps in (1, 8):
+        before = m.LAUNCHES[variant]
+        got = m.mxu_micro(variant, x, sweeps)
+        torch.cuda.synchronize()
+        assert m.LAUNCHES[variant] == before + 1
+        ref = m.mxu_micro_reference(variant, x, sweeps)
+        tol = m.TOL[variant] if sweeps == 1 else 1e-4  # int8: exact only below 2^24
+        assert ((got - ref).abs().max() / ref.abs().max()).item() < tol
+
+
+@pytest.mark.parametrize("variant", ["batched", "dbl", "quad"])
+def test_cuda_attn_fwd_ab_variant_matches_plain_and_shipped(cuda_device, variant):
+    from pangu_tpu_torch.scripts import bench_attn_fwd_ab as f
+
+    base, bias = f.make_args(cuda_device, (1, 2, 6, 48, 192, 6))
+    res = f.compare_variant(variant, f.variant_args(variant, base, bias, {}), bias, {})
+    assert res["ok"], res
+
+
+def test_cuda_local_accum_matches_plain_and_shipped_with_the_same_bits(cuda_device):
+    from pangu_tpu_torch.scripts import bench_attn_bwd_ab as bw
+
+    args = bw.make_args(cuda_device, (1, 4, 12, 48, 192, 6))
+    res = bw.compare_variant("local_accum", args, {})
+    assert res["same_bits"] and res["vs_shipped"] <= bw.PARITY_TOL and res["ok"], res
+
+
+def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
+    """``python3 chip_smoke.py`` exits 0; the line before the last lists K1-K12,
+    K2's LN mode and the script kernels with their launches over the run of
+    their path: the forecast (K1), the 3 timed default train steps (K2-K7),
+    the 3 timed steps of ``unfused_tail`` (K8/K9) and of ``fused_block``
+    (K11/K12), the two-kernel block at one forecast step's mix (K10, K2 LN),
+    and each script's timed run (2 warm-up + 10 or 12 timed calls)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=repo, capture_output=True,
                           text=True, timeout=1200)
@@ -402,8 +490,14 @@ def test_chip_smoke_passes_and_lists_the_eleven_kernels(cuda_device):
         "fused_residual_postnorm": 96, "fused_residual_postnorm_bwd": 48,
         "fused_mlp_postnorm": 96, "fused_mlp_postnorm_bwd": 48,
         "fused_mlp": 96, "fused_mlp_bwd": 48,
-        "fused_earth_block_train": 48, "fused_earth_block_train_bwd": 48}
+        "fused_earth_block_train": 48, "fused_earth_block_train_bwd": 48,
+        "fused_mlp_block": 16, "fused_block_attention_ln": 16,
+        "bench_mxu_micro:loop": 12, "bench_mxu_micro:blockdiag": 12,
+        "bench_mxu_micro:qblockdiag": 12, "bench_mxu_micro:loop_int8": 12,
+        "bench_attn_fwd_ab:batched": 14, "bench_attn_fwd_ab:dbl": 14,
+        "bench_attn_fwd_ab:quad": 14, "bench_attn_bwd_ab:local_accum": 14}
     assert all(k["route"] == "cuda" and k["ms"] > 0 and k["plain_ms"] > 0
                and 0 < k["bound_ms"] < k["ms"] and k["bound_by"] in ("bytes", "operations")
                and "library_ms" in k for k in kernels.values())
+    assert kernels["bench_mxu_micro:loop"]["library_ms"] > 0
     assert json.loads(lines[-1])["ok"] is True

@@ -148,9 +148,13 @@ def test_attention_bwd_plain_is_autograd_of_plain_forward(masked):
 
 
 def test_attention_wrapper_rejects_epilogue_mode_and_bad_arguments():
+    """The LN-epilogue mode is ported: it rejects LayerNorm parameters of the
+    wrong shape or dtype and one parameter without the other."""
     _, tx, statics = _attention_args(18, True, True)
-    with pytest.raises(NotImplementedError):
-        tfba.fused_block_attention(*tx, torch.ones(16), torch.zeros(16), *statics)
+    for ln in ((torch.ones(15), torch.zeros(15)), (torch.ones(16, dtype=torch.bfloat16),
+                                                   torch.zeros(16)), (torch.ones(16), None)):
+        with pytest.raises(ValueError):
+            tfba.fused_block_attention(*tx, *ln, *statics)
     bad = list(tx)
     bad[5] = bad[5].to(torch.bfloat16)  # the earth bias must be f32
     with pytest.raises(ValueError):
