@@ -22,12 +22,15 @@ Phases (any failure exits non-zero before the last line is printed):
    memory;
 5. the training attention K2 and its flash backward K3 against their plain
    versions at both stage shapes, unshifted and shifted: the forward output
-   and all six gradients under the bounds of phase 3; per-call times;
+   and all six gradients under the bounds of phase 3, K3 the same bits on two
+   runs; per-call times;
 6. the post-norm residual K4 and its backward K5 against their plain
    versions at both stage row counts with a branch scale, same bounds;
 7. the MLP tail K6 and its backward K7 against their plain versions at both
    stage row counts with a branch scale: the output and all eight gradients,
-   same bounds;
+   same bounds, K7 the same bits on two runs; then the split of K7 and K3
+   into their kernels at both stages (torch.profiler) and, on a line of its
+   own, the wgmma products beside one ``torch.mm`` of each (a yardstick);
 8. the train slice: 1 warm-up and 3 timed flagship train steps through
    ``make_train_step`` (bf16, remat, drop path 0.2 from a seeded generator,
    Adam): exactly 32 / 16 launches of each forward / backward kernel (K2 /
@@ -119,7 +122,7 @@ from pangu_tpu_torch.ops import fused_epilogue as fep
 from pangu_tpu_torch.ops import fused_mlp as fmlp
 from pangu_tpu_torch.rollout import make_forecast_step
 from pangu_tpu_torch.scripts import (bench_attn_bwd_ab, bench_attn_fwd_ab, bench_mxu_micro,
-                                     bench_train_ab)
+                                     bench_train_ab, profile_bwd_split)
 from pangu_tpu_torch.scripts.ab_common import (KERNEL_RMS_TOL, KERNEL_TOL, PEAK_BF16, PEAK_BYTES,
                                                compare, cuda_times_ms)
 from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
@@ -399,6 +402,32 @@ def check_outputs(label: str, outputs: dict) -> float:
     return max(c["max_abs"] for c in outputs.values())
 
 
+def same_bits(label: str, first, second) -> bool:
+    """Raise unless two runs of a kernel gave the same bits in every output."""
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{label}: two runs on the same inputs differ")
+    log(f"{label}: two runs give the same bits")
+    return True
+
+
+def check_products(g, dev) -> dict:
+    """After phase 7: the split of K7 and K3 into their kernels at both stages
+    (torch.profiler) and, beside the wgmma products, the time of one
+    ``torch.mm`` of the same product, a yardstick the port never calls
+    (``pangu_tpu_torch.scripts.profile_bwd_split``)."""
+    res = {}
+    for name, stage, c, heads in (("outer", g.outer, 192, 6), ("inner", g.inner, 384, 12)):
+        r = res[name] = profile_bwd_split.backward_split(stage, c, heads, dev)
+        products = [(n, round(t, 4)) for k in ("k7_kernels", "k3_kernels") for n, t in r[k]
+                    if n.startswith("wg_gemm")]
+        log(f"products {name}: wgmma {products}; torch.mm yardstick "
+            f"{json.dumps({k: round(v, 4) for k, v in r['matmul_ms'].items()})}")
+        for k in ("k7_kernels", "k3_kernels"):
+            log(f"{k[:2].upper()} {name} kernels {[(n, round(t, 4)) for n, t in r[k]]}")
+        torch.cuda.empty_cache()
+    return res
+
+
 def mix(shapes: list, key: str) -> float:
     """Mean per launch over one step's mix of block shapes; a shape without
     "shifted" stands for both (the row kernels do not see the shift)."""
@@ -436,6 +465,7 @@ def check_attention(g, dev) -> dict:
                                     *fargs[:7], *fargs[9:]), n=6)))
                 grads = fba.fused_block_attention_bwd(*bargs)
                 torch.cuda.synchronize()
+                same = same_bits(f"K3 {label}", grads, fba.fused_block_attention_bwd(*bargs))
                 torch.cuda.reset_peak_memory_stats(dev)
                 ref = fba.fused_block_attention_bwd_reference(*bargs)
                 plain_peak = torch.cuda.max_memory_allocated(dev)
@@ -444,7 +474,7 @@ def check_attention(g, dev) -> dict:
                 del grads, ref
                 torch.cuda.empty_cache()
                 bwd.append(dict(stage=name, shifted=shifted, max_abs_err=err,
-                                plain_peak_bytes=plain_peak,
+                                plain_peak_bytes=plain_peak, same_bits=same,
                                 **bound("fused_block_attention_bwd", *geo),
                                 ms=cuda_times_ms(lambda: fba.fused_block_attention_bwd(*bargs)),
                                 plain_ms=cuda_times_ms(
@@ -535,6 +565,7 @@ def check_mlp(g, dev) -> dict:
                                 lambda: fmlp.fused_mlp_postnorm_reference(*fargs), n=6)))
             outs = fmlp.fused_mlp_postnorm_bwd(*bargs)
             torch.cuda.synchronize()
+            same = same_bits(f"K7 {name}", outs, fmlp.fused_mlp_postnorm_bwd(*bargs))
             torch.cuda.reset_peak_memory_stats(dev)
             ref = fmlp.fused_mlp_postnorm_bwd_reference(*bargs)
             plain_peak = torch.cuda.max_memory_allocated(dev)
@@ -543,7 +574,7 @@ def check_mlp(g, dev) -> dict:
             del outs, ref
             torch.cuda.empty_cache()
             bwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
-                            plain_peak_bytes=plain_peak,
+                            plain_peak_bytes=plain_peak, same_bits=same,
                             **bound("fused_mlp_postnorm_bwd", rows, c),
                             ms=cuda_times_ms(lambda: fmlp.fused_mlp_postnorm_bwd(*bargs)),
                             plain_ms=cuda_times_ms(
@@ -1016,8 +1047,9 @@ def main() -> int:
     log(f"slice: kernel step {sl['step_s']:.6f} s, plain step {sl['plain']['step_s']:.6f} s, "
         f"f32 step {sl['f32']['step_s']:.6f} s")
     shapes = {**kern, **check_attention(model.geom, dev), **check_residual(model.geom, dev),
-              **check_mlp(model.geom, dev), **check_raw_mlp(model.geom, dev),
-              **check_block_train(model.geom, dev)}
+              **check_mlp(model.geom, dev)}
+    products = check_products(model.geom, dev)
+    shapes.update({**check_raw_mlp(model.geom, dev), **check_block_train(model.geom, dev)})
     tr, ref = check_train(cfg, model, aux, dev)
     log(f"train slice: kernel step {tr['step_s']:.6f} s, plain bf16 step "
         f"{tr['plain']['step_s']:.6f} s, f32 step {tr['f32']['step_s']:.6f} s")
@@ -1033,8 +1065,8 @@ def main() -> int:
     fwd_ab, fwd_counts = check_attn_fwd_ab(dev)
     bwd_ab, bwd_counts = check_attn_bwd_ab(dev)
 
-    log("detail: " + json.dumps({"slice": sl, **shapes, "train": tr, "ab": ab,
-                                 "two_kernel_path": tail_path, "mxu_micro": micro,
+    log("detail: " + json.dumps({"slice": sl, **shapes, "products": products, "train": tr,
+                                 "ab": ab, "two_kernel_path": tail_path, "mxu_micro": micro,
                                  "attn_fwd_ab": fwd_ab, "attn_bwd_ab": bwd_ab}))
     # launches over the run of each kernel's path
     launches = {"fused_earth_block": sl["launches"], **tr["launches"],

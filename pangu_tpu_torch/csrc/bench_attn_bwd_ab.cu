@@ -11,12 +11,12 @@
 // Design. K3 writes the attention output acc (rows, C) and dqkv (rows, 3C) as
 // bf16 slabs and forms dWqkv = dqkv^T x and dWproj = g^T acc as row-split
 // products over all rows. The Pallas variant instead carries the weight grads
-// across the windows of its program. Here attention_bwd_kernel<false, true>
-// (attention_bwd.cuh): one CTA per (window type, head), as K3, which after each
-// window adds its head's dWqkv slice (dq_h|dk_h|dv_h)^T x (96 x C) and dWproj
-// columns acc_h^T g (32 x C) into 96 wmma accumulators in f32 registers (11 per
-// warp), reading x and g again from L2 into the qkv and dO tiles it no longer
-// needs. Each CTA writes one partial per (type, head); reduce_partials sums
+// across the windows of its program. Here attention_bwd_kernel<false>
+// (attention_bwd.cuh, K3's earlier schedule): one CTA per (window type,
+// head), as K3, which after each window adds its head's dWqkv slice
+// (dq_h|dk_h|dv_h)^T x (96 x C) and dWproj columns acc_h^T g (32 x C) into
+// 96 wmma accumulators in f32 registers (11 per warp), reading x and g again
+// from L2 into the qkv and dO tiles it no longer needs. Each CTA writes one partial per (type, head); reduce_partials sums
 // the 124 type partials in a fixed order (no atomics: the same bits on every
 // run). dx = dqkv @ Wqkv, dbqkv and dbias stay as K3 computes them; dbproj is
 // the column sum of g in f32.
@@ -66,12 +66,12 @@ int pangu_attn_bwd_local(const void* x, const void* gy, const void* wqkv, const 
   float* wpart = static_cast<float*>(scratch);
   float* sums = wpart + (long long)n_types * 4 * C * C;
 
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<false, true>,
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_kernel<false, true><<<(unsigned)(n_types * heads), BWD_THREADS, BWD_SMEM, s>>>(
+  attention_bwd_kernel<false><<<(unsigned)(n_types * heads), BWD_THREADS, BWD_SMEM, s>>>(
       xb, gb, static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
-      static_cast<const bf16*>(wproj), static_cast<const float*>(bias), nullptr, dq, nullptr,
+      static_cast<const bf16*>(wproj), static_cast<const float*>(bias), nullptr, dq,
       static_cast<float*>(dbias), sums, g, scale, wpart);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = reduce_partials(sums, n_types, 3LL * C, nullptr, static_cast<float*>(dbqkv), s)) !=

@@ -20,32 +20,40 @@
 // the Pallas wrapper rounds them to the argument dtype; dbias is f32.
 //
 // Backward design. The Pallas kernel runs one (z-window, h-window) slab per
-// sequential grid step and carries dbias and the weight grads in VMEM from one
-// step to the next; Hopper's CTAs run in no order, so:
+// sequential grid step and carries dbias, the weight grads and the dbproj sum
+// in VMEM from one step to the next; Hopper's CTAs run in no order, so:
 //
-//  * attention_bwd_kernel<false> (attention_bwd.cuh, shared with the training
-//    block backward K12): one CTA per (window type, head), 9 warps, looping
-//    over the batch and the lon windows of its type (30 outer, 15 inner), so
-//    its dbias tile (T x T f32) has one writer and is summed in a fixed order
-//    (read-modify-write in device memory, which the L2 holds; no atomics). Per
-//    window it recomputes that head's q|k|v and dO_h = g @ Wproj[:, head] from
-//    the gathered 144 tokens, the scores and f32 softmax (one 16-row query
-//    tile per warp), dP = dO v^T and dS = p (dP - rowsum(dP p)) in f32, then
-//    dq = dS k scale, dk = dS^T q scale, dv = P^T dO, acc = P v with wmma
-//    fragments. dq|dk|dv go to a bf16 (rows, 3C) slab and acc to a bf16 (rows,
-//    C) slab at the window's token rows; the f32 column sums of dq|dk|dv
-//    (dbqkv) are per-CTA partials. 221,184 B of shared memory: the head's
-//    q|k|v and dO, and per warp its f32 scores/probabilities, bf16 P and dS
-//    rows (P and dS are read across warps for dk and dv) and a 16x16 dP tile.
-//  * the products over all rows of gemm.cuh: dx = dqkv @ Wqkv, dWqkv = dqkv^T
-//    @ x and dWproj = g^T @ acc (split over the rows, f32 partials summed in
-//    order), and the column sums dbproj = sum g.
+//  * attention_bwd_regs_kernel (attention_bwd.cuh): one CTA per (window type,
+//    head), 9 warps, looping over the batch and the lon windows of its type
+//    (30 outer, 15 inner), so its dbias tile (T x T f32) has one writer. Per
+//    window it recomputes that head's q|k|v and dO_h = g @ Wproj[:, head]
+//    from the gathered 144 tokens (wmma, 32 channels a stage), then each warp
+//    keeps its 16 query rows in mma.sync registers (FlashAttention-2's
+//    layout, the m16n8k16 C fragments reused as A fragments): S = q k^T, the
+//    f32 softmax, O = P v (-> the acc slab), D = rowsum(dO O), and per 16-key
+//    block dP = dO v^T once, dS = p (dP - D) added to the dbias tile held in
+//    shared memory across all the CTA's windows (written once at the end),
+//    dq += bf16(dS) k. P and dS go to shared memory as bf16 rows, from which
+//    warp w forms dk = dS^T q and dv = P^T dO for its 16 key rows. dq|dk|dv go
+//    to a bf16 (rows, 3C) slab; the f32 column sums of dq|dk|dv (dbqkv) and
+//    of the head's 32 channels of g (dbproj, the stage of the recompute that
+//    holds them) are per-(type, head) partials. 213,120 B of shared memory,
+//    one CTA per SM.
+//  * the products over all rows, gemm.cuh's wgmma kernels: dx = dqkv @ Wqkv,
+//    dWqkv = dqkv^T @ x and dWproj = g^T @ acc (split over the rows, f32
+//    partials summed in order).
+//
+// Rounding: as the Pallas body, except D. The body forms rowsum(dP p) from
+// the f32 probabilities; here D = rowsum(dO O) with O = P v from the bf16 P
+// of the acc slab, equal up to P's rounding (an f32 sum of 144 terms each
+// off by at most 2^-9 relative): within the kernel bounds of chip_smoke.py.
 //
 // What bounds it on an H100: the backward of an outer block is ~1.2 TFLOP of
 // products (the recomputed forward, dO, the four score-sized products and the
-// three deep products) against ~1.5 GB of traffic (x, g, the slabs, dbias
-// twice per window in L2); it is bound by the tensor cores' feed, here the
-// wmma fragment loads from shared memory, and by one CTA per SM.
+// three deep products) against ~1.5 GB of traffic (x, g, the slabs; dbias
+// once): operations. The attention kernel is held by the feed of its 16-row
+// mma.sync tiles from shared memory (ldmatrix) and the wmma recompute; the
+// products by bytes.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // pangu_tpu_torch/ops/fused_block_attention.py; the plain PyTorch versions are
@@ -135,24 +143,25 @@ int pangu_block_attention_ln_fwd(const void* x, const void* wqkv, const void* bq
 long long pangu_block_attention_bwd_scratch(long long rows, int C, int n_types) {
   const long long a = (long long)weight_grad_splits(3 * C, C, rows) * 3 * C * C;
   const long long b = (long long)weight_grad_splits(C, C, rows) * C * C;
-  long long n = (long long)n_types * 3 * C;
+  long long n = (long long)n_types * 4 * C;  // the dbqkv and dbproj partials
   if (a > n) n = a;
   if (b > n) n = b;
-  if ((long long)COLSUM_BLOCKS * C > n) n = (long long)COLSUM_BLOCKS * C;
   return n;
 }
 
 // K3: from gy = dL/dy, the grads of K2's inputs, on `stream`. dqkv_buf (rows, 3C)
 // and acc_buf (rows, C) are bf16 scratch, scratch has
 // pangu_block_attention_bwd_scratch(...) floats. dwqkv (3C, C), dbqkv (3C),
-// dwproj (C, C), dbproj (C) are bf16; dbias (n_types, heads, T, T) f32.
+// dwproj (C, C), dbproj (C) are bf16; dbias (n_types, heads, T, T) f32. C 192
+// or 384 (the wgmma products take widths in multiples of 192).
 int pangu_block_attention_bwd(const void* x, const void* gy, const void* wqkv, const void* bqkv,
                               const void* wproj, const void* bias, const void* mask,
                               void* dqkv_buf, void* acc_buf, void* scratch, void* dx,
                               void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, void* dbias,
                               int B, int Z, int Hp, int W, int C, int heads, int wz, int wh,
                               int ww, float scale, void* stream) {
-  if (!geometry_ok(B, Z, Hp, W, C, heads, wz, wh, ww)) return (int)cudaErrorInvalidValue;
+  if (!geometry_ok(B, Z, Hp, W, C, heads, wz, wh, ww) || C % WG_BN)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const Geom g{B, Z, Hp, W, C, heads, wz, wh, ww};
   const int n_types = (Z / wz) * (Hp / wh);
@@ -163,17 +172,19 @@ int pangu_block_attention_bwd(const void* x, const void* gy, const void* wqkv, c
   bf16* ac = static_cast<bf16*>(acc_buf);
   float* part = static_cast<float*>(scratch);
 
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_regs_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, K3_SMEM);
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_kernel<false><<<(unsigned)(n_types * heads), BWD_THREADS, BWD_SMEM, s>>>(
+  attention_bwd_regs_kernel<<<(unsigned)(n_types * heads), BWD_THREADS, K3_SMEM, s>>>(
       xb, gb, static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
       static_cast<const bf16*>(wproj), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), dq, ac, static_cast<float*>(dbias), part, g, scale,
-      nullptr);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = reduce_partials(part, n_types, 3LL * C, static_cast<bf16*>(dbqkv), nullptr, s)) !=
-      cudaSuccess)
+      static_cast<const float*>(mask), dq, ac, static_cast<float*>(dbias), part,
+      part + (long long)n_types * 3 * C, g, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = reduce_partials(part, n_types, 3LL * C, static_cast<bf16*>(dbqkv), nullptr, s)) !=
+          cudaSuccess ||
+      (err = reduce_partials(part + (long long)n_types * 3 * C, n_types, C,
+                             static_cast<bf16*>(dbproj), nullptr, s)) != cudaSuccess)
     return (int)err;
   // dx = dqkv @ Wqkv: Wqkv (3C, C) is the (k, n) operand as it lies
   if ((err = gemm<true, true>(dq, 3 * C, static_cast<const bf16*>(wqkv), C, (int)rows, C, 3 * C,
@@ -185,10 +196,8 @@ int pangu_block_attention_bwd(const void* x, const void* gy, const void* wqkv, c
                                static_cast<bf16*>(dwqkv), part, s)) != cudaSuccess)
     return (int)err;
   // dWproj (C_out, C_in) = g^T @ acc, over the rows
-  if ((err = gemm<false, true>(gb, C, ac, C, C, C, rows, weight_grad_splits(C, C, rows), nullptr,
-                               static_cast<bf16*>(dwproj), part, s)) != cudaSuccess)
-    return (int)err;
-  return (int)colsum(gb, rows, C, part, static_cast<bf16*>(dbproj), s);
+  return (int)gemm<false, true>(gb, C, ac, C, C, C, rows, weight_grad_splits(C, C, rows),
+                                nullptr, static_cast<bf16*>(dwproj), part, s);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Device helpers shared by the port's CUDA sources (sm_90a): the window
 // geometry, warp reductions, cp.async staging with a two-stage ring, the
-// wmma fragment types, and the reduction of per-CTA f32 partials.
+// mma.sync product and the wmma fragment types, and the reduction of per-CTA
+// f32 partials.
 
 #pragma once
 
@@ -42,6 +43,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// the shared-memory address of a generic pointer into shared memory
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // ---- cp.async: 16-byte global -> shared copies, completed by group ----------------
@@ -87,6 +93,19 @@ __device__ __forceinline__ void pipelined(int n, bf16* buf0, bf16* buf1, Load lo
     compute(i, cur);
     __syncthreads();
   }
+}
+
+// mma.sync m16n8k16, bf16 in, f32 sums (lane = 4 g + t): A (16 x 16) regs
+// a0..a3 hold (row g, cols 2t, 2t+1), (g + 8, 2t..), (g, 2t + 8..), (g + 8,
+// 2t + 8..); B (16 x 8) b0, b1 hold (rows 2t, 2t+1; col g), (rows 2t + 8..;
+// col g); d (16 x 8) d0, d1 at (row g, cols 2t, 2t+1), d2, d3 at row g + 8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;

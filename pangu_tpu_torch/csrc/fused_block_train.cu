@@ -43,12 +43,12 @@
 //     = da^T acc need x1 and da, which never leave the chip: each CTA adds its
 //     tile's product to its own f32 partial of them in device memory (a
 //     read-modify-write per tile, no atomics).
-//  3. attention_bwd_kernel<true> (attention_bwd.cuh, K3's kernel given dO): per
-//     (window type, head), looping over the batch and the lon windows, the
-//     dqkv slab, dbias (one writer per tile) and dbqkv partials.
+//  3. attention_bwd_kernel<true> (attention_bwd.cuh, K3's earlier schedule
+//     given dO): per (window type, head), looping over the batch and the lon
+//     windows, the dqkv slab, dbias (one writer per tile) and dbqkv partials.
 //  4. gemm.cuh: dx = bf16(dqkv Wqkv + dh W1 + g) -- dx1 = g + dh W1 formed
-//     again from the dh slab instead of being stored -- and the row-split
-//     products dWqkv = dqkv^T x and dW2 = dy2^T GELU(h).
+//     again from the dh slab instead of being stored -- (wmma) and the wgmma
+//     row-split products dWqkv = dqkv^T x and dW2 = dy2^T GELU(h).
 //  5. every partial summed in a fixed order (reduce_partials; ds1 and ds2 per
 //     sample by segment_sum_kernel): the same bits on every run.
 //
@@ -497,14 +497,14 @@ cudaError_t launch_bwd(const BwdArgs& p, const Geom& g, float scale, cudaStream_
       cudaSuccess)
     return err;
   attention_bwd_kernel<true><<<(unsigned)(n_types * g.heads), BWD_THREADS, BWD_SMEM, s>>>(
-      p.x, p.dO, p.wqkv, p.bqkv, nullptr, p.bias, p.mask, p.dqkv, nullptr, p.dbias, p.part, g,
-      scale, nullptr);
+      p.x, p.dO, p.wqkv, p.bqkv, nullptr, p.bias, p.mask, p.dqkv, p.dbias, p.part, g, scale,
+      nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = reduce_partials(p.part, n_types, 3LL * C, p.dbqkv, nullptr, s)) != cudaSuccess)
     return err;
 
   // 4. dx = bf16(dqkv Wqkv + dh W1 + g); dWqkv = dqkv^T x; dW2 (C, 4C) = dy2^T GELU(h)
-  if ((err = gemm_sum<true, true>(p.dqkv, 3 * C, p.wqkv, C, 3 * C, p.dh, 4 * C, p.w1, C, 4 * C,
+  if ((err = gemm_sum<true>(p.dqkv, 3 * C, p.wqkv, C, 3 * C, p.dh, 4 * C, p.w1, C, 4 * C,
                                   (int)rows, C, p.gy, p.dx, s)) != cudaSuccess)
     return err;
   if ((err = gemm<false, true>(p.dqkv, 3 * C, p.x, C, 3 * C, C, rows,

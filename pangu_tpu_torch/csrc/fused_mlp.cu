@@ -24,41 +24,51 @@
 // rounds them to the argument dtype; dgamma, dbeta and ds (one per row) are
 // f32. s is the per-row f32 branch scale (stochastic depth).
 //
-// Design. A CTA owns 48 rows at a time (12 warps: 3 row tiles x 4 column
-// groups) and streams the 4C hidden in 64-column chunks, so the (rows, 4C)
-// hidden exists in shared memory one chunk at a time (mlp_tile.cuh, shared
-// with K1's token tail):
+// Design. The forwards and the backward's row pass: a CTA owns 48 rows at a
+// time (12 warps: 3 row tiles x 4 column groups) and streams the 4C hidden in
+// 64-column chunks, so the (rows, 4C) hidden exists in shared memory one
+// chunk at a time (mlp_tile.cuh, shared with K1's token tail); wmma fragments.
 //
 //  * mlp_postnorm_kernel<C, false> (K6): h chunk = x W1^T, GELU, bf16, then
 //    the W2 product accumulating in registers; LN, scale and residual per row.
-//  * the backward has two row passes and two products over all rows:
+//  * the backward K7, a row pass, a hidden pass and two products over all rows:
 //    - mlp_postnorm_kernel<C, true> recomputes y the same way and forms, per
 //      row, ds, dy = LN backward of s g (written bf16, (rows, C)) and the
 //      f32 partials of dgamma, dbeta and db2;
-//    - mlp_hidden_bwd_kernel<C> recomputes each h chunk beside the dy W2
-//      chunk, writes a = bf16(GELU(h)) and dh = bf16(dy W2 * GELU'(h)) to
-//      (rows, 4C) slabs, sums db1 (f32) and accumulates dx = dh W1 + g in
-//      registers;
-//    - dW2 = dy^T a and dW1 = dh^T x over the rows are gemm.cuh products
-//      split over the rows with f32 partials summed in order.
+//    - mlp_hidden_bwd_kernel<C> (wgmma): 64-row tiles, x and dy resident in
+//      shared memory, one producer warp feeding the W2 and W1 chunks of each
+//      64-column hidden chunk by TMA (one buffer each: W2 is released after
+//      h and dP, W1 after dx, so each load overlaps the other product); two
+//      consumer warpgroups each form h = x W1^T and dP = dy W2[:, chunk] for
+//      32 of the chunk's columns, a = bf16(GELU(h)) and dh = bf16(dP
+//      GELU'(h)) in registers, written to a double-buffered staging tile
+//      (the dh tile is also the A operand of dx) and from there to the (rows,
+//      4C) slabs with 16-byte stores; then each accumulates dx[:, its half]
+//      += dh W1[chunk, half] (f32 registers: 48 or 96 a thread). db1: f32
+//      column sums of dh, rows and warps in a fixed order, per-CTA partials.
+//      A partial last tile is read as zeros and not stored.
+//    - dW2 = dy^T a and dW1 = dh^T x over the rows are gemm.cuh's wgmma
+//      row-split products.
 //    Every cross-CTA sum goes through per-CTA partials reduced in a fixed
 //    order (reduce_partials): the result is the same on every run.
 //  * mlp_postnorm_kernel<C, false, false> (K10): K6 without the branch scale,
 //    so it reads no scale vector; with s = 1 the two give the same bits.
 //  * mlp_raw_kernel<C> (K8): K6 without the LayerNorm and the residual.
-//  * K9 is K7 without its row pass: the hidden pass (mlp_hidden_bwd_rows) runs
-//    on g itself as the output gradient and adds no residual to dx; db2 is
-//    the column sum of g (gemm.cuh colsum), dW2 = g^T a and dW1 = dh^T x the
-//    row-split products. The Pallas body carries dW1, dW2, db1 and db2 in VMEM
-//    across its sequential grid; here they are per-CTA f32 partials summed in
-//    order, as above.
+//  * K9 is K7 without its row pass: the hidden pass runs on g itself as the
+//    output gradient and adds no residual to dx; db2 is the column sum of g
+//    (gemm.cuh colsum), dW2 = g^T a and dW1 = dh^T x the row-split products.
+//    The Pallas body carries dW1, dW2, db1 and db2 in VMEM across its
+//    sequential grid; here they are per-CTA f32 partials summed in order.
 //
 // What bounds it on an H100: ~4 x rows x C x 4C FLOP forward (316 GFLOP at
 // the outer stage) against two (rows, C) bf16 passes (0.4 GB): compute; the
 // backward does ~3x the FLOP and moves the two hidden slabs (1.6 GB at the
-// outer stage) once each way. K8/K9 are bound the same way. The products are
-// wmma fragments loaded from shared memory, as in K1's tail; wgmma is later
-// work.
+// outer stage) once each way. The forwards and the row pass are wmma
+// fragments loaded from shared memory, held by those loads (a later
+// redesign, with K1's tail, which shares mlp_rows). The hidden pass streams
+// W1 and W2 (2 x 4C x C bf16) from the L2 for every 64-row tile, ~5 GB a
+// call, and idles the tensor cores during its GELU epilogue: held by that
+// feed and the epilogue rather than by the tensor-core peak.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // pangu_tpu_torch/ops/fused_mlp.py; the plain PyTorch versions are
@@ -77,13 +87,7 @@ struct MlpLayout : MlpTile<C> {
   static constexpr int F_WORK = M::XB_BYTES + M::H_BYTES + M::HB_BYTES + 2 * M::STAGE_BYTES;
   static constexpr int F_RED = 3 * TAIL_WARPS * C * 4;  // backward partials, at the end
   static constexpr int F_SMEM = cmax(cmax(F_WORK, M::Y_BYTES), F_RED);
-  // hidden backward: x, dy, h, dP (then dh), bf16 dh, two stages, db1 sums
-  static constexpr int B_STAGE = hidden_bwd_stage_bytes<C>();
-  static constexpr int B_ROWS = 2 * M::XB_BYTES + 2 * M::H_BYTES;  // dx f32 reuses it
-  static constexpr int B_SMEM = B_ROWS + M::HB_BYTES + 2 * B_STAGE + 4 * C * 4;
-  static_assert(B_STAGE % 32 == 0, "wmma needs 256-bit aligned tiles");
-  static_assert(M::Y_BYTES <= B_ROWS, "dx fits the row buffers");
-  static_assert(F_SMEM <= 232448 && B_SMEM <= 232448, "fits one CTA's shared memory");
+  static_assert(F_SMEM <= 232448, "fits one CTA's shared memory");
 };
 
 // K6 (BWD false): out = bf16(x + s * LN(y)); K10 (SCALED false too): out =
@@ -191,55 +195,255 @@ mlp_postnorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   }
 }
 
-// Backward pass 2: the hidden pass (mlp_hidden_bwd_rows) with dy as the MLP
-// output's gradient; then dx = bf16(dh W1 + g), or bf16(dh W1) with gy null
-// (K9). Loops over 48-row tiles; db1 partials per CTA.
-template <int C>
-__global__ void __launch_bounds__(TAIL_THREADS, 1)
-mlp_hidden_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                      const bf16* __restrict__ gy, const bf16* __restrict__ w1,
-                      const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                      bf16* __restrict__ a_out, bf16* __restrict__ dh_out,
-                      bf16* __restrict__ dx, float* __restrict__ db1_part, long long tiles) {
-  using L = MlpLayout<C>;
-  constexpr int H4 = 4 * C;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* XB = reinterpret_cast<bf16*>(smem);
-  bf16* DB = reinterpret_cast<bf16*>(smem + L::XB_BYTES);
-  float* H = reinterpret_cast<float*>(smem + 2 * L::XB_BYTES);
-  float* P = reinterpret_cast<float*>(smem + 2 * L::XB_BYTES + L::H_BYTES);
-  bf16* HB = reinterpret_cast<bf16*>(smem + L::B_ROWS);
-  bf16* S0 = reinterpret_cast<bf16*>(smem + L::B_ROWS + L::HB_BYTES);
-  bf16* S1 = S0 + L::B_STAGE / 2;
-  float* db1 = reinterpret_cast<float*>(smem + L::B_ROWS + L::HB_BYTES + 2 * L::B_STAGE);
-  float* Ds = reinterpret_cast<float*>(smem);  // dx, after the last chunk
-  const int warp = threadIdx.x >> 5;
-  const int mt = warp >> 2, ng = warp & 3;
-  for (int c = threadIdx.x; c < H4; c += TAIL_THREADS) db1[c] = 0.f;
+// ---- Backward pass 2, the hidden pass, on wgmma -------------------------------------
+constexpr int HB_ROWS = 64;                   // rows per tile (one wgmma row block)
+constexpr int HB_THREADS = 2 * 128 + 32;      // two consumer warpgroups + the producer warp
 
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long row0 = tile * TAIL_ROWS;
-    stage_tile(XB, L::XB_LD, x + row0 * C, C, TAIL_ROWS, C);
-    stage_tile(DB, L::XB_LD, dy + row0 * C, C, TAIL_ROWS, C);
-    cp_async_commit();  // completed by the first chunk's wait
-    FragC dacc[L::NT];
-    for (int i = 0; i < L::NT; ++i) wmma::fill_fragment(dacc[i], 0.f);
-    mlp_hidden_bwd_rows<C>(XB, DB, H, P, HB, S0, S1, w1, b1, w2, a_out, dh_out, row0, db1, dacc,
-                           [](int) {});
-    // P is read (the pass ends with a barrier): dx goes over the row buffers
-    for (int j = 0; j < L::NT; ++j)
-      wmma::store_matrix_sync(Ds + mt * 16 * L::Y_LD + (ng + 4 * j) * 16, dacc[j], L::Y_LD,
-                              wmma::mem_row_major);
-    __syncthreads();
-    for (int v = threadIdx.x; v < TAIL_ROWS * C; v += TAIL_THREADS) {
-      const int r = v / C, c = v - r * C;
-      const long long at = (row0 + r) * C + c;
-      dx[at] = __float2bfloat16(Ds[r * L::Y_LD + c] + (gy ? __bfloat162float(gy[at]) : 0.f));
+// Shared memory of the hidden pass (byte offsets; every box on a 1024-byte
+// boundary): the x and dy tiles (64 x C, 64-channel boxes, 128-byte swizzle),
+// one 64-column chunk of W1 (64 x C as (64 j, 32 c) boxes, 64-byte swizzle)
+// and of W2 (C x 64 as (64 c, 32 j) boxes: [half][channel block]), two
+// staging buffers of the a and dh tiles (64 x 64, 128-byte swizzle, dh also
+// the A operand of dx), two db1 scratch rows per warp, the barriers.
+template <int C>
+struct HiddenLayout {
+  static constexpr int XBOX = 64 * 64 * 2, WBOX = 64 * 32 * 2;
+  static constexpr int X = 0, DY = X + C / 64 * XBOX, W1 = DY + C / 64 * XBOX;
+  static constexpr int W2 = W1 + C / 32 * WBOX, STG = W2 + C / 32 * WBOX;
+  static constexpr int DB1 = STG + 2 * 2 * XBOX, BAR = DB1 + 2 * 8 * 32 * 4;
+  static constexpr int SMEM = BAR + 6 * 8;
+  static_assert(SMEM <= 232448, "fits one CTA's shared memory");
+};
+
+struct HiddenMaps {
+  CUtensorMap x, dy, w1, w2;
+};
+
+// The hidden pass of an MLP backward (K7, K9) over 64-row tiles, dy the MLP
+// output's gradient: per 64-column chunk j0 of the 4C hidden, h = x W1^T + b1
+// and dP = dy W2[:, j0:j0+64] (each warpgroup 32 of the columns), a =
+// bf16(GELU(h)) and dh = bf16(dP GELU'(h)) to the (rows, 4C) slabs through
+// the staging buffers (16-byte stores), dx[:, half w] += dh W1[j0:j0+64, half
+// w] (warpgroup w, f32 in registers); dx = bf16(dx + gy) at the end of a tile
+// (gy null: no residual, K9). db1 partials per CTA (f32 dh, rows and warps in
+// a fixed order) in db1_part (grid x 4C). Rows past `rows` are read as zeros
+// and not stored.
+template <int C>
+__global__ void __launch_bounds__(HB_THREADS, 1)
+mlp_hidden_bwd_kernel(const __grid_constant__ HiddenMaps maps, const bf16* __restrict__ gy,
+                      const bf16* __restrict__ b1, bf16* __restrict__ a_out,
+                      bf16* __restrict__ dh_out, bf16* __restrict__ dx,
+                      float* __restrict__ db1_part, long long rows) {
+  using L = HiddenLayout<C>;
+  constexpr int H4 = 4 * C, NCH = H4 / 64, HALF = C / 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t *xy_full = bar, *xy_empty = bar + 1, *w1_full = bar + 2, *w1_empty = bar + 3;
+  uint64_t *w2_full = bar + 4, *w2_empty = bar + 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long tiles = (rows + HB_ROWS - 1) / HB_ROWS;
+  if (threadIdx.x == 0) {
+    if (smem_u32(smem) & 1023) __trap();  // the swizzled boxes need 1024-byte alignment
+    for (int i = 0; i < 6; i += 2) {
+      mbar_init(&bar[i], 1);      // full: the producer's arrival with the bytes
+      mbar_init(&bar[i + 1], 8);  // empty: lane 0 of every consumer warp
     }
-    __syncthreads();  // dx is read: the next tile stages over it
+    mbar_fence_init();
   }
-  for (int c = threadIdx.x; c < H4; c += TAIL_THREADS)
-    db1_part[(long long)blockIdx.x * H4 + c] = db1[c];
+  __syncthreads();
+
+  if (warp == 8) {  // ---- producer
+    if (lane == 0) {
+      uint32_t pxy = 0, pw1 = 0, pw2 = 0;
+      for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int row0 = (int)(tile * HB_ROWS);
+        mbar_wait(xy_empty, pxy ^ 1);
+        pxy ^= 1;
+        mbar_expect_tx(xy_full, 2 * (C / 64) * L::XBOX);
+        for (int cb = 0; cb < C / 64; ++cb) {
+          tma_load(smem + L::X + cb * L::XBOX, &maps.x, xy_full, 64 * cb, row0);
+          tma_load(smem + L::DY + cb * L::XBOX, &maps.dy, xy_full, 64 * cb, row0);
+        }
+        for (int ch = 0; ch < NCH; ++ch) {
+          const int j0 = 64 * ch;
+          mbar_wait(w2_empty, pw2 ^ 1);
+          pw2 ^= 1;
+          mbar_expect_tx(w2_full, C / 32 * L::WBOX);
+          for (int h = 0; h < 2; ++h)
+            for (int cb = 0; cb < C / 64; ++cb)
+              tma_load(smem + L::W2 + (h * (C / 64) + cb) * L::WBOX, &maps.w2, w2_full,
+                       j0 + 32 * h, 64 * cb);
+          mbar_wait(w1_empty, pw1 ^ 1);
+          pw1 ^= 1;
+          mbar_expect_tx(w1_full, C / 32 * L::WBOX);
+          for (int cb = 0; cb < C / 32; ++cb)
+            tma_load(smem + L::W1 + cb * L::WBOX, &maps.w1, w1_full, 32 * cb, j0);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup w forms hidden columns j0 + 32 w .. and dx columns w HALF ..
+  const int w = warp >> 2, wi = warp & 3;
+  const int rl = 16 * wi + (lane >> 2);  // the thread's first row in the tile (and rl + 8)
+  uint32_t pxy = 0, pw1 = 0, pw2 = 0;
+  int n = 0;  // chunks done by this CTA: staging buffer n & 1
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * HB_ROWS;
+    float dxa[HALF / 2];
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) dxa[i] = 0.f;
+    mbar_wait(xy_full, pxy);
+    pxy ^= 1;
+    for (int ch = 0; ch < NCH; ++ch, ++n) {
+      const int j0 = 64 * ch;
+      float hacc[16], pacc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) hacc[i] = pacc[i] = 0.f;
+      // dP = dy W2[:, j0 + 32 w ..]: A K-major (dy), B MN-major (W2 half w)
+      mbar_wait(w2_full, pw2);
+      pw2 ^= 1;
+      reg_fence(pacc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < C / 16; ++k)
+        wgmma_m64n32<0, 1>(
+            pacc, gmma_desc(smem + L::DY + (k / 4) * L::XBOX + (k % 4) * 32, 16, 1024, SW128),
+            gmma_desc(smem + L::W2 + (w * (C / 64) + k / 4) * L::WBOX + (k % 4) * 1024, L::WBOX,
+                      512, SW64));
+      wgmma_commit();
+      // h = x W1[j0 + 32 w .., :]^T: A K-major (x), B K-major (W1 rows 32 w ..)
+      mbar_wait(w1_full, pw1);
+      pw1 ^= 1;
+      reg_fence(hacc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < C / 16; ++k)
+        wgmma_m64n32<0, 0>(
+            hacc, gmma_desc(smem + L::X + (k / 4) * L::XBOX + (k % 4) * 32, 16, 1024, SW128),
+            gmma_desc(smem + L::W1 + (k / 2) * L::WBOX + 2048 * w + (k % 2) * 32, 16, 512,
+                      SW64));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(hacc);
+      reg_fence(pacc);
+      if (lane == 0) {
+        mbar_arrive(w2_empty);
+        if (ch == NCH - 1) mbar_arrive(xy_empty);  // x and dy are read for this tile
+      }
+      // a = bf16(GELU(h)), dh = dP GELU'(h) -> staging (bf16), db1 (f32)
+      const int buf = n & 1;
+      unsigned char* sa = smem + L::STG + buf * 2 * L::XBOX;
+      unsigned char* sd = sa + L::XBOX;
+      float* scr = reinterpret_cast<float*>(smem + L::DB1) + buf * 8 * 32;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int cl = 32 * w + 8 * g + 2 * (lane & 3);  // column in the chunk
+        const float2 bb =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + j0 + cl));
+        float colsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = rl + 8 * hr;
+          const float h0 = hacc[4 * g + 2 * hr] + bb.x, h1 = hacc[4 * g + 2 * hr + 1] + bb.y;
+          const float d0 = pacc[4 * g + 2 * hr] * gelu_grad(h0);
+          const float d1 = pacc[4 * g + 2 * hr + 1] * gelu_grad(h1);
+          colsum[0] += d0;
+          colsum[1] += d1;
+          const int off = r * 128 + (((cl >> 3) ^ (r & 7)) << 4) + (cl & 7) * 2;
+          *reinterpret_cast<__nv_bfloat162*>(sa + off) = __floats2bfloat162_rn(gelu(h0), gelu(h1));
+          *reinterpret_cast<__nv_bfloat162*>(sd + off) = __floats2bfloat162_rn(d0, d1);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = colsum[e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (lane < 4) scr[warp * 32 + 8 * g + 2 * lane + e] = v;
+        }
+      }
+      fence_async_smem();           // dh is read by wgmma (async proxy)
+      named_barrier(1, 256);        // both halves of the a and dh tiles are written
+      // dx[:, w HALF ..] += dh W1[j0.., w HALF ..]: A K-major (dh), B MN-major (W1 boxes)
+      reg_fence(dxa);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint64_t da = gmma_desc(sd + k * 32, 16, 1024, SW128);
+        const uint64_t db =
+            gmma_desc(smem + L::W1 + w * (C / 64) * L::WBOX + k * 1024, L::WBOX, 512, SW64);
+        if constexpr (HALF == 96)
+          wgmma_m64n96<0, 1>(dxa, da, db);
+        else
+          wgmma_m64n192<0, 1>(dxa, da, db);
+      }
+      wgmma_commit();
+      // meanwhile: the a and dh tiles to the slabs (16-byte stores), db1 of the chunk
+      for (int q = threadIdx.x; q < 2 * 512; q += 256) {
+        const int t = q >> 9, r = (q >> 3) & 63, c16 = q & 7;
+        if (row0 + r >= rows) continue;
+        const uint4 v = *reinterpret_cast<const uint4*>(sa + t * L::XBOX + r * 128 +
+                                                        ((c16 ^ (r & 7)) << 4));
+        *reinterpret_cast<uint4*>((t ? dh_out : a_out) + (row0 + r) * H4 + j0 + 8 * c16) = v;
+      }
+      if (threadIdx.x < 64) {
+        const int c = threadIdx.x, base = (c >> 5) * 4;
+        float v = 0.f;
+        for (int k = 0; k < 4; ++k) v += scr[(base + k) * 32 + (c & 31)];
+        float* dst = db1_part + (long long)blockIdx.x * H4 + j0 + c;
+        *dst = tile == blockIdx.x ? v : *dst + v;
+      }
+      wgmma_wait<0>();
+      reg_fence(dxa);
+      if (lane == 0) mbar_arrive(w1_empty);
+    }
+    // dx = bf16(dx + gy) for the tile's rows, columns w HALF ..
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const long long r = row0 + rl + 8 * hr;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int g = 0; g < HALF / 8; ++g) {
+        const long long at = r * C + w * HALF + 8 * g + 2 * (lane & 3);
+        float2 v = make_float2(dxa[4 * g + 2 * hr], dxa[4 * g + 2 * hr + 1]);
+        if (gy) {
+          const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gy + at));
+          v.x += gv.x;
+          v.y += gv.y;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(dx + at) = __floats2bfloat162_rn(v.x, v.y);
+      }
+    }
+  }
+}
+
+// CTAs of the hidden pass at `rows`: one per SM, at most one per 64-row tile.
+inline int hidden_grid(long long rows) {
+  const long long tiles = (rows + HB_ROWS - 1) / HB_ROWS;
+  const int sms = sm_count();
+  return (int)(sms > 0 && sms < tiles ? sms : tiles);
+}
+
+// The hidden pass on `stream`: a, dh slabs, dx and the db1 partials (grid x 4C).
+template <int C>
+cudaError_t launch_hidden(const bf16* x, const bf16* dy, const bf16* gy, const bf16* w1,
+                          const bf16* b1, const bf16* w2, bf16* a, bf16* dh, bf16* dx,
+                          float* db1_part, long long rows, cudaStream_t stream) {
+  using L = HiddenLayout<C>;
+  HiddenMaps maps;
+  if (!tensor_map(&maps.x, x, C, rows, C, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&maps.dy, dy, C, rows, C, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&maps.w1, w1, C, 4 * C, C, 32, 64, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !tensor_map(&maps.w2, w2, 4 * C, C, 4 * C, 32, 64, CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(mlp_hidden_bwd_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  mlp_hidden_bwd_kernel<C><<<hidden_grid(rows), HB_THREADS, L::SMEM, stream>>>(
+      maps, gy, b1, a, dh, dx, db1_part, rows);
+  return cudaGetLastError();
 }
 
 // K8: out = bf16(GELU(x W1^T + b1) W2^T + b2). Loops over 48-row tiles.
@@ -312,16 +516,35 @@ cudaError_t launch_block_fwd(const Args& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// f32 scratch of K7 and K9: the row pass's partials, the hidden pass's db1
+// partials and the weight grads' row-slice partials, one after the other.
 template <int C>
 long long bwd_scratch(long long rows) {
   using L = MlpLayout<C>;
-  const long long tiles = rows / TAIL_ROWS;
-  const long long g1 = resident_ctas(mlp_postnorm_kernel<C, true>, L::F_SMEM, tiles);
-  const long long g2 = resident_ctas(mlp_hidden_bwd_kernel<C>, L::B_SMEM, tiles);
+  const long long g1 = resident_ctas(mlp_postnorm_kernel<C, true>, L::F_SMEM, rows / TAIL_ROWS);
   long long n = 3 * g1 * C;
-  if (g2 * 4 * C > n) n = g2 * 4 * C;
+  if ((long long)COLSUM_BLOCKS * C > n) n = (long long)COLSUM_BLOCKS * C;
+  if (hidden_grid(rows) * 4LL * C > n) n = hidden_grid(rows) * 4LL * C;
   const long long w = (long long)weight_grad_splits(C, 4 * C, rows) * 4 * C * C;
   return w > n ? w : n;
+}
+
+// The hidden pass, db1, then dW2 (C, 4C) = dy^T a and dW1 (4C, C) = dh^T x
+// over the rows (dy = gy and no residual in dx for K9).
+template <int C>
+cudaError_t hidden_and_weight_grads(const Args& p, const bf16* dy, const bf16* gy,
+                                    cudaStream_t stream) {
+  cudaError_t err = launch_hidden<C>(p.x, dy, gy, p.w1, p.b1, p.w2, p.a, p.dh, p.out, p.part,
+                                     p.rows, stream);
+  if (err != cudaSuccess ||
+      (err = reduce_partials(p.part, hidden_grid(p.rows), 4LL * C, p.db1, nullptr, stream)) !=
+          cudaSuccess ||
+      (err = gemm<false, true>(dy, C, p.a, 4 * C, C, 4 * C, p.rows,
+                               weight_grad_splits(C, 4 * C, p.rows), nullptr, p.dw2, p.part,
+                               stream)) != cudaSuccess)
+    return err;
+  return gemm<false, true>(p.dh, 4 * C, p.x, C, 4 * C, C, p.rows,
+                           weight_grad_splits(4 * C, C, p.rows), nullptr, p.dw1, p.part, stream);
 }
 
 template <int C>
@@ -329,30 +552,18 @@ cudaError_t launch_bwd(const Args& p, cudaStream_t stream) {
   using L = MlpLayout<C>;
   const long long tiles = p.rows / TAIL_ROWS;
   const int g1 = resident_ctas(mlp_postnorm_kernel<C, true>, L::F_SMEM, tiles);
-  const int g2 = resident_ctas(mlp_hidden_bwd_kernel<C>, L::B_SMEM, tiles);
-  if (g1 < 1 || g2 < 1) return cudaErrorInvalidValue;
+  if (g1 < 1) return cudaErrorInvalidValue;
   mlp_postnorm_kernel<C, true><<<g1, TAIL_THREADS, L::F_SMEM, stream>>>(
       p.x, p.w1, p.b1, p.w2, p.b2, p.gamma, p.beta, p.s, p.gy, p.dy, p.ds, p.part, tiles);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if ((err = reduce_partials(p.part, g1, C, nullptr, p.dgamma, stream)) != cudaSuccess ||
+  if (err != cudaSuccess ||
+      (err = reduce_partials(p.part, g1, C, nullptr, p.dgamma, stream)) != cudaSuccess ||
       (err = reduce_partials(p.part + (long long)g1 * C, g1, C, nullptr, p.dbeta, stream)) !=
           cudaSuccess ||
       (err = reduce_partials(p.part + 2LL * g1 * C, g1, C, p.db2, nullptr, stream)) !=
           cudaSuccess)
     return err;
-  mlp_hidden_bwd_kernel<C><<<g2, TAIL_THREADS, L::B_SMEM, stream>>>(
-      p.x, p.dy, p.gy, p.w1, p.b1, p.w2, p.a, p.dh, p.out, p.part, tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = reduce_partials(p.part, g2, 4LL * C, p.db1, nullptr, stream)) != cudaSuccess)
-    return err;
-  // dW2 (C, 4C) = dy^T a and dW1 (4C, C) = dh^T x, over the rows
-  if ((err = gemm<false, true>(p.dy, C, p.a, 4 * C, C, 4 * C, p.rows,
-                               weight_grad_splits(C, 4 * C, p.rows), nullptr, p.dw2, p.part,
-                               stream)) != cudaSuccess)
-    return err;
-  return gemm<false, true>(p.dh, 4 * C, p.x, C, 4 * C, C, p.rows,
-                           weight_grad_splits(4 * C, C, p.rows), nullptr, p.dw1, p.part, stream);
+  return hidden_and_weight_grads<C>(p, p.dy, p.gy, stream);
 }
 
 template <int C>
@@ -366,40 +577,18 @@ cudaError_t launch_raw_fwd(const Args& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int C>
-long long raw_bwd_scratch(long long rows) {
-  using L = MlpLayout<C>;
-  const long long g2 = resident_ctas(mlp_hidden_bwd_kernel<C>, L::B_SMEM, rows / TAIL_ROWS);
-  long long n = g2 * 4 * C;
-  if ((long long)COLSUM_BLOCKS * C > n) n = (long long)COLSUM_BLOCKS * C;
-  const long long w = (long long)weight_grad_splits(C, 4 * C, rows) * 4 * C * C;
-  return w > n ? w : n;
-}
-
-// K9: the hidden pass on g (no residual in dx), db1, db2 = sum of g, then
-// dW2 = g^T a and dW1 = dh^T x over the rows.
+// K9: the hidden pass on g (no residual in dx), db1, db2 = sum of g, dW2 = g^T
+// a and dW1 = dh^T x over the rows.
 template <int C>
 cudaError_t launch_raw_bwd(const Args& p, cudaStream_t stream) {
-  using L = MlpLayout<C>;
-  const long long tiles = p.rows / TAIL_ROWS;
-  const int g2 = resident_ctas(mlp_hidden_bwd_kernel<C>, L::B_SMEM, tiles);
-  if (g2 < 1) return cudaErrorInvalidValue;
-  mlp_hidden_bwd_kernel<C><<<g2, TAIL_THREADS, L::B_SMEM, stream>>>(
-      p.x, p.gy, nullptr, p.w1, p.b1, p.w2, p.a, p.dh, p.out, p.part, tiles);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = colsum(p.gy, p.rows, C, p.part, p.db2, stream);
   if (err != cudaSuccess) return err;
-  if ((err = reduce_partials(p.part, g2, 4LL * C, p.db1, nullptr, stream)) != cudaSuccess ||
-      (err = colsum(p.gy, p.rows, C, p.part, p.db2, stream)) != cudaSuccess)
-    return err;
-  if ((err = gemm<false, true>(p.gy, C, p.a, 4 * C, C, 4 * C, p.rows,
-                               weight_grad_splits(C, 4 * C, p.rows), nullptr, p.dw2, p.part,
-                               stream)) != cudaSuccess)
-    return err;
-  return gemm<false, true>(p.dh, 4 * C, p.x, C, 4 * C, C, p.rows,
-                           weight_grad_splits(4 * C, C, p.rows), nullptr, p.dw1, p.part, stream);
+  return hidden_and_weight_grads<C>(p, p.gy, nullptr, stream);
 }
 
 bool rows_ok(long long rows) { return rows > 0 && rows % TAIL_ROWS == 0 && rows % GK == 0; }
+// the backwards K7 and K9 take any multiple of 48 rows (the row pass's tile)
+bool bwd_rows_ok(long long rows) { return rows > 0 && rows % TAIL_ROWS == 0; }
 
 }  // namespace
 
@@ -454,9 +643,10 @@ int pangu_mlp_block_fwd(const void* x, const void* w1, const void* b1, const voi
   }
 }
 
-// f32 elements of scratch that pangu_mlp_postnorm_bwd needs (0: C or rows not taken).
+// f32 elements of scratch that pangu_mlp_postnorm_bwd needs (0: C or rows not
+// taken: C 192 or 384, rows a multiple of 48).
 long long pangu_mlp_postnorm_bwd_scratch(long long rows, int C) {
-  if (!rows_ok(rows)) return 0;
+  if (!bwd_rows_ok(rows)) return 0;
   switch (C) {
     case 192: return bwd_scratch<192>(rows);
     case 384: return bwd_scratch<384>(rows);
@@ -473,7 +663,7 @@ int pangu_mlp_postnorm_bwd(const void* x, const void* gy, const void* w1, const 
                            const void* s, void* dy_buf, void* a_buf, void* dh_buf, void* scratch,
                            void* dx, void* dw1, void* db1, void* dw2, void* db2, void* dgamma,
                            void* dbeta, void* ds, long long rows, int C, void* stream) {
-  if (!rows_ok(rows)) return (int)cudaErrorInvalidValue;
+  if (!bwd_rows_ok(rows)) return (int)cudaErrorInvalidValue;
   Args p{};
   p.x = static_cast<const bf16*>(x);
   p.gy = static_cast<const bf16*>(gy);
@@ -526,12 +716,13 @@ int pangu_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
   }
 }
 
-// f32 elements of scratch that pangu_mlp_bwd needs (0: C or rows not taken).
+// f32 elements of scratch that pangu_mlp_bwd needs (0: C or rows not taken: C
+// 192 or 384, rows a multiple of 48).
 long long pangu_mlp_bwd_scratch(long long rows, int C) {
-  if (!rows_ok(rows)) return 0;
+  if (!bwd_rows_ok(rows)) return 0;
   switch (C) {
-    case 192: return raw_bwd_scratch<192>(rows);
-    case 384: return raw_bwd_scratch<384>(rows);
+    case 192: return bwd_scratch<192>(rows);
+    case 384: return bwd_scratch<384>(rows);
     default: return 0;
   }
 }
@@ -542,7 +733,7 @@ long long pangu_mlp_bwd_scratch(long long rows, int C) {
 int pangu_mlp_bwd(const void* x, const void* gy, const void* w1, const void* b1, const void* w2,
                   void* a_buf, void* dh_buf, void* scratch, void* dx, void* dw1, void* db1,
                   void* dw2, void* db2, long long rows, int C, void* stream) {
-  if (!rows_ok(rows)) return (int)cudaErrorInvalidValue;
+  if (!bwd_rows_ok(rows)) return (int)cudaErrorInvalidValue;
   Args p{};
   p.x = static_cast<const bf16*>(x);
   p.gy = static_cast<const bf16*>(gy);

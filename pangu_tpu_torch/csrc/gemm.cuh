@@ -1,41 +1,46 @@
-// A tiled bf16 matrix product with f32 accumulation, and column sums, for the
-// training attention (block_attention.cu): the out-projection of the forward
-// (K2) and, in the backward (K3), dx = dqkv @ Wqkv and the deep weight-grad
-// products dWqkv = dqkv^T @ x and dWproj = g^T @ acc over every token row;
-// the weight grads of the MLP backwards (fused_mlp.cu), and the products of
-// the training block backward K12 (fused_block_train.cu), whose dx is the sum
-// of two products and an addend (gemm_sum).
+// The bf16 matrix products of the training backwards, f32 sums, and column
+// sums: the weight grads over every token row (dW = A^T B, gemm<false, true>:
+// K7's dW1 = dh^T x and dW2 = dy^T a, K9's, K3's dWqkv = dqkv^T x and dWproj =
+// g^T acc, K12's), K3's dx = dqkv @ Wqkv (gemm<true, true>), the out-projection
+// of the forward K2 (gemm<true, false>) and K12's dx sum (gemm_sum).
 //
 //   out(m, n) = sum_k A(m, k) B(k, n)  [+ sum_k A2(m, k) B2(k, n) + addend(m, n)]
 //   A(m, k) = A[m * lda + k] (A_ROW) or A[k * lda + m] (A stored transposed)
 //   B(k, n) = B[k * ldb + n] (B_ROW) or B[n * ldb + k] (B stored transposed)
 //
-// One CTA of 4 warps computes a 64 x 64 tile, each warp 32 x 32 as 2 x 2 wmma
-// 16x16x16 fragments; A and B tiles of depth 32 are staged in shared memory
-// by cp.async through the two-stage ring of common.cuh, in the layout they
-// have in memory (a transposed operand is read as a col-major fragment). A
-// product over the token rows (K = 535,680 at the outer stage, M x N only
-// 576 x 192) is split over gridDim.z slices of K, each writing f32 partials
-// that reduce_partials sums in a fixed order: no atomics, the same result on
-// every run.
+// The two B_ROW layouts run on wgmma (wg_gemm_kernel): a persistent CTA of
+// three consumer warpgroups and one producer warp computes 192 x 192 output
+// tiles, each warpgroup 64 rows with its f32 sums in registers (96 a thread);
+// the producer keeps a ring of four 64-deep stages (48 KB each: three 64 x 64
+// boxes of A and three of B, 128-byte swizzle) filled by TMA, each stage
+// released by the consumers through an mbarrier. A weight grad (K the token
+// rows: 535,680 at the outer stage, M x N at most 1536 x 384) is split over
+// the rows so that the grid is one wave of the card's SMs; the CTAs sharing a
+// slice of rows are adjacent in the grid, run together and share the slice
+// through the L2; each writes f32 partials that reduce_partials sums in a
+// fixed order: no atomics, the same bits on every run. Rows past the end are
+// read as zeros (TMA) and not stored.
 //
-// What bounds it: for the weight grads, ~2 x rows x C x 3C FLOP against one
-// read of the two bf16 operands (rows x 4C x 2 B), ~200 FLOP per byte, near
-// the H100's ~295 FLOP/B ridge; the wmma path reaches a fraction of the
-// tensor-core peak, so it is bound by shared-memory fragment loads, as K1's
-// tail kernel is. wgmma is later work.
+// What bounds them on an H100: a weight grad moves its two (rows, n) bf16
+// operands once (0.82 GB and 0.21 GB for K7's dW2 at the outer stage) for
+// ~2 rows M N FLOP, ~150 FLOP per byte, under the card's ~295 FLOP/B ridge:
+// bytes. The design reads each operand once from device memory and keeps the
+// tensor cores fed from TMA stages, so it is held by the L2 and memory feed.
+// The remaining wmma layouts (K2's projection, K12's dx sum): 64 x 64 tiles
+// of 4 warps, 16x16x16 fragments from a two-stage cp.async ring, bound by the
+// fragment loads from shared memory.
 
 #pragma once
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int GM = 64, GN = 64, GK = 32;
 constexpr int GEMM_THREADS = 128;
-constexpr int G_A_ELEMS = GM * (GK + 8) > GK * (GM + 8) ? GM * (GK + 8) : GK * (GM + 8);
+constexpr int G_A_ELEMS = GM * (GK + 8);
 constexpr int G_B_ELEMS = GK * (GN + 8) > GN * (GK + 8) ? GK * (GN + 8) : GN * (GK + 8);
 constexpr int G_STAGE_ELEMS = G_A_ELEMS + G_B_ELEMS;
 constexpr int G_C_LD = GN + 4;
@@ -44,30 +49,28 @@ constexpr int G_SMEM = 2 * G_STAGE_ELEMS * 2 > GM * G_C_LD * 4 ? 2 * G_STAGE_ELE
 static_assert((G_A_ELEMS * 2) % 32 == 0 && (G_STAGE_ELEMS * 2) % 32 == 0,
               "wmma needs 256-bit aligned tiles");
 
-template <bool A_ROW, bool B_ROW>
+// out = bf16(A B (+ A2 B2) (+ bias) (+ addend)), A and A2 row-major, one CTA
+// per 64 x 64 output tile, the depths K then K2 through one cp.async ring.
+template <bool B_ROW>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ B,
-            long long ldb, int M, int N, long long kchunk, long long K,
-            const bf16* __restrict__ A2, long long lda2, const bf16* __restrict__ B2,
-            long long ldb2, long long K2, const bf16* __restrict__ bias,
-            const bf16* __restrict__ addend, bf16* __restrict__ out_bf16,
-            float* __restrict__ out_f32) {
+            long long ldb, int N, long long K, const bf16* __restrict__ A2, long long lda2,
+            const bf16* __restrict__ B2, long long ldb2, long long K2,
+            const bf16* __restrict__ bias, const bf16* __restrict__ addend,
+            bf16* __restrict__ out) {
   __shared__ __align__(128) unsigned char smem[G_SMEM];
   bf16* st0 = reinterpret_cast<bf16*>(smem);
   const int warp = threadIdx.x >> 5;
   const int wm = warp >> 1, wn = warp & 1;
   const long long m0 = (long long)blockIdx.x * GM;  // x: up to 2^31 - 1 row tiles
   const int n0 = blockIdx.y * GN;
-  const long long kbeg = (long long)blockIdx.z * kchunk;
-  const long long kend = kbeg + kchunk < K ? kbeg + kchunk : K;
-  constexpr int A_LD = A_ROW ? GK + 8 : GM + 8;
+  constexpr int A_LD = GK + 8;
   constexpr int B_LD = B_ROW ? GN + 8 : GK + 8;
 
   FragC acc[2][2];
   for (int i = 0; i < 2; ++i)
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int nk = kend > kbeg ? (int)((kend - kbeg) / GK) : 0;
-  const int nk2 = (int)(K2 / GK);  // the second product (one K slice only)
+  const int nk = (int)(K / GK), nk2 = (int)(K2 / GK);
   if (nk + nk2 > 0)
     pipelined(
         nk + nk2, st0, st0 + G_STAGE_ELEMS,
@@ -76,11 +79,8 @@ gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ 
           const bf16* a = first ? A : A2;
           const bf16* b = first ? B : B2;
           const long long la = first ? lda : lda2, lb = first ? ldb : ldb2;
-          const long long k0 = first ? kbeg + (long long)i * GK : (long long)(i - nk) * GK;
-          if (A_ROW)
-            stage_tile(st, A_LD, a + m0 * la + k0, la, GM, GK);
-          else
-            stage_tile(st, A_LD, a + k0 * la + m0, la, GK, GM);
+          const long long k0 = (long long)(first ? i : i - nk) * GK;
+          stage_tile(st, A_LD, a + m0 * la + k0, la, GM, GK);
           if (B_ROW)
             stage_tile(st + G_A_ELEMS, B_LD, b + k0 * lb + n0, lb, GK, GN);
           else
@@ -91,12 +91,8 @@ gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ 
           const bf16* Bs = st + G_A_ELEMS;
           for (int kk = 0; kk < GK; kk += 16) {
             for (int i = 0; i < 2; ++i) {
-              const int mr = wm * 32 + i * 16;
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             typename std::conditional<A_ROW, wmma::row_major,
-                                                       wmma::col_major>::type>
-                  a;
-              wmma::load_matrix_sync(a, A_ROW ? As + mr * A_LD + kk : As + kk * A_LD + mr, A_LD);
+              FragA a;
+              wmma::load_matrix_sync(a, As + (wm * 32 + i * 16) * A_LD + kk, A_LD);
               for (int j = 0; j < 2; ++j) {
                 const int nc = wn * 32 + j * 16;
                 wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
@@ -117,68 +113,228 @@ gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ 
       wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * G_C_LD + wn * 32 + j * 16, acc[i][j],
                               G_C_LD, wmma::mem_row_major);
   __syncthreads();
-  if (out_bf16) {
-    for (int v = threadIdx.x; v < GM * GN / 8; v += GEMM_THREADS) {
-      const int r = v / (GN / 8), c = (v - r * (GN / 8)) * 8;
-      __align__(16) bf16 tmp[8];
-      for (int e = 0; e < 8; ++e) {
-        float y = Cs[r * G_C_LD + c + e];
-        if (bias) y += __bfloat162float(bias[n0 + c + e]);
-        if (addend) y += __bfloat162float(addend[(m0 + r) * N + n0 + c + e]);
-        tmp[e] = __float2bfloat16(y);
-      }
-      *reinterpret_cast<uint4*>(out_bf16 + (m0 + r) * N + n0 + c) =
-          *reinterpret_cast<const uint4*>(tmp);
+  for (int v = threadIdx.x; v < GM * GN / 8; v += GEMM_THREADS) {
+    const int r = v / (GN / 8), c = (v - r * (GN / 8)) * 8;
+    __align__(16) bf16 tmp[8];
+    for (int e = 0; e < 8; ++e) {
+      float y = Cs[r * G_C_LD + c + e];
+      if (bias) y += __bfloat162float(bias[n0 + c + e]);
+      if (addend) y += __bfloat162float(addend[(m0 + r) * N + n0 + c + e]);
+      tmp[e] = __float2bfloat16(y);
     }
-  } else {
-    float* part = out_f32 + (long long)blockIdx.z * M * N;
-    for (int v = threadIdx.x; v < GM * GN; v += GEMM_THREADS) {
-      const int r = v / GN, c = v - r * GN;
-      part[(m0 + r) * N + n0 + c] = Cs[r * G_C_LD + c];
+    *reinterpret_cast<uint4*>(out + (m0 + r) * N + n0 + c) = *reinterpret_cast<const uint4*>(tmp);
+  }
+}
+
+// ---- the wgmma products ------------------------------------------------------------
+constexpr int WG_CONSUMERS = 3;                       // warpgroups, 64 output rows each
+constexpr int WG_BM = 64 * WG_CONSUMERS;              // 192 output rows per tile
+constexpr int WG_BN = 192;                            // output columns per tile
+constexpr int WG_BK = 64;                             // depth per stage
+constexpr int WG_STAGES = 4;
+constexpr int WG_THREADS = 128 * WG_CONSUMERS + 32;   // + the producer warp
+constexpr int WG_BOX = 64 * 64 * 2;                   // one 64 x 64 bf16 box
+constexpr int WG_STAGE_BYTES = (WG_BM / 64 + WG_BN / 64) * WG_BOX;  // 48 KB
+constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 2 * WG_STAGES * 8;
+
+struct WgMaps {
+  CUtensorMap a, b;
+};
+
+// ROWSPLIT: part[split] (M x N f32) = A^T B over the split's rows [split *
+// kchunk, +kchunk) of A (K, M) and B (K, N), both MN-major; units = tiles x
+// splits, split-major. Otherwise out (M x N bf16) = A B with A (M, K) K-major
+// and B (K, N) MN-major, rows >= M not stored; units = tiles. A unit is one
+// 192 x 192 output tile (with its row slice); CTA i takes units i, i + grid,
+// ... The maps read 64 x 64 boxes, 128-byte swizzle.
+template <bool ROWSPLIT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wg_gemm_kernel(const __grid_constant__ WgMaps maps, int M, int N, long long K, long long kchunk,
+               int units, float* __restrict__ part, bf16* __restrict__ out) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * WG_STAGE_BYTES);
+  uint64_t* empty = full + WG_STAGES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles_n = N / WG_BN;
+  const int tiles = (M + WG_BM - 1) / WG_BM * tiles_n;
+  if (threadIdx.x == 0) {
+    if (smem_u32(smem) & 1023) __trap();  // the swizzled boxes need 1024-byte alignment
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * WG_CONSUMERS);  // lane 0 of every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto unit = [&](int u, int& m0, int& n0, long long& kbeg, long long& kend) {
+    const int t = ROWSPLIT ? u % tiles : u;
+    m0 = t / tiles_n * WG_BM;
+    n0 = t % tiles_n * WG_BN;
+    kbeg = ROWSPLIT ? (long long)(u / tiles) * kchunk : 0;
+    kend = ROWSPLIT && kbeg + kchunk < K ? kbeg + kchunk : K;
+  };
+
+  if (warp == 4 * WG_CONSUMERS) {  // ---- producer: one thread keeps the ring full
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        int m0, n0;
+        long long kbeg, kend;
+        unit(u, m0, n0, kbeg, kend);
+        for (long long k0 = kbeg; k0 < kend; k0 += WG_BK) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = smem + stage * WG_STAGE_BYTES;
+          mbar_expect_tx(&full[stage], WG_STAGE_BYTES);
+          for (int b = 0; b < WG_BM / 64; ++b) {
+            if (ROWSPLIT)
+              tma_load(st + b * WG_BOX, &maps.a, &full[stage], m0 + 64 * b, (int)k0);
+            else
+              tma_load(st + b * WG_BOX, &maps.a, &full[stage], (int)k0, m0 + 64 * b);
+          }
+          for (int b = 0; b < WG_BN / 64; ++b)
+            tma_load(st + (WG_BM / 64 + b) * WG_BOX, &maps.b, &full[stage], n0 + 64 * b,
+                     (int)k0);
+          if (++stage == WG_STAGES) stage = 0, phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows m0 + 64 wg .. of each tile
+  const int wg = warp >> 2;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int m0, n0;
+    long long kbeg, kend;
+    unit(u, m0, n0, kbeg, kend);
+    float acc[96];
+#pragma unroll
+    for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (long long k0 = kbeg; k0 < kend; k0 += WG_BK) {
+      mbar_wait(&full[stage], phase);
+      const unsigned char* a = smem + stage * WG_STAGE_BYTES + wg * WG_BOX;
+      const unsigned char* b = smem + stage * WG_STAGE_BYTES + (WG_BM / 64) * WG_BOX;
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk) {
+        // A: MN-major rows kk*16.. of the box, or K-major columns kk*16..
+        const uint64_t da = ROWSPLIT ? gmma_desc(a + kk * 2048, WG_BOX, 1024, SW128)
+                                     : gmma_desc(a + kk * 32, 16, 1024, SW128);
+        const uint64_t db = gmma_desc(b + kk * 2048, WG_BOX, 1024, SW128);
+        wgmma_m64n192<ROWSPLIT ? 1 : 0, 1>(acc, da, db);
+      }
+      wgmma_commit();
+      reg_fence(acc);
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == WG_STAGES) stage = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+    reg_fence(acc);
+    if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+    const int r0 = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+    const int c0 = n0 + 2 * (lane & 3);
+    if (ROWSPLIT) {
+      float* p = part + (long long)(u / tiles) * M * N;
+#pragma unroll
+      for (int g = 0; g < 24; ++g)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(p + (long long)(r0 + 8 * h) * N + c0 + 8 * g) =
+              make_float2(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (r0 + 8 * h >= M) continue;
+        bf16* o = out + (long long)(r0 + 8 * h) * N + c0;
+#pragma unroll
+        for (int g = 0; g < 24; ++g)
+          *reinterpret_cast<__nv_bfloat162*>(o + 8 * g) =
+              __floats2bfloat162_rn(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+      }
     }
   }
 }
 
-// One product, M x N, depth K. splits == 1: out_bf16 = bf16(A B (+ bias)).
-// splits > 1: f32 partials of `splits` K-slices in `part` (splits x M x N), then
-// out_bf16 = bf16(their sum). M, N multiples of 64, K of 32; lda, ldb multiples
-// of 8 and 16-byte aligned bases (checked by the caller).
+// Row slices of a weight-grad product: one wave of the card's SMs, each CTA
+// one 192 x 192 tile of one slice.
+inline int weight_grad_splits(int M, int N, long long K) {
+  const int tiles = (M / WG_BM) * (N / WG_BN), sms = sm_count();
+  long long s = tiles > 0 && sms / tiles > 1 ? sms / tiles : 1;
+  const long long kt = (K + WG_BK - 1) / WG_BK;
+  if (s > kt) s = kt;
+  return (int)s;
+}
+
+// One product, M x N, depth K, bf16 out_bf16.
+//  * gemm<false, true>: out = bf16(A^T B) over the K token rows, split over
+//    at most `splits` row slices with f32 partials in `part` (splits x M x N),
+//    summed in order; M and N multiples of 192, K any.
+//  * gemm<true, true>: out = bf16(A B); M any, N a multiple of 192, K of 64;
+//    splits 1, no bias.
+//  * gemm<true, false> (wmma): out = bf16(A B (+ bias)), splits 1; M, N
+//    multiples of 64, K of 32.
+// lda, ldb multiples of 8 and 16-byte aligned bases (checked by the caller).
 template <bool A_ROW, bool B_ROW>
 cudaError_t gemm(const bf16* A, long long lda, const bf16* B, long long ldb, int M, int N,
                  long long K, int splits, const bf16* bias, bf16* out_bf16, float* part,
                  cudaStream_t stream) {
-  if (M % GM || N % GN || K % GK || splits < 1) return cudaErrorInvalidValue;
-  long long kchunk = (K / GK + splits - 1) / splits * GK;
-  const dim3 grid(M / GM, N / GN, splits);
-  gemm_kernel<A_ROW, B_ROW><<<grid, GEMM_THREADS, 0, stream>>>(
-      A, lda, B, ldb, M, N, kchunk, K, nullptr, 0, nullptr, 0, 0, splits == 1 ? bias : nullptr,
-      nullptr, splits == 1 ? out_bf16 : nullptr, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  return reduce_partials(part, splits, (long long)M * N, out_bf16, nullptr, stream);
+  if (splits < 1) return cudaErrorInvalidValue;
+  if constexpr (B_ROW) {
+    constexpr bool ROWSPLIT = !A_ROW;
+    const bool shape_ok = ROWSPLIT ? M % WG_BM == 0 : (K % WG_BK == 0 && splits == 1);
+    if (N % WG_BN || bias || !shape_ok) return cudaErrorInvalidValue;
+    WgMaps maps;
+    const bool ok = (ROWSPLIT ? tensor_map(&maps.a, A, M, K, lda, 64, 64,
+                                           CU_TENSOR_MAP_SWIZZLE_128B)
+                              : tensor_map(&maps.a, A, K, M, lda, 64, 64,
+                                           CU_TENSOR_MAP_SWIZZLE_128B)) &&
+                    tensor_map(&maps.b, B, N, K, ldb, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (!ok) return cudaErrorInvalidValue;
+    long long kchunk = K;
+    int parts = 1;
+    if (ROWSPLIT) {
+      kchunk = ((K + WG_BK - 1) / WG_BK + splits - 1) / splits * WG_BK;
+      parts = (int)((K + kchunk - 1) / kchunk);
+    }
+    const int units = (M + WG_BM - 1) / WG_BM * (N / WG_BN) * parts;
+    const int sms = sm_count();
+    const int grid = sms > 0 && sms < units ? sms : units;
+    cudaError_t err = cudaFuncSetAttribute(wg_gemm_kernel<ROWSPLIT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+    if (err != cudaSuccess) return err;
+    wg_gemm_kernel<ROWSPLIT><<<grid, WG_THREADS, WG_SMEM, stream>>>(maps, M, N, K, kchunk, units,
+                                                                    part, out_bf16);
+    if ((err = cudaGetLastError()) != cudaSuccess || !ROWSPLIT) return err;
+    return reduce_partials(part, parts, (long long)M * N, out_bf16, nullptr, stream);
+  } else {
+    static_assert(A_ROW, "the wmma product takes a row-major A");
+    if (M % GM || N % GN || K % GK || splits != 1) return cudaErrorInvalidValue;
+    const dim3 grid(M / GM, N / GN, 1);
+    gemm_kernel<false><<<grid, GEMM_THREADS, 0, stream>>>(A, lda, B, ldb, N, K, nullptr, 0,
+                                                          nullptr, 0, 0, bias, nullptr, out_bf16);
+    return cudaGetLastError();
+  }
 }
 
 // out_bf16 = bf16(A B + A2 B2 (+ addend)), M x N, depths K and K2 (multiples
-// of 32), both products in the layouts A_ROW, B_ROW; addend (M x N bf16, row
-// stride N) may be null. The constraints of gemm, one K slice.
-template <bool A_ROW, bool B_ROW>
+// of 32), A and A2 row-major, B and B2 in the layout B_ROW; addend (M x N
+// bf16, row stride N) may be null; M, N multiples of 64 (wmma).
+template <bool B_ROW>
 cudaError_t gemm_sum(const bf16* A, long long lda, const bf16* B, long long ldb, long long K,
                      const bf16* A2, long long lda2, const bf16* B2, long long ldb2, long long K2,
                      int M, int N, const bf16* addend, bf16* out_bf16, cudaStream_t stream) {
   if (M % GM || N % GN || K % GK || K2 % GK) return cudaErrorInvalidValue;
   const dim3 grid(M / GM, N / GN, 1);
-  gemm_kernel<A_ROW, B_ROW><<<grid, GEMM_THREADS, 0, stream>>>(
-      A, lda, B, ldb, M, N, K, K, A2, lda2, B2, ldb2, K2, nullptr, addend, out_bf16, nullptr);
+  gemm_kernel<B_ROW><<<grid, GEMM_THREADS, 0, stream>>>(A, lda, B, ldb, N, K, A2, lda2, B2, ldb2,
+                                                        K2, nullptr, addend, out_bf16);
   return cudaGetLastError();
-}
-
-// Split count of a weight-grad product: about eight CTAs per SM in all.
-inline int weight_grad_splits(int M, int N, long long K) {
-  const long long tiles = (long long)(M / GM) * (N / GN);
-  long long s = (132 * 8 + tiles - 1) / tiles;
-  const long long kt = K / GK;
-  if (s > kt) s = kt;
-  return s < 1 ? 1 : (int)s;
 }
 
 // part[b * C + c] = sum of column c of x over rows [b * rpb, (b + 1) * rpb).

@@ -6,7 +6,8 @@
 // tile w / 4 and column group w % 4; the W1 and W2 chunks are staged in shared
 // memory through the two-stage cp.async ring of common.cuh. The hidden is
 // rounded to bf16 after an f32 GELU, as the Pallas bodies round it.
-// mlp_hidden_bwd_rows is the hidden pass of the backward (K7, K9, K12).
+// mlp_hidden_bwd_rows is the hidden pass of the block backward K12 (K7 and
+// K9 have a wgmma hidden pass of their own, fused_mlp.cu).
 
 #pragma once
 

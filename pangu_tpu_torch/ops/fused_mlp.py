@@ -160,16 +160,18 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_args(name: str, x, w1, bf16s, f32s) -> None:
+def _check_kernel_args(name: str, x, w1, bf16s, f32s, row_multiple: int = 96) -> None:
     """Raise ValueError on what the CUDA kernels do not take: bf16 rows and
-    weights with C in (192, 384), hidden 4C and a multiple of 96 rows; f32
-    LayerNorm parameters and scales; all contiguous and 16-byte aligned."""
+    weights with C in (192, 384), hidden 4C and a multiple of ``row_multiple``
+    rows (96 forward, 48 for the backwards K7 and K9, whose wgmma hidden pass
+    masks its last 64-row tile); f32 LayerNorm parameters and scales; all
+    contiguous and 16-byte aligned."""
     rows, c = x.shape
     if any(t.dtype != torch.bfloat16 for t in bf16s):
         raise ValueError(f"the CUDA kernel takes bfloat16 rows and weights, got {x.dtype}")
-    if c not in (192, 384) or w1.shape[0] != 4 * c or rows % 96:
+    if c not in (192, 384) or w1.shape[0] != 4 * c or rows % row_multiple:
         raise ValueError(f"the CUDA kernel takes C in (192, 384), hidden 4C and a multiple "
-                         f"of 96 rows; got C={c}, hidden {w1.shape[0]}, {rows} rows")
+                         f"of {row_multiple} rows; got C={c}, hidden {w1.shape[0]}, {rows} rows")
     if any(t.dtype != torch.float32 for t in f32s):
         raise ValueError("the CUDA kernel takes f32 LayerNorm parameters and branch scales")
     for i, t in enumerate(bf16s + f32s):
@@ -197,7 +199,7 @@ def _fwd_launch(x, w1, b1, w2, b2, ln_scale, ln_bias, s) -> torch.Tensor:
 def _bwd_launch(x, g, w1, b1, w2, b2, ln_scale, ln_bias, s):
     global BWD_LAUNCHES
     tensors = (x, g, w1, b1, w2, b2, ln_scale, ln_bias, s)
-    _check_kernel_args("fused_mlp_postnorm_bwd", x, w1, tensors[:6], tensors[6:])
+    _check_kernel_args("fused_mlp_postnorm_bwd", x, w1, tensors[:6], tensors[6:], 48)
     lib = _library()
     rows, c = x.shape
     dev = x.device
@@ -315,7 +317,7 @@ def _raw_fwd_launch(x, w1, b1, w2, b2) -> torch.Tensor:
 def _raw_bwd_launch(x, g, w1, b1, w2, b2):
     global RAW_BWD_LAUNCHES
     tensors = (x, g, w1, b1, w2)
-    _check_kernel_args("fused_mlp_bwd", x, w1, tensors + (b2,), ())
+    _check_kernel_args("fused_mlp_bwd", x, w1, tensors + (b2,), (), 48)
     lib = _library()
     rows, c = x.shape
     dev = x.device

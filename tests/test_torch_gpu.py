@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card (marker ``gpu``; skips without one):
-the inference block K1, the training attention K2/K3, the post-norm
-residual K4/K5, the MLP tail K6/K7, the raw MLP K8/K9, the training block
-K11/K12, the inference MLP tail K10, K2's LN-epilogue mode (and the two-kernel
-block they make, against K1) and the A/B kernels of the three scripts S1-S3
+the inference block K1, the training attention K2/K3 (K3 also for its
+determinism and its sums over a batch), the post-norm residual K4/K5, the
+MLP tail K6/K7 (K7 also for its determinism and a partial 64-row tile), the
+raw MLP K8/K9, the training block K11/K12, the inference MLP tail K10, K2's
+LN-epilogue mode (and the two-kernel block they make, against K1) and the
+A/B kernels of the three scripts S1-S3
 against their plain versions, the forecast step and flagship train steps on
 the default route and the two A/B routes through the kernels.
 
@@ -144,6 +146,64 @@ def test_cuda_attention_fwd_and_bwd_match_plain_versions(cuda_device, b, c, head
                                                    window, heads, scale)
     for name, leaf, r in zip(("x", "wqkv", "bqkv", "wproj", "bproj", "bias"), leaves, ref):
         assert leaf.grad.dtype == r.dtype and _bounded(leaf.grad, r, tol=0.05), name
+
+
+@pytest.mark.parametrize("b,c,heads,masked", [(1, 192, 6, True), (2, 192, 6, False),
+                                               (2, 384, 12, True)])
+def test_cuda_attention_bwd_is_deterministic_and_sums_the_batch(cuda_device, b, c, heads, masked):
+    """K3 called twice on the same inputs gives the same bits; at batch 2 it
+    matches its plain version, its dx rows are the single-sample calls' bits
+    and dbias, the weight and the bias grads are the sums of the two
+    single-sample calls' (f32 sums in another order: the kernel bounds)."""
+    args, (window, heads, scale) = _inputs(15, cuda_device, b, 4, 12, 48, c, heads, masked)
+    x, wqkv, bqkv, wproj, _, bias, mask = args[:7]
+    g = (torch.randn(x.shape, generator=torch.Generator(cuda_device).manual_seed(16),
+                     device=cuda_device) * 0.1).to(torch.bfloat16)
+    bargs = (wqkv, bqkv, wproj, bias, mask)
+    first = tfba.fused_block_attention_bwd(x, *bargs, g, window, heads, scale)
+    second = tfba.fused_block_attention_bwd(x, *bargs, g, window, heads, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+    ref = tfba.fused_block_attention_bwd_reference(x, *bargs, g, window, heads, scale)
+    for name, got, r in zip(("x", "wqkv", "bqkv", "wproj", "bproj", "bias"), first, ref):
+        assert got.dtype == r.dtype and _bounded(got, r, tol=0.05), name
+    if b == 2:
+        each = [tfba.fused_block_attention_bwd(x[i:i + 1].contiguous(), *bargs,
+                                               g[i:i + 1].contiguous(), window, heads, scale)
+                for i in range(2)]
+        assert torch.equal(first[0], torch.cat([e[0] for e in each]))
+        for k, name in enumerate(("wqkv", "bqkv", "wproj", "bproj", "bias"), start=1):
+            assert _bounded(first[k], each[0][k].float() + each[1][k].float(), tol=0.05), name
+
+
+@pytest.mark.parametrize("c,rows", [(192, 4608), (384, 4608), (192, 720), (384, 720)])
+def test_cuda_mlp_postnorm_bwd_is_deterministic_with_a_partial_tile(cuda_device, c, rows):
+    """K7 on rows against its plain version, and the same bits on a second
+    call; at C = 384 its wgmma hidden pass splits dx's columns over two
+    warpgroups. 720 = 144 x 5 rows end in a partial 64-row tile (16 rows):
+    the kernel computes it, masked (its loads read zeros past the last row,
+    its stores stop there), rather than refusing it."""
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+
+    gen = torch.Generator(cuda_device).manual_seed(17)
+
+    def rn(*shape, dtype=torch.bfloat16, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(shape, generator=gen, device=cuda_device)).to(dtype)
+
+    f32 = torch.float32
+    args = (rn(rows, c), rn(rows, c), rn(4 * c, c, std=c ** -0.5), rn(4 * c, std=0.02),
+            rn(c, 4 * c, std=(4 * c) ** -0.5), rn(c, std=0.02),
+            rn(c, dtype=f32, mean=1.0, std=0.1), rn(c, dtype=f32, std=0.1),
+            torch.full((rows,), 1.25, device=cuda_device))
+    before = tfm.BWD_LAUNCHES
+    first = tfm.fused_mlp_postnorm_bwd(*args)
+    second = tfm.fused_mlp_postnorm_bwd(*args)
+    torch.cuda.synchronize()
+    assert tfm.BWD_LAUNCHES == before + 2
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+    ref = tfm.fused_mlp_postnorm_bwd_reference(*args)
+    for name, got, r in zip(("x", "w1", "b1", "w2", "b2", "gamma", "beta", "s"), first, ref):
+        assert got.dtype == r.dtype and _bounded(got, r, tol=0.05), name
 
 
 @pytest.mark.parametrize("c", [192, 384])
