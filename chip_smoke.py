@@ -11,15 +11,18 @@ Phases (any failure exits non-zero before the last line is printed):
    one nvcc per source, all at once;
 3. the block kernel K1 against its plain PyTorch version, bf16, at both
    flagship stage shapes, unshifted and shifted (with the real shift mask);
-   max|d| / max(1, max|ref|) < 0.04 and RMS(d) / RMS(ref) < 0.01; per-call
-   times from CUDA events (median of 12);
+   max|d| / max(1, max|ref|) < 0.04 and RMS(d) / RMS(ref) < 0.01, and the
+   same bits on two runs; per-call times from CUDA events (median of 12);
 4. the forecast slice: flagship ``pangu_pretrain(24)`` in bf16 with seeded
    synthetic weights and aux constants, 3 autoregressive forecast steps
    through ``make_forecast_step`` (exactly 16 kernel launches per step),
    output shapes and finiteness, one step against the plain bf16
    composition and the f32 step on the same weights and inputs (max|d| <
    0.1, RMS(d) < 0.01 in normalized units), median step times and peak
-   memory;
+   memory; then, on a line of its own, one forecast step under
+   torch.profiler (``profile_train_step.profile_forecast``): device busy
+   time, idle share, time by kernel and K1 split into its window-attention
+   and token-tail kernels;
 5. the training attention K2 and its flash backward K3 against their plain
    versions at both stage shapes, unshifted and shifted: the forward output
    and all six gradients under the bounds of phase 3, K3 the same bits on two
@@ -28,13 +31,14 @@ Phases (any failure exits non-zero before the last line is printed):
    versions at both stage row counts with a branch scale, same bounds;
 7. the MLP tail K6 and its backward K7 against their plain versions at both
    stage row counts with a branch scale: the output and all eight gradients,
-   same bounds, K7 the same bits on two runs; then the split of K7 and K3
+   same bounds, K6 and K7 the same bits on two runs; then the split of K7 and K3
    into their kernels at both stages (torch.profiler) and, on a line of its
    own, the wgmma products beside one ``torch.mm`` of each (a yardstick);
 8. the train slice: 1 warm-up and 3 timed flagship train steps through
-   ``make_train_step`` (bf16, remat, drop path 0.2 from a seeded generator,
-   Adam): exactly 32 / 16 launches of each forward / backward kernel (K2 /
-   K3, K4 / K5, K6 / K7) per step, finite loss and gradients, changed
+   ``make_train_step`` (bf16, remat keeping the attention and MLP outputs,
+   drop path 0.2 from a seeded generator, Adam): exactly 16 launches of K2,
+   K3, K5, K6 and K7 and 32 of K4 (the recompute runs it again) per step,
+   finite loss and gradients, changed
    parameters, median step time, peak memory and train TFLOP/s; then one
    step each of the plain bf16 composition and the f32 model from the same
    weights, batch and drop-path draws as the warm-up step: against the plain
@@ -50,7 +54,7 @@ Phases (any failure exits non-zero before the last line is printed):
    and x1 to bf16);
 11. the A/B routes of ``pangu_tpu_torch.scripts.bench_train_ab``:
    ``fused_block`` (K11/K12, exactly 16 launches of each per step) and
-   ``unfused_tail`` (K2 32 / K3 16, K4 32 / K5 16, K8 32 / K9 16): one step
+   ``unfused_tail`` (K2 16 / K3 16, K4 32 / K5 16, K8 16 / K9 16): one step
    from phase 8's weights, batch and drop-path draws, finite loss and
    gradients and the bounds of phase 8 against the plain bf16 step; then 3
    timed steps through the script's helper, step time and peak memory;
@@ -122,7 +126,7 @@ from pangu_tpu_torch.ops import fused_epilogue as fep
 from pangu_tpu_torch.ops import fused_mlp as fmlp
 from pangu_tpu_torch.rollout import make_forecast_step
 from pangu_tpu_torch.scripts import (bench_attn_bwd_ab, bench_attn_fwd_ab, bench_mxu_micro,
-                                     bench_train_ab, profile_bwd_split)
+                                     bench_train_ab, profile_bwd_split, profile_train_step)
 from pangu_tpu_torch.scripts.ab_common import (KERNEL_RMS_TOL, KERNEL_TOL, PEAK_BF16, PEAK_BYTES,
                                                compare, cuda_times_ms)
 from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
@@ -135,16 +139,17 @@ STEP_MAX_TOL, STEP_RMS_TOL = 0.1, 0.01  # normalized units, kernel vs plain and 
 #: section 6 has the readings they were set from)
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 0.01, 0.01
 TRAIN_BIAS_LEAF_TOL, TRAIN_LEAF_TOL = 0.1, 0.02
-#: per flagship train step with remat: the checkpoint recompute runs the forwards again
-TRAIN_LAUNCHES = {"fused_block_attention": 32, "fused_block_attention_bwd": 16,
+#: per flagship train step with remat and the config's flags, which keep the attention
+#: and MLP outputs: the checkpoint recompute runs only the first residual (K4) again
+TRAIN_LAUNCHES = {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
                   "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
-                  "fused_mlp_postnorm": 32, "fused_mlp_postnorm_bwd": 16}
+                  "fused_mlp_postnorm": 16, "fused_mlp_postnorm_bwd": 16}
 #: per flagship train step on the A/B routes (the K11 route is not checkpointed)
 AB_LAUNCHES = {
     "fused_block": {"fused_earth_block_train": 16, "fused_earth_block_train_bwd": 16},
-    "unfused_tail": {"fused_block_attention": 32, "fused_block_attention_bwd": 16,
+    "unfused_tail": {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
                      "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
-                     "fused_mlp": 32, "fused_mlp_bwd": 16},
+                     "fused_mlp": 16, "fused_mlp_bwd": 16},
 }
 #: launches of each block shape per step: (stage, shifted) -> blocks
 PER_STEP = {("outer", False): 2, ("outer", True): 2, ("inner", False): 6, ("inner", True): 6}
@@ -262,6 +267,8 @@ def check_kernel(g, dev) -> dict:
             args, statics = block_inputs(stage, c, heads, shifted, dev, seed=len(shapes))
             got = fba.fused_earth_block(*args, *statics)
             torch.cuda.synchronize()
+            same = same_bits(f"K1 {name} {'shifted' if shifted else 'unshifted'}", (got,),
+                             (fba.fused_earth_block(*args, *statics),))
             ref = fba.fused_earth_block_reference(*args, *statics)
             d = (got.float() - ref.float())
             max_abs = d.abs().max().item()
@@ -278,7 +285,7 @@ def check_kernel(g, dev) -> dict:
                 raise AssertionError(f"kernel disagrees with its plain version at {name}")
             shapes.append(dict(stage=name, shifted=shifted, shape=list(args[0].shape),
                                heads=heads, launches_per_step=per_step, max_abs_err=max_abs,
-                               rms_err=rms, ms=ms, plain_ms=plain_ms,
+                               rms_err=rms, same_bits=same, ms=ms, plain_ms=plain_ms,
                                **bound("fused_earth_block", args[0].numel() // c, c, heads,
                                        stage.n_type_windows, shifted)))
             del args
@@ -323,7 +330,8 @@ def build_model(dev):
 
 
 def check_slice(model, aux, dev) -> dict:
-    """Phase 4: the flagship forecast step on the kernel path."""
+    """Phase 4: the flagship forecast step on the kernel path; then its
+    profile, on a line of its own."""
     m = model.cfg
     gen = torch.Generator(device=dev).manual_seed(1)
     upper = aux.upper_mean + aux.upper_std * torch.randn(
@@ -366,6 +374,8 @@ def check_slice(model, aux, dev) -> dict:
                               peak_bytes=torch.cuda.max_memory_allocated(dev))
         del other, ref
         torch.cuda.empty_cache()
+    results["profile"] = profile_train_step.profile_forecast(model, aux, upper, surface)
+    log("forecast profile: " + json.dumps(results["profile"]))
     return results
 
 
@@ -554,10 +564,12 @@ def check_mlp(g, dev) -> dict:
         with torch.no_grad():
             got = fmlp.fused_mlp_postnorm(x, *weights, s[:, None])
             torch.cuda.synchronize()
+            same6 = same_bits(f"K6 {name}", (got,), (fmlp.fused_mlp_postnorm(x, *weights,
+                                                                              s[:, None]),))
             err = check_outputs(f"K6 {name}", {"out": compare(
                 got, fmlp.fused_mlp_postnorm_reference(*fargs))})
             del got
-            fwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
+            fwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err, same_bits=same6,
                             **bound("fused_mlp_postnorm", rows, c),
                             ms=cuda_times_ms(lambda: fmlp.fused_mlp_postnorm(
                                 x, *weights, s[:, None])),

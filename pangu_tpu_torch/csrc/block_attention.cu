@@ -9,7 +9,7 @@
 //   forward   y = bf16(attn(x) @ Wproj^T + bproj), attn as in K1 (window_attention.cuh)
 //   LN mode   y = bf16(x + LN1(attn(x) @ Wproj^T + bproj)), projection, LayerNorm
 //             and residual in f32 (with_epilogue=True; K1's token tail without the
-//             MLP, block_tail.cuh)
+//             MLP, mlp_wg.cuh)
 //   backward  from the cotangent g of y: dx, dWqkv, dbqkv, dWproj, dbproj, dbias
 //             (the LN mode's backward is XLA in the JAX package: no kernel)
 //
@@ -60,7 +60,7 @@
 // fused_block_attention_reference and fused_block_attention_bwd_reference there.
 
 #include "attention_bwd.cuh"
-#include "block_tail.cuh"
+#include "mlp_wg.cuh"
 #include "gemm.cuh"
 
 namespace {

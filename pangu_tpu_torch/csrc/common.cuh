@@ -1,5 +1,5 @@
 // Device helpers shared by the port's CUDA sources (sm_90a): the window
-// geometry, warp reductions, cp.async staging with a two-stage ring, the
+// geometry, the GELU, warp reductions, cp.async staging with a two-stage ring, the
 // mma.sync product and the wmma fragment types, and the reduction of per-CTA
 // f32 partials.
 
@@ -33,6 +33,19 @@ __device__ __forceinline__ long long token_row(const Geom& g, int b, int zi, int
   const int dw = r - dh * g.ww;
   return ((long long)(b * g.Z + zi * g.wz + dz) * g.Hp + hi * g.wh + dh) * g.W +
          wi * g.ww + dw;
+}
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// exact-erf GELU, as the Pallas bodies compute it in f32
+__device__ __forceinline__ float gelu(float h) {
+  return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
+}
+
+// d/dh GELU(h) = Phi(h) + h phi(h), exact-erf form
+__device__ __forceinline__ float gelu_grad(float h) {
+  return 0.5f * (1.f + erff(h * 0.70710678118654752f)) +
+         h * expf(-0.5f * h * h) * 0.3989422804014327f;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -21,10 +21,10 @@
 // the argument dtype; dbias, the LayerNorm grads and ds1/ds2 are f32.
 //
 // Forward design (K11): K1's two kernels. window_attention_kernel (one CTA per
-// (batch, window, head)) writes the bf16 attention output; token_tail_kernel
-// <C, true> (block_tail.cuh) does the projection, LN1 with s1, the MLP streamed
-// through shared memory in 64-column chunks of the hidden (mlp_tile.cuh), LN2
-// with s2, per 48 rows.
+// (batch, window, head)) writes the bf16 attention output; mlp_tail_kernel
+// <C, true, true, true> (mlp_wg.cuh, K1's token tail on wgmma and TMA) does the
+// projection, LN1 with s1, the MLP streamed through shared memory in 64-column
+// chunks of the hidden, LN2 with s2, per 64-row tile.
 //
 // Backward design (K12). The Pallas kernel recomputes the block per (z-window,
 // h-window) slab in VMEM and carries twelve weight and LayerNorm grads, dbias
@@ -67,7 +67,8 @@
 // fused_earth_block_train_reference and fused_earth_block_train_bwd_reference.
 
 #include "attention_bwd.cuh"
-#include "block_tail.cuh"
+#include "mlp_tile.cuh"
+#include "mlp_wg.cuh"
 #include "gemm.cuh"
 
 namespace {

@@ -40,25 +40,30 @@
 //    one type, so a window's x rows and a (type, head) bias tile are reused
 //    from L2 (the bias tile by the 30 or 15 lon windows of its type).
 //    112,896 B of shared memory: two CTAs per SM.
-//  * token_tail_kernel<C, false> (block_tail.cuh, shared with the training
-//    block K11): one CTA per 48 rows of the flattened grid, 12
-//    warps. out-projection, LN1 and residual into an f32 x1 tile in shared
-//    memory; then the MLP streamed over 64-column chunks of the 4C hidden, the
-//    W2 product accumulating in registers, so the (48, 4C) hidden never exists
-//    whole (mlp_tile.cuh, shared with the training MLP tail); then LN2 and the
-//    final residual in f32.
+//  * mlp_tail_kernel<C, true, true, false> (mlp_wg.cuh, the token tail, shared
+//    with the training block K11, K2's LN mode and the MLP tail K6): a
+//    persistent CTA per SM walks 64-row tiles of the flattened grid. A
+//    producer warp loads the tile's attention output by TMA and streams
+//    64-channel chunks of Wproj, then 64-column chunks of W1 and W2, through
+//    a ring of mbarrier-guarded slots; two consumer warpgroups each own half
+//    of the C output columns on wgmma: the out-projection, LN1 and the f32
+//    residual x1 (kept per thread in a local array), bf16(x1) into shared
+//    memory as the MLP input, then the MLP streamed over 64-column chunks of
+//    the 4C hidden (h on wgmma, GELU in registers, the bf16 hidden tile in
+//    shared memory, y accumulated on wgmma), so the (64, 4C) hidden never
+//    exists whole; then LN2 and the final residual in f32. The LayerNorm row
+//    statistics add both warpgroups' halves in a fixed order.
 //
-// All products are the kernels' own (wmma 16x16x16 bf16 fragments, f32
-// accumulate). Every operand tile is staged in shared memory by cp.async
-// through a two-stage ring, the next chunk's copy in flight while the current
-// one is multiplied; the weights are shared by every CTA and come from L2.
-// wgmma, TMA and persistence are left for later work.
-//
+// The attention kernel's products are wmma 16x16x16 bf16 fragments (f32
+// accumulate) from tiles staged by cp.async through a two-stage ring; the
+// tail's are wgmma from TMA tiles; the weights are shared by every CTA and
+// come from L2.
+
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // pangu_tpu_torch/ops/fused_block_attention.py; the plain PyTorch version of the
 // same function is fused_earth_block_reference there.
 
-#include "block_tail.cuh"
+#include "mlp_wg.cuh"
 #include "window_attention.cuh"
 
 extern "C" {

@@ -24,17 +24,22 @@
 // rounds them to the argument dtype; dgamma, dbeta and ds (one per row) are
 // f32. s is the per-row f32 branch scale (stochastic depth).
 //
-// Design. The forwards and the backward's row pass: a CTA owns 48 rows at a
-// time (12 warps: 3 row tiles x 4 column groups) and streams the 4C hidden in
-// 64-column chunks, so the (rows, 4C) hidden exists in shared memory one
-// chunk at a time (mlp_tile.cuh, shared with K1's token tail); wmma fragments.
+// Design.
 //
-//  * mlp_postnorm_kernel<C, false> (K6): h chunk = x W1^T, GELU, bf16, then
-//    the W2 product accumulating in registers; LN, scale and residual per row.
+//  * K6 and K10 run mlp_tail_kernel<C, false, true, false> (mlp_wg.cuh, shared
+//    with the token tail of K1, K11 and K2's LN mode): a persistent CTA per
+//    SM walks 64-row tiles, x resident in shared memory (TMA), a producer
+//    warp streaming 64-column chunks of W1 and W2 through a ring of
+//    mbarrier-guarded slots, two consumer warpgroups forming the hidden chunk
+//    on wgmma, GELU in registers, and y[:, their half] on wgmma; LN, scale and
+//    residual per row. K10 passes no scale: with s = 1 the two give the same
+//    bits. Any multiple of 48 rows: the last 64-row tile is masked.
 //  * the backward K7, a row pass, a hidden pass and two products over all rows:
-//    - mlp_postnorm_kernel<C, true> recomputes y the same way and forms, per
-//      row, ds, dy = LN backward of s g (written bf16, (rows, C)) and the
-//      f32 partials of dgamma, dbeta and db2;
+//    - the row pass, mlp_tail_kernel<C, false, true, false, true>: K6's
+//      kernel recomputes y and, per row, forms ds and dy = LN backward of s g
+//      (written bf16, (rows, C)); the column sums of dgamma, dbeta and db2
+//      go over the warp's rows by shuffles, are kept across the CTA's tiles
+//      by the lanes, and leave as four f32 partials per CTA;
 //    - mlp_hidden_bwd_kernel<C> (wgmma): 64-row tiles, x and dy resident in
 //      shared memory, one producer warp feeding the W2 and W1 chunks of each
 //      64-column hidden chunk by TMA (one buffer each: W2 is released after
@@ -51,9 +56,8 @@
 //      row-split products.
 //    Every cross-CTA sum goes through per-CTA partials reduced in a fixed
 //    order (reduce_partials): the result is the same on every run.
-//  * mlp_postnorm_kernel<C, false, false> (K10): K6 without the branch scale,
-//    so it reads no scale vector; with s = 1 the two give the same bits.
-//  * mlp_raw_kernel<C> (K8): K6 without the LayerNorm and the residual.
+//  * mlp_raw_kernel<C> (K8): the raw MLP on mlp_tile.cuh's wmma engine (48-row
+//    tiles of 12 warps, the W chunks through a two-stage cp.async ring).
 //  * K9 is K7 without its row pass: the hidden pass runs on g itself as the
 //    output gradient and adds no residual to dx; db2 is the column sum of g
 //    (gemm.cuh colsum), dW2 = g^T a and dW1 = dh^T x the row-split products.
@@ -63,12 +67,11 @@
 // What bounds it on an H100: ~4 x rows x C x 4C FLOP forward (316 GFLOP at
 // the outer stage) against two (rows, C) bf16 passes (0.4 GB): compute; the
 // backward does ~3x the FLOP and moves the two hidden slabs (1.6 GB at the
-// outer stage) once each way. The forwards and the row pass are wmma
-// fragments loaded from shared memory, held by those loads (a later
-// redesign, with K1's tail, which shares mlp_rows). The hidden pass streams
-// W1 and W2 (2 x 4C x C bf16) from the L2 for every 64-row tile, ~5 GB a
-// call, and idles the tensor cores during its GELU epilogue: held by that
-// feed and the epilogue rather than by the tensor-core peak.
+// outer stage) once each way. K6, the row pass and the hidden pass stream W1
+// and W2 (2 x 4C x C bf16) from the L2 for every 64-row tile, ~5 GB a call,
+// and idle the tensor cores during their GELU epilogues: held by that feed
+// and the epilogue rather than by the tensor-core peak. K8 is wmma fragments
+// loaded from shared memory, held by those loads.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // pangu_tpu_torch/ops/fused_mlp.py; the plain PyTorch versions are
@@ -77,126 +80,22 @@
 
 #include "gemm.cuh"
 #include "mlp_tile.cuh"
+#include "mlp_wg.cuh"
 
 namespace {
 
+// K8's shared memory: x, h, bf16 hidden, two stages; y (f32) reuses it all
+// after the MLP
 template <int C>
 struct MlpLayout : MlpTile<C> {
   using M = MlpTile<C>;
-  // forward: x, h, bf16 hidden, two stages; y (f32) reuses it all after the MLP
   static constexpr int F_WORK = M::XB_BYTES + M::H_BYTES + M::HB_BYTES + 2 * M::STAGE_BYTES;
-  static constexpr int F_RED = 3 * TAIL_WARPS * C * 4;  // backward partials, at the end
-  static constexpr int F_SMEM = cmax(cmax(F_WORK, M::Y_BYTES), F_RED);
+  static constexpr int F_SMEM = cmax(F_WORK, M::Y_BYTES);
   static_assert(F_SMEM <= 232448, "fits one CTA's shared memory");
 };
 
-// K6 (BWD false): out = bf16(x + s * LN(y)); K10 (SCALED false too): out =
-// bf16(x + LN(y)), s not read. Backward pass 1 (BWD true): ds, dy = bf16(LN
-// backward of s g) and the per-CTA partials of dgamma, dbeta, db2.
-// y = GELU(x W1^T + b1) W2^T + b2, recomputed. Loops over 48-row tiles.
-template <int C, bool BWD, bool SCALED = true>
-__global__ void __launch_bounds__(TAIL_THREADS, 1)
-mlp_postnorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                    const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                    const bf16* __restrict__ b2, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, const float* __restrict__ s,
-                    const bf16* __restrict__ gy, bf16* __restrict__ out,
-                    float* __restrict__ ds, float* __restrict__ part, long long tiles) {
-  using L = MlpLayout<C>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* XB = reinterpret_cast<bf16*>(smem);
-  float* H = reinterpret_cast<float*>(smem + L::XB_BYTES);
-  bf16* HB = reinterpret_cast<bf16*>(smem + L::XB_BYTES + L::H_BYTES);
-  bf16* S0 = reinterpret_cast<bf16*>(smem + L::XB_BYTES + L::H_BYTES + L::HB_BYTES);
-  bf16* S1 = S0 + L::STAGE_BYTES / 2;
-  float* Ys = reinterpret_cast<float*>(smem);  // after the MLP
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mt = warp >> 2, ng = warp & 3;  // row tile, column group
-  float dg[C / 32], db[C / 32], dby[C / 32];  // backward partials, column lane + 32 j
-  for (int j = 0; j < C / 32; ++j) dg[j] = db[j] = dby[j] = 0.f;
-
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long row0 = tile * TAIL_ROWS;
-    // ---- y = GELU(x W1^T + b1) W2^T over 64-column chunks of the hidden
-    stage_tile(XB, L::XB_LD, x + row0 * C, C, TAIL_ROWS, C);
-    cp_async_commit();
-    FragC yacc[L::NT];
-    mlp_rows<C>(XB, H, HB, S0, S1, w1, b1, w2, yacc);
-    for (int j = 0; j < L::NT; ++j)
-      wmma::store_matrix_sync(Ys + mt * 16 * L::Y_LD + (ng + 4 * j) * 16, yacc[j], L::Y_LD,
-                              wmma::mem_row_major);
-    __syncthreads();
-
-    // ---- per row (one warp): LayerNorm statistics of y + b2, then the epilogue
-    for (int r = warp; r < TAIL_ROWS; r += TAIL_WARPS) {
-      const long long row = row0 + r;
-      float v[C / 32];
-      float sum = 0.f, sq = 0.f;
-      for (int j = 0; j < C / 32; ++j) {
-        const int c = lane + 32 * j;
-        v[j] = Ys[r * L::Y_LD + c] + __bfloat162float(b2[c]);
-        sum += v[j];
-        sq += v[j] * v[j];
-      }
-      sum = warp_sum(sum);
-      sq = warp_sum(sq);
-      const float mu = sum / C;
-      const float rs = rsqrtf(sq / C - mu * mu + kLnEps);
-      const float sc = SCALED ? s[row] : 1.f;
-      if (!BWD) {
-        for (int j = 0; j < C / 32; ++j) {
-          const int c = lane + 32 * j;
-          const float y = (v[j] - mu) * rs * gamma[c] + beta[c];
-          out[row * C + c] = __float2bfloat16(__bfloat162float(x[row * C + c]) + sc * y);
-        }
-      } else {
-        float dsum = 0.f, m1 = 0.f, m2 = 0.f, dyh[C / 32];
-        for (int j = 0; j < C / 32; ++j) {
-          const int c = lane + 32 * j;
-          v[j] = (v[j] - mu) * rs;  // yhat
-          const float gv = __bfloat162float(gy[row * C + c]);
-          dsum += gv * (v[j] * gamma[c] + beta[c]);
-          const float gb = gv * sc;
-          dg[j] += gb * v[j];
-          db[j] += gb;
-          dyh[j] = gb * gamma[c];
-          m1 += dyh[j];
-          m2 += dyh[j] * v[j];
-        }
-        dsum = warp_sum(dsum);
-        m1 = warp_sum(m1) / C;
-        m2 = warp_sum(m2) / C;
-        if (lane == 0) ds[row] = dsum;
-        for (int j = 0; j < C / 32; ++j) {
-          const float dy = rs * (dyh[j] - m1 - v[j] * m2);
-          dby[j] += dy;
-          out[row * C + lane + 32 * j] = __float2bfloat16(dy);
-        }
-      }
-    }
-    __syncthreads();  // y is read: the next tile stages over it
-  }
-
-  if (BWD) {  // dgamma, dbeta, db2 partials of this CTA: the warps' sums, in order
-    float* red = reinterpret_cast<float*>(smem);
-    for (int j = 0; j < C / 32; ++j) {
-      const int c = lane + 32 * j;
-      red[(0 * TAIL_WARPS + warp) * C + c] = dg[j];
-      red[(1 * TAIL_WARPS + warp) * C + c] = db[j];
-      red[(2 * TAIL_WARPS + warp) * C + c] = dby[j];
-    }
-    __syncthreads();
-    for (int v = threadIdx.x; v < 3 * C; v += TAIL_THREADS) {
-      const int k = v / C, c = v - k * C;
-      float acc = 0.f;
-      for (int w = 0; w < TAIL_WARPS; ++w) acc += red[(k * TAIL_WARPS + w) * C + c];
-      part[((long long)k * gridDim.x + blockIdx.x) * C + c] = acc;
-    }
-  }
-}
-
 // ---- Backward pass 2, the hidden pass, on wgmma -------------------------------------
-constexpr int HB_ROWS = 64;                   // rows per tile (one wgmma row block)
+constexpr int HB_ROWS = WG_TAIL_ROWS;         // rows per tile (one wgmma row block; tail_grid)
 constexpr int HB_THREADS = 2 * 128 + 32;      // two consumer warpgroups + the producer warp
 
 // Shared memory of the hidden pass (byte offsets; every box on a 1024-byte
@@ -419,13 +318,6 @@ mlp_hidden_bwd_kernel(const __grid_constant__ HiddenMaps maps, const bf16* __res
   }
 }
 
-// CTAs of the hidden pass at `rows`: one per SM, at most one per 64-row tile.
-inline int hidden_grid(long long rows) {
-  const long long tiles = (rows + HB_ROWS - 1) / HB_ROWS;
-  const int sms = sm_count();
-  return (int)(sms > 0 && sms < tiles ? sms : tiles);
-}
-
 // The hidden pass on `stream`: a, dh slabs, dx and the db1 partials (grid x 4C).
 template <int C>
 cudaError_t launch_hidden(const bf16* x, const bf16* dy, const bf16* gy, const bf16* w1,
@@ -441,7 +333,7 @@ cudaError_t launch_hidden(const bf16* x, const bf16* dy, const bf16* gy, const b
   cudaError_t err = cudaFuncSetAttribute(mlp_hidden_bwd_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
-  mlp_hidden_bwd_kernel<C><<<hidden_grid(rows), HB_THREADS, L::SMEM, stream>>>(
+  mlp_hidden_bwd_kernel<C><<<tail_grid(rows), HB_THREADS, L::SMEM, stream>>>(
       maps, gy, b1, a, dh, dx, db1_part, rows);
   return cudaGetLastError();
 }
@@ -491,40 +383,36 @@ struct Args {
   long long rows;
 };
 
-template <int C>
-cudaError_t launch_fwd(const Args& p, cudaStream_t stream) {
-  using L = MlpLayout<C>;
-  const long long tiles = p.rows / TAIL_ROWS;
-  const int grid = resident_ctas(mlp_postnorm_kernel<C, false>, L::F_SMEM, tiles);
-  if (grid < 1) return cudaErrorInvalidValue;
-  mlp_postnorm_kernel<C, false><<<grid, TAIL_THREADS, L::F_SMEM, stream>>>(
-      p.x, p.w1, p.b1, p.w2, p.b2, p.gamma, p.beta, p.s, nullptr, p.out, nullptr, nullptr,
-      tiles);
-  return cudaGetLastError();
+// The row kernel's arguments for the MLP tail over p's rows (s one per row).
+TailArgs tail_args(const Args& p) {
+  TailArgs a{};
+  a.x = p.x;
+  a.b1 = p.b1;
+  a.b2 = p.b2;
+  a.gy = p.gy;
+  a.ln2_s = p.gamma;
+  a.ln2_b = p.beta;
+  a.s2 = p.s;
+  a.ds = p.ds;
+  a.rows = p.rows;
+  a.rows_per_scale = 1;
+  return a;
 }
 
-// K10: K6's forward with no branch scale.
+// K6 (s, one per row) and K10 (s null): out = bf16(x + s LN(y)).
 template <int C>
-cudaError_t launch_block_fwd(const Args& p, cudaStream_t stream) {
-  using L = MlpLayout<C>;
-  const long long tiles = p.rows / TAIL_ROWS;
-  const int grid = resident_ctas(mlp_postnorm_kernel<C, false, false>, L::F_SMEM, tiles);
-  if (grid < 1) return cudaErrorInvalidValue;
-  mlp_postnorm_kernel<C, false, false><<<grid, TAIL_THREADS, L::F_SMEM, stream>>>(
-      p.x, p.w1, p.b1, p.w2, p.b2, p.gamma, p.beta, nullptr, nullptr, p.out, nullptr, nullptr,
-      tiles);
-  return cudaGetLastError();
+cudaError_t launch_fwd(const Args& p, cudaStream_t stream) {
+  TailArgs a = tail_args(p);
+  a.out = p.out;
+  return launch_mlp_tail<C, false, true, false>(p.x, nullptr, p.w1, p.w2, a, stream);
 }
 
 // f32 scratch of K7 and K9: the row pass's partials, the hidden pass's db1
 // partials and the weight grads' row-slice partials, one after the other.
 template <int C>
 long long bwd_scratch(long long rows) {
-  using L = MlpLayout<C>;
-  const long long g1 = resident_ctas(mlp_postnorm_kernel<C, true>, L::F_SMEM, rows / TAIL_ROWS);
-  long long n = 3 * g1 * C;
+  long long n = 3LL * 4 * tail_grid(rows) * C;  // also holds the hidden pass's db1 partials
   if ((long long)COLSUM_BLOCKS * C > n) n = (long long)COLSUM_BLOCKS * C;
-  if (hidden_grid(rows) * 4LL * C > n) n = hidden_grid(rows) * 4LL * C;
   const long long w = (long long)weight_grad_splits(C, 4 * C, rows) * 4 * C * C;
   return w > n ? w : n;
 }
@@ -537,7 +425,7 @@ cudaError_t hidden_and_weight_grads(const Args& p, const bf16* dy, const bf16* g
   cudaError_t err = launch_hidden<C>(p.x, dy, gy, p.w1, p.b1, p.w2, p.a, p.dh, p.out, p.part,
                                      p.rows, stream);
   if (err != cudaSuccess ||
-      (err = reduce_partials(p.part, hidden_grid(p.rows), 4LL * C, p.db1, nullptr, stream)) !=
+      (err = reduce_partials(p.part, tail_grid(p.rows), 4LL * C, p.db1, nullptr, stream)) !=
           cudaSuccess ||
       (err = gemm<false, true>(dy, C, p.a, 4 * C, C, 4 * C, p.rows,
                                weight_grad_splits(C, 4 * C, p.rows), nullptr, p.dw2, p.part,
@@ -547,20 +435,21 @@ cudaError_t hidden_and_weight_grads(const Args& p, const bf16* dy, const bf16* g
                            weight_grad_splits(4 * C, C, p.rows), nullptr, p.dw1, p.part, stream);
 }
 
+// K7: the row pass (ds, dy and the partials of dgamma, dbeta and db2, four
+// per CTA), their sums in order, then the hidden pass and the weight grads.
 template <int C>
 cudaError_t launch_bwd(const Args& p, cudaStream_t stream) {
-  using L = MlpLayout<C>;
-  const long long tiles = p.rows / TAIL_ROWS;
-  const int g1 = resident_ctas(mlp_postnorm_kernel<C, true>, L::F_SMEM, tiles);
-  if (g1 < 1) return cudaErrorInvalidValue;
-  mlp_postnorm_kernel<C, true><<<g1, TAIL_THREADS, L::F_SMEM, stream>>>(
-      p.x, p.w1, p.b1, p.w2, p.b2, p.gamma, p.beta, p.s, p.gy, p.dy, p.ds, p.part, tiles);
-  cudaError_t err = cudaGetLastError();
+  TailArgs a = tail_args(p);
+  a.out = p.dy;
+  a.part = p.part;
+  cudaError_t err = launch_mlp_tail<C, false, true, false, true>(p.x, nullptr, p.w1, p.w2, a,
+                                                                 stream);
+  const int parts = 4 * tail_grid(p.rows);
   if (err != cudaSuccess ||
-      (err = reduce_partials(p.part, g1, C, nullptr, p.dgamma, stream)) != cudaSuccess ||
-      (err = reduce_partials(p.part + (long long)g1 * C, g1, C, nullptr, p.dbeta, stream)) !=
+      (err = reduce_partials(p.part, parts, C, nullptr, p.dgamma, stream)) != cudaSuccess ||
+      (err = reduce_partials(p.part + (long long)parts * C, parts, C, nullptr, p.dbeta, stream)) !=
           cudaSuccess ||
-      (err = reduce_partials(p.part + 2LL * g1 * C, g1, C, p.db2, nullptr, stream)) !=
+      (err = reduce_partials(p.part + 2LL * parts * C, parts, C, p.db2, nullptr, stream)) !=
           cudaSuccess)
     return err;
   return hidden_and_weight_grads<C>(p, p.dy, p.gy, stream);
@@ -586,16 +475,17 @@ cudaError_t launch_raw_bwd(const Args& p, cudaStream_t stream) {
   return hidden_and_weight_grads<C>(p, p.gy, nullptr, stream);
 }
 
-bool rows_ok(long long rows) { return rows > 0 && rows % TAIL_ROWS == 0 && rows % GK == 0; }
-// the backwards K7 and K9 take any multiple of 48 rows (the row pass's tile)
-bool bwd_rows_ok(long long rows) { return rows > 0 && rows % TAIL_ROWS == 0; }
+// K6, K7, K9 and K10 take any multiple of 48 rows (their wgmma kernels mask
+// the last 64-row tile); K8 a multiple of 96 (its 48-row tiles, GK)
+bool rows_ok(long long rows) { return rows > 0 && rows % TAIL_ROWS == 0; }
+bool raw_rows_ok(long long rows) { return rows_ok(rows) && rows % GK == 0; }
 
 }  // namespace
 
 extern "C" {
 
 // K6 on `stream`: out = bf16(x + s * LN(GELU(x W1^T + b1) W2^T + b2)), s one f32
-// per row. C 192 or 384 and rows a multiple of 96, else cudaErrorInvalidValue.
+// per row. C 192 or 384 and rows a multiple of 48, else cudaErrorInvalidValue.
 int pangu_mlp_postnorm_fwd(const void* x, const void* w1, const void* b1, const void* w2,
                            const void* b2, const void* gamma, const void* beta, const void* s,
                            void* out, long long rows, int C, void* stream) {
@@ -620,7 +510,7 @@ int pangu_mlp_postnorm_fwd(const void* x, const void* w1, const void* b1, const 
 }
 
 // K10 on `stream`: out = bf16(x + LN(GELU(x W1^T + b1) W2^T + b2)). C 192 or 384
-// and rows a multiple of 96, else cudaErrorInvalidValue.
+// and rows a multiple of 48, else cudaErrorInvalidValue.
 int pangu_mlp_block_fwd(const void* x, const void* w1, const void* b1, const void* w2,
                         const void* b2, const void* gamma, const void* beta, void* out,
                         long long rows, int C, void* stream) {
@@ -637,8 +527,8 @@ int pangu_mlp_block_fwd(const void* x, const void* w1, const void* b1, const voi
   p.rows = rows;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (C) {
-    case 192: return (int)launch_block_fwd<192>(p, st);
-    case 384: return (int)launch_block_fwd<384>(p, st);
+    case 192: return (int)launch_fwd<192>(p, st);
+    case 384: return (int)launch_fwd<384>(p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -646,7 +536,7 @@ int pangu_mlp_block_fwd(const void* x, const void* w1, const void* b1, const voi
 // f32 elements of scratch that pangu_mlp_postnorm_bwd needs (0: C or rows not
 // taken: C 192 or 384, rows a multiple of 48).
 long long pangu_mlp_postnorm_bwd_scratch(long long rows, int C) {
-  if (!bwd_rows_ok(rows)) return 0;
+  if (!rows_ok(rows)) return 0;
   switch (C) {
     case 192: return bwd_scratch<192>(rows);
     case 384: return bwd_scratch<384>(rows);
@@ -663,7 +553,7 @@ int pangu_mlp_postnorm_bwd(const void* x, const void* gy, const void* w1, const 
                            const void* s, void* dy_buf, void* a_buf, void* dh_buf, void* scratch,
                            void* dx, void* dw1, void* db1, void* dw2, void* db2, void* dgamma,
                            void* dbeta, void* ds, long long rows, int C, void* stream) {
-  if (!bwd_rows_ok(rows)) return (int)cudaErrorInvalidValue;
+  if (!rows_ok(rows)) return (int)cudaErrorInvalidValue;
   Args p{};
   p.x = static_cast<const bf16*>(x);
   p.gy = static_cast<const bf16*>(gy);
@@ -699,7 +589,7 @@ int pangu_mlp_postnorm_bwd(const void* x, const void* gy, const void* w1, const 
 // a multiple of 96, else cudaErrorInvalidValue.
 int pangu_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                   void* out, long long rows, int C, void* stream) {
-  if (!rows_ok(rows)) return (int)cudaErrorInvalidValue;
+  if (!raw_rows_ok(rows)) return (int)cudaErrorInvalidValue;
   Args p{};
   p.x = static_cast<const bf16*>(x);
   p.w1 = static_cast<const bf16*>(w1);
@@ -719,7 +609,7 @@ int pangu_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
 // f32 elements of scratch that pangu_mlp_bwd needs (0: C or rows not taken: C
 // 192 or 384, rows a multiple of 48).
 long long pangu_mlp_bwd_scratch(long long rows, int C) {
-  if (!bwd_rows_ok(rows)) return 0;
+  if (!rows_ok(rows)) return 0;
   switch (C) {
     case 192: return bwd_scratch<192>(rows);
     case 384: return bwd_scratch<384>(rows);
@@ -733,7 +623,7 @@ long long pangu_mlp_bwd_scratch(long long rows, int C) {
 int pangu_mlp_bwd(const void* x, const void* gy, const void* w1, const void* b1, const void* w2,
                   void* a_buf, void* dh_buf, void* scratch, void* dx, void* dw1, void* db1,
                   void* dw2, void* db2, long long rows, int C, void* stream) {
-  if (!bwd_rows_ok(rows)) return (int)cudaErrorInvalidValue;
+  if (!rows_ok(rows)) return (int)cudaErrorInvalidValue;
   Args p{};
   p.x = static_cast<const bf16*>(x);
   p.gy = static_cast<const bf16*>(gy);

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: mbarriers, TMA
 // tile loads described by tensor maps, warpgroup matrix multiplies (wgmma)
 // reading swizzled shared-memory tiles, and the host side that encodes the
-// tensor maps. Used by the weight-grad and dx products of gemm.cuh and the
-// hidden pass of the MLP backward (fused_mlp.cu).
+// tensor maps. Used by the weight-grad and dx products of gemm.cuh, the
+// hidden pass of the MLP backward (fused_mlp.cu) and the forward row engine
+// of the MLP and the block tails (mlp_wg.cuh).
 //
 // Layouts. A tile is loaded by TMA as boxes of `inner` x `outer` bf16
 // elements, `inner` contiguous, with the 128-byte (64 elements) or 64-byte
@@ -61,6 +62,18 @@ __device__ __forceinline__ void fence_async_smem() {
 // barrier `id` (1..15) over `threads` threads (a multiple of 32)
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Move this warpgroup's registers per thread down to / up to N (every warp of
+// the warpgroup runs it): a producer warpgroup gives registers back to the
+// pool so that the consumer warpgroups can hold more.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- TMA ----------------------------------------------------------------------

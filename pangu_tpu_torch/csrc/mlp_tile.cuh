@@ -1,13 +1,14 @@
 // The MLP of a 48-row token tile, GELU(x W1^T + b1) W2^T, streamed over
 // 64-column chunks of the 4C hidden so that the (48, 4C) hidden never exists
-// whole: shared by the token tails of K1 and K11 (block_tail.cuh), the
-// training MLP kernels K6-K9 (fused_mlp.cu) and the block backward K12
-// (fused_block_train.cu). A CTA of 12 warps works on the tile, warp w on row
-// tile w / 4 and column group w % 4; the W1 and W2 chunks are staged in shared
-// memory through the two-stage cp.async ring of common.cuh. The hidden is
-// rounded to bf16 after an f32 GELU, as the Pallas bodies round it.
-// mlp_hidden_bwd_rows is the hidden pass of the block backward K12 (K7 and
-// K9 have a wgmma hidden pass of their own, fused_mlp.cu).
+// whole, on wmma fragments: the row pass of the MLP-tail backward K7 and the
+// raw MLP K8 (fused_mlp.cu) and the block backward K12 (fused_block_train.cu).
+// A CTA of 12 warps works on the tile, warp w on row tile w / 4 and column
+// group w % 4; the W1 and W2 chunks are staged in shared memory through the
+// two-stage cp.async ring of common.cuh. The hidden is rounded to bf16 after
+// an f32 GELU, as the Pallas bodies round it. mlp_hidden_bwd_rows is the
+// hidden pass of the block backward K12 (K7 and K9 have a wgmma hidden pass of
+// their own, fused_mlp.cu). The forward MLP of K6, K10 and the block tails
+// runs on wgmma (mlp_wg.cuh).
 
 #pragma once
 
@@ -19,8 +20,6 @@ constexpr int TAIL_ROWS = 48;  // divides every grid: rows = windows * 144
 constexpr int TAIL_WARPS = 12;  // 3 row tiles x 4 column groups
 constexpr int TAIL_THREADS = TAIL_WARPS * 32;
 constexpr int HC = 64;  // hidden columns per MLP chunk
-
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 template <int C>
 struct MlpTile {
@@ -41,16 +40,6 @@ struct MlpTile {
                     HB_BYTES % 32 == 0 && STAGE_BYTES % 32 == 0,
                 "wmma needs 256-bit aligned tiles");
 };
-
-__device__ __forceinline__ float gelu(float h) {
-  return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
-}
-
-// d/dh GELU(h) = Phi(h) + h phi(h), exact-erf form
-__device__ __forceinline__ float gelu_grad(float h) {
-  return 0.5f * (1.f + erff(h * 0.70710678118654752f)) +
-         h * expf(-0.5f * h * h) * 0.3989422804014327f;
-}
 
 // CTAs of `kernel` (TAIL_THREADS each, `smem` bytes of dynamic shared memory)
 // that fit the card at once, at most `tiles`: the grid of a loop over row tiles.

@@ -25,7 +25,15 @@ The route keys on the module's mode, as the JAX package keys on
 ``EarthSpecificLayer`` draws the scales and, with ``remat``, checkpoints each
 block (``torch.utils.checkpoint``, non-reentrant) -- except a block on the
 K11 route, whose autograd Function saves only its inputs, so a recompute
-would only run K11 again.
+would only run K11 again. A training block runs as stages: the attention
+(with the entry's pad and roll), the first residual, the MLP (K6's whole
+tail, or the raw MLP output that the JAX package names ``mlp_out``) and,
+after a raw MLP, the second residual. ``remat_save_attention`` and
+``remat_save_mlp`` keep the attention's and the MLP's outputs, as the JAX
+policy ``save_only_these_names("attn_out", "mlp_out")`` does: the backward
+recomputes the other stages but not those two. A kept kernel stage runs
+outside the checkpoint (its autograd Function saves only its inputs); a
+kept plain stage is a checkpoint of its own, whose output is kept.
 """
 
 from __future__ import annotations
@@ -105,53 +113,40 @@ class EarthSpecificBlock(nn.Module):
         return (self.training and self.use_kernel and x.dtype == torch.bfloat16
                 and fused_block_train._TRAIN_FUSION and self.attention.dropout_rate == 0.0)
 
-    def forward(self, x: torch.Tensor, s1: Optional[torch.Tensor] = None,
-                s2: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """In training, ``s1``/``s2`` are the stochastic-depth branch scales
-        of the two residuals, (B, 1, 1, 1, 1) f32 (``drop_path_scale``)."""
+    def _enter(self, x: torch.Tensor):
+        """Pad rows re-zeroed, then the shifted block's roll: (shortcut, x)."""
         st = self.stage
         wz, wh, ww = st.window
         assert tuple(x.shape[1:4]) == (st.z, st.h_pad, st.w), (x.shape, st)
         if st.h_pad != st.h:
             x = F.pad(x[:, :, :st.h], (0, 0, 0, 0, 0, st.h_pad - st.h))
-        shortcut = x
-        if self.shifted:
-            x = torch.roll(x, shifts=(-(wz // 2), -(wh // 2), -(ww // 2)), dims=(1, 2, 3))
+        if not self.shifted:
+            return x, x
+        return x, torch.roll(x, shifts=(-(wz // 2), -(wh // 2), -(ww // 2)), dims=(1, 2, 3))
 
+    def _roll_back(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.shifted:
+            return x
+        wz, wh, ww = self.stage.window
+        return torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
+
+    def forward(self, x: torch.Tensor, s1: Optional[torch.Tensor] = None,
+                s2: Optional[torch.Tensor] = None,
+                kept: Optional[frozenset] = None) -> torch.Tensor:
+        """In training, ``s1``/``s2`` are the stochastic-depth branch scales
+        of the two residuals, (B, 1, 1, 1, 1) f32 (``drop_path_scale``), and
+        ``kept`` is None (no checkpoint) or the set of stage outputs the
+        backward keeps ("attention", "mlp"; empty: the whole block is
+        recomputed)."""
         if self.training:
             if s1 is None or s2 is None:
                 raise ValueError("a training block needs its drop-path scales s1 and s2")
-            cdt, attn, mlp = x.dtype, self.attention, self.linear
             if self.train_fused(x):
-                x = fused_block_train.fused_earth_block_train(
-                    x,
-                    attn.linear1.weight.to(cdt), attn.linear1.bias.to(cdt),
-                    attn.linear2.weight.to(cdt), attn.linear2.bias.to(cdt),
-                    attn.earth_specific_bias[0].float(), self.attn_mask,
-                    self.norm1.weight.float(), self.norm1.bias.float(),
-                    mlp.linear1.weight.to(cdt), mlp.linear1.bias.to(cdt),
-                    mlp.linear2.weight.to(cdt), mlp.linear2.bias.to(cdt),
-                    self.norm2.weight.float(), self.norm2.bias.float(),
-                    s1.reshape(-1), s2.reshape(-1),
-                    st.window, self.heads, (self.dim // self.heads) ** -0.5,
-                )
-                if self.shifted:
-                    x = torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
-                return x
-            x = attn(x, self.attn_mask)
-            if self.shifted:
-                x = torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
-            if not (self.use_kernel and cdt == torch.bfloat16):
-                x = postnorm_residual(shortcut, x, self.norm1, s1)
-                return postnorm_residual(x, mlp(x), self.norm2, s2)
-            x = fused_residual_postnorm(shortcut, x, self.norm1.weight, self.norm1.bias, s1)
-            weights = (mlp.linear1.weight.to(cdt), mlp.linear1.bias.to(cdt),
-                       mlp.linear2.weight.to(cdt), mlp.linear2.bias.to(cdt))
-            if fused_mlp._POSTNORM_FUSION:
-                return fused_mlp.fused_mlp_postnorm(x, *weights, self.norm2.weight,
-                                                    self.norm2.bias, s2)
-            return postnorm_residual(x, fused_mlp.fused_mlp(x, *weights), self.norm2, s2)
+                return self._train_fused(x, s1, s2)
+            kernels = self.use_kernel and x.dtype == torch.bfloat16
+            return run_stages(self._train_stages(kernels, s1, s2), x, kept, kernels)
 
+        shortcut, x = self._enter(x)
         if self.use_kernel and x.dtype == torch.bfloat16 and not torch.is_grad_enabled():
             cdt = x.dtype
             attn, mlp = self.attention, self.linear
@@ -164,17 +159,105 @@ class EarthSpecificBlock(nn.Module):
                 mlp.linear1.weight.to(cdt), mlp.linear1.bias.to(cdt),
                 mlp.linear2.weight.to(cdt), mlp.linear2.bias.to(cdt),
                 self.norm2.weight.float(), self.norm2.bias.float(),
-                st.window, self.heads, (self.dim // self.heads) ** -0.5,
+                self.stage.window, self.heads, (self.dim // self.heads) ** -0.5,
             )
-            if self.shifted:
-                x = torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
-            return x
+            return self._roll_back(x)
 
-        x = self.attention(x, self.attn_mask)
-        if self.shifted:
-            x = torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
+        x = self._roll_back(self.attention(x, self.attn_mask))
         x = shortcut + apply_layer_norm(x, self.norm1.weight, self.norm1.bias)
         return x + apply_layer_norm(self.linear(x), self.norm2.weight, self.norm2.bias)
+
+    def _train_fused(self, x: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+        """The training block as one call of K11 (backward K12)."""
+        _, x = self._enter(x)
+        cdt, attn, mlp = x.dtype, self.attention, self.linear
+        x = fused_block_train.fused_earth_block_train(
+            x,
+            attn.linear1.weight.to(cdt), attn.linear1.bias.to(cdt),
+            attn.linear2.weight.to(cdt), attn.linear2.bias.to(cdt),
+            attn.earth_specific_bias[0].float(), self.attn_mask,
+            self.norm1.weight.float(), self.norm1.bias.float(),
+            mlp.linear1.weight.to(cdt), mlp.linear1.bias.to(cdt),
+            mlp.linear2.weight.to(cdt), mlp.linear2.bias.to(cdt),
+            self.norm2.weight.float(), self.norm2.bias.float(),
+            s1.reshape(-1), s2.reshape(-1),
+            self.stage.window, self.heads, (self.dim // self.heads) ** -0.5,
+        )
+        return self._roll_back(x)
+
+    def _train_stages(self, kernels: bool, s1: torch.Tensor, s2: torch.Tensor) -> list:
+        """The training block as (function, name) stages, each a function of
+        the previous stage's tensors returning a tuple; the names "attention"
+        and "mlp" mark the stages whose outputs the remat flags keep.
+        ``kernels``: the bf16 kernel route (K2, K4, and K6 or K8)."""
+        attn, mlp, norm1, norm2 = self.attention, self.linear, self.norm1, self.norm2
+
+        def attention(x):
+            shortcut, x = self._enter(x)
+            return shortcut, attn(x, self.attn_mask)
+
+        def residual(shortcut, y):
+            y = self._roll_back(y)
+            if kernels:
+                return (fused_residual_postnorm(shortcut, y, norm1.weight, norm1.bias, s1),)
+            return (postnorm_residual(shortcut, y, norm1, s1),)
+
+        def weights():  # the kernel route's bf16 MLP weights
+            bf = torch.bfloat16
+            return (mlp.linear1.weight.to(bf), mlp.linear1.bias.to(bf),
+                    mlp.linear2.weight.to(bf), mlp.linear2.bias.to(bf))
+
+        stages = [(attention, "attention"), (residual, None)]
+        if kernels and fused_mlp._POSTNORM_FUSION:
+            def tail(x):
+                return (fused_mlp.fused_mlp_postnorm(x, *weights(), norm2.weight, norm2.bias,
+                                                     s2),)
+
+            return stages + [(tail, "mlp")]
+
+        def mlp_out(x):
+            return x, (fused_mlp.fused_mlp(x, *weights()) if kernels else mlp(x))
+
+        def finish(x, y):
+            return (postnorm_residual(x, y, norm2, s2),)
+
+        return stages + [(mlp_out, "mlp"), (finish, None)]
+
+
+def _chain(stages):
+    def run(*state):
+        for fn, _ in stages:
+            state = fn(*state)
+        return state
+    return run
+
+
+def run_stages(stages, x: torch.Tensor, kept: Optional[frozenset],
+               kernels: bool) -> torch.Tensor:
+    """Run a block's training ``stages`` on ``x``. ``kept`` None: plainly.
+    Otherwise each run of consecutive stages whose names are not in ``kept``
+    goes under one non-reentrant ``torch.utils.checkpoint`` (the backward
+    recomputes it), and each kept stage runs alone: outside any checkpoint
+    when it is a kernel (``kernels``: its autograd Function saves only its
+    inputs, so its backward does not run it again), else under a checkpoint
+    of its own, which keeps the stage's output and recomputes only its
+    inside."""
+    if kept is None:
+        return _chain(stages)(x)[0]
+    state, i = (x,), 0
+    while i < len(stages):
+        j = i + 1
+        if stages[i][1] in kept:
+            if kernels:
+                state = stages[i][0](*state)
+                i = j
+                continue
+        else:
+            while j < len(stages) and stages[j][1] not in kept:
+                j += 1
+        state = checkpoint(_chain(stages[i:j]), *state, use_reentrant=False)
+        i = j
+    return state[0]
 
 
 def drop_path_scale(batch: int, rate: float, generator: Optional[torch.Generator],
@@ -197,14 +280,19 @@ class EarthSpecificLayer(nn.Module):
     In training each block gets two fresh drop-path scales, drawn here,
     outside the checkpoint: a recompute under ``torch.utils.checkpoint`` does
     not replay an explicit generator, so scales drawn inside the block would
-    differ between the forward and its recompute. A block on the K11 route is
-    not checkpointed (see the module docstring)."""
+    differ between the forward and its recompute. With ``remat`` a block is
+    checkpointed but for the stage outputs that ``save_attention`` and
+    ``save_mlp`` keep (see the module docstring); a block on the K11 route
+    is not checkpointed."""
 
     def __init__(self, stage: StageGeometry, dim: int, heads: int,
                  drop_path_rates: Sequence[float], mlp_ratio: int = 4,
-                 use_kernel: bool = False, remat: bool = False, dropout_rate: float = 0.0):
+                 use_kernel: bool = False, remat: bool = False, dropout_rate: float = 0.0,
+                 save_attention: bool = False, save_mlp: bool = False):
         super().__init__()
-        self.stage, self.remat = stage, remat
+        self.stage = stage
+        self.kept = (frozenset(("attention",) * save_attention + ("mlp",) * save_mlp)
+                     if remat else None)
         self.drop_path_rates = tuple(drop_path_rates)
         depth = len(self.drop_path_rates)
         self.blocks = nn.ModuleDict({
@@ -225,10 +313,7 @@ class EarthSpecificLayer(nn.Module):
                 continue
             s1 = drop_path_scale(x.shape[0], rate, generator, x.device)
             s2 = drop_path_scale(x.shape[0], rate, generator, x.device)
-            if self.remat and not block.train_fused(x):
-                x = checkpoint(block, x, s1, s2, use_reentrant=False)
-            else:
-                x = block(x, s1, s2)
+            x = block(x, s1, s2, self.kept)
         return x[:, :, :st.h]
 
 

@@ -24,6 +24,30 @@ from pangu_tpu_torch.model.blocks import DownSample, EarthSpecificLayer, UpSampl
 from pangu_tpu_torch.model.embeddings import PatchEmbedding, PatchRecovery
 
 
+#: the widths the CUDA kernels take: tokens per window, head dim, channels, MLP ratio
+KERNEL_WINDOW_TOKENS, KERNEL_HEAD_DIM, KERNEL_DIMS, KERNEL_MLP_RATIO = 144, 32, (192, 384), 4
+
+
+def check_kernel_widths(cfg: ModelConfig) -> None:
+    """Raise ValueError when ``cfg`` routes bf16 blocks to the CUDA kernels
+    (``use_pallas_attention`` with bf16 compute) at widths they do not take:
+    they take 144-token windows, head dim 32, C in (192, 384) and an MLP
+    hidden of 4C. Called where the model meets the card, before any launch;
+    the CPU runs the kernels' plain versions at any width."""
+    if not (cfg.use_pallas_attention and cfg.compute_dtype == "bfloat16"):
+        return
+    tokens = int(np.prod(cfg.window))
+    head_dims = tuple(c // h for c, h in zip(cfg.dims, cfg.heads))
+    if (tokens != KERNEL_WINDOW_TOKENS or any(d != KERNEL_HEAD_DIM for d in head_dims)
+            or any(c not in KERNEL_DIMS for c in cfg.dims) or cfg.mlp_ratio != KERNEL_MLP_RATIO):
+        raise ValueError(
+            f"the CUDA kernels take {KERNEL_WINDOW_TOKENS}-token windows, head dim "
+            f"{KERNEL_HEAD_DIM}, C in {KERNEL_DIMS} and an MLP hidden of {KERNEL_MLP_RATIO}C; "
+            f"this model has window {tuple(cfg.window)} ({tokens} tokens), dims "
+            f"{tuple(cfg.dims)}, heads {tuple(cfg.heads)} (head dims {head_dims}) and MLP "
+            f"ratio {cfg.mlp_ratio}: pass use_pallas_attention=False to run it on the card")
+
+
 def drop_path_rates(cfg: ModelConfig) -> Tuple[Tuple[float, ...], ...]:
     """Linear stochastic-depth ramp over all blocks, per layer
     (pangu_tpu/model/pangu.py:39-49)."""
@@ -39,9 +63,11 @@ class PanguModel(nn.Module):
     """Parameters are f32; activations run in ``cfg.compute_dtype``. With
     ``cfg.use_pallas_attention`` and bf16 compute, eval blocks run the fused
     block kernel and training blocks the training kernels. In training,
-    blocks are checkpointed when ``cfg.remat`` and drop paths follow the
-    linear ramp up to ``cfg.drop_path_max``, drawn from the generator passed
-    to ``forward``."""
+    blocks are checkpointed when ``cfg.remat`` (but for the outputs that
+    ``cfg.remat_save_attention`` and ``cfg.remat_save_mlp`` keep) and drop
+    paths follow the linear ramp up to ``cfg.drop_path_max``, drawn from the
+    generator passed to ``forward``. On a CUDA input the model first checks
+    that the kernels take its widths (:func:`check_kernel_widths`)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -55,7 +81,8 @@ class PanguModel(nn.Module):
             f"EarthSpecificLayer{i}": EarthSpecificLayer(
                 stages[i], cfg.dims[i], cfg.heads[i], rates[i], mlp_ratio=cfg.mlp_ratio,
                 use_kernel=cfg.use_pallas_attention, remat=cfg.remat,
-                dropout_rate=cfg.dropout_rate)
+                dropout_rate=cfg.dropout_rate, save_attention=cfg.remat_save_attention,
+                save_mlp=cfg.remat_save_mlp)
             for i in range(4)
         })
         self.downsample = DownSample(cfg.dims[0], g.h_down_pad)
@@ -67,6 +94,8 @@ class PanguModel(nn.Module):
         """Physical (B, Vu, L, lat, lon) and (B, Vs, lat, lon) -> normalized
         next-state fields of the same shapes, f32. ``generator`` draws the
         drop paths in training (required when a rate is above 0)."""
+        if upper.is_cuda:
+            check_kernel_widths(self.cfg)
         layers = list(self.layers.values())
         x = self._input_layer(upper, surface, aux, self.compute_dtype)
         x = layers[0](x, generator)

@@ -160,12 +160,13 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_args(name: str, x, w1, bf16s, f32s, row_multiple: int = 96) -> None:
+def _check_kernel_args(name: str, x, w1, bf16s, f32s, row_multiple: int = 48) -> None:
     """Raise ValueError on what the CUDA kernels do not take: bf16 rows and
     weights with C in (192, 384), hidden 4C and a multiple of ``row_multiple``
-    rows (96 forward, 48 for the backwards K7 and K9, whose wgmma hidden pass
-    masks its last 64-row tile); f32 LayerNorm parameters and scales; all
-    contiguous and 16-byte aligned."""
+    rows (48 for K6, K7, K9 and K10, whose wgmma kernels mask their last
+    64-row tile; 96 for the raw forward K8, whose wmma kernel takes 48-row
+    tiles); f32 LayerNorm parameters and scales; all contiguous and 16-byte
+    aligned."""
     rows, c = x.shape
     if any(t.dtype != torch.bfloat16 for t in bf16s):
         raise ValueError(f"the CUDA kernel takes bfloat16 rows and weights, got {x.dtype}")
@@ -199,7 +200,7 @@ def _fwd_launch(x, w1, b1, w2, b2, ln_scale, ln_bias, s) -> torch.Tensor:
 def _bwd_launch(x, g, w1, b1, w2, b2, ln_scale, ln_bias, s):
     global BWD_LAUNCHES
     tensors = (x, g, w1, b1, w2, b2, ln_scale, ln_bias, s)
-    _check_kernel_args("fused_mlp_postnorm_bwd", x, w1, tensors[:6], tensors[6:], 48)
+    _check_kernel_args("fused_mlp_postnorm_bwd", x, w1, tensors[:6], tensors[6:])
     lib = _library()
     rows, c = x.shape
     dev = x.device
@@ -301,7 +302,7 @@ def fused_mlp_postnorm(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: 
 def _raw_fwd_launch(x, w1, b1, w2, b2) -> torch.Tensor:
     global RAW_FWD_LAUNCHES
     tensors = (x, w1, b1, w2, b2)
-    _check_kernel_args("fused_mlp", x, w1, tensors, ())
+    _check_kernel_args("fused_mlp", x, w1, tensors, (), 96)
     lib = _library()
     rows, c = x.shape
     out = torch.empty_like(x)
@@ -317,7 +318,7 @@ def _raw_fwd_launch(x, w1, b1, w2, b2) -> torch.Tensor:
 def _raw_bwd_launch(x, g, w1, b1, w2, b2):
     global RAW_BWD_LAUNCHES
     tensors = (x, g, w1, b1, w2)
-    _check_kernel_args("fused_mlp_bwd", x, w1, tensors + (b2,), (), 48)
+    _check_kernel_args("fused_mlp_bwd", x, w1, tensors + (b2,), ())
     lib = _library()
     rows, c = x.shape
     dev = x.device

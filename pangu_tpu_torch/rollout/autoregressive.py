@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from pangu_tpu_torch.aux import AuxConstants, norm_back_data
+from pangu_tpu_torch.model.pangu import check_kernel_widths
 
 Fields = Tuple[torch.Tensor, torch.Tensor]
 
@@ -21,7 +22,10 @@ Fields = Tuple[torch.Tensor, torch.Tensor]
 def make_forecast_step(model: nn.Module, aux: AuxConstants) -> Callable[[torch.Tensor, torch.Tensor], Fields]:
     """``step(upper, surface) -> (upper', surface')``, physical units,
     under ``torch.inference_mode`` with the model in eval mode (the JAX
-    package's ``deterministic=True``)."""
+    package's ``deterministic=True``). On the card it first checks that the
+    kernels take the model's widths (``check_kernel_widths``)."""
+    if next(model.parameters()).is_cuda:
+        check_kernel_widths(model.cfg)
 
     @torch.inference_mode()
     def step(upper: torch.Tensor, surface: torch.Tensor) -> Fields:

@@ -12,14 +12,16 @@ Variants (default: base fused_block unfused_tail):
   call of the training block kernel K11 (backward K12);
 * ``unfused_block``: the switch explicitly off, the same route as ``base``;
 * ``unfused_tail``: ``fused_mlp._POSTNORM_FUSION = False``, the MLP tail as
-  the raw MLP K8 (backward K9) followed by the plain post-norm residual.
+  the raw MLP K8 (backward K9) followed by the plain post-norm residual;
+* ``save_attn``, ``save_attn_mlp``: the remat policy's flags set as the JAX
+  script sets them, ``remat_save_attention`` (and ``remat_save_mlp``) True;
+  the config's defaults already keep both outputs, as ``base`` does.
 
 The JAX script's ``xla_mlp``, ``xla_epilogue`` and ``xla_tails`` time the XLA
 formula in place of a kernel; on the card the port runs its kernels or
-raises, and a plain version is no yardstick, so they are refused. The
-remat-policy variants ``save_attn`` and ``save_attn_mlp`` and ``bf16_grads``
-wait for the features they switch (ROADMAP.md, queue 1 item 4). Both kinds
-raise ValueError before anything runs.
+raises, and a plain version is no yardstick, so they are refused.
+``bf16_grads`` waits for the feature it switches (ROADMAP.md, queue 1 item
+11). Both kinds raise ValueError before anything runs.
 
 Each variant runs in turn with every patched flag saved and restored in a
 ``finally``; the step time is the median of the timed steps after the
@@ -45,7 +47,8 @@ from pangu_tpu_torch.model import PanguModel
 from pangu_tpu_torch.ops import fused_block_attention, fused_block_train, fused_epilogue, fused_mlp
 from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
 
-VARIANTS = ("base", "noremat", "fused_block", "unfused_block", "unfused_tail")
+VARIANTS = ("base", "noremat", "fused_block", "unfused_block", "unfused_tail", "save_attn",
+            "save_attn_mlp")
 #: variants of the JAX script that the port does not run, with the reason
 REFUSED = {
     "xla_mlp": "times the XLA formula of the MLP; on the card the port runs its kernels or "
@@ -54,11 +57,7 @@ REFUSED = {
                     "its kernels or raises, and the plain version is no yardstick",
     "xla_tails": "times the XLA formulas of both epilogues; on the card the port runs its "
                  "kernels or raises, and the plain version is no yardstick",
-    "save_attn": "the remat policy that saves the attention output is not ported yet "
-                 "(ROADMAP.md queue 1 item 4)",
-    "save_attn_mlp": "the remat policy that saves the attention and MLP outputs is not ported "
-                     "yet (ROADMAP.md queue 1 item 4)",
-    "bf16_grads": "grads_dtype='bfloat16' is not ported yet (ROADMAP.md queue 1 item 4)",
+    "bf16_grads": "grads_dtype='bfloat16' is not ported yet (ROADMAP.md queue 1 item 11)",
 }
 DEFAULT = ("base", "fused_block", "unfused_tail")
 
@@ -93,8 +92,13 @@ def variant_flags(name: str) -> Iterator[None]:
 def variant_config(name: str) -> PanguConfig:
     """The flagship bf16 kernel-route config of variant ``name``."""
     check_variant(name)
+    kw = {}
+    if name in ("save_attn", "save_attn_mlp"):
+        kw["remat_save_attention"] = True
+    if name == "save_attn_mlp":
+        kw["remat_save_mlp"] = True
     return pangu_pretrain(24, compute_dtype="bfloat16", matmul_precision="default",
-                          use_pallas_attention=True, remat=name != "noremat")
+                          use_pallas_attention=True, remat=name != "noremat", **kw)
 
 
 def timed_steps(step: Callable[[], torch.Tensor], warmup: int, steps: int,

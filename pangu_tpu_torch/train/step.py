@@ -20,6 +20,7 @@ from torch import nn
 
 from pangu_tpu_torch.config import PanguConfig
 from pangu_tpu_torch.aux import AuxConstants, norm_data
+from pangu_tpu_torch.model.pangu import check_kernel_widths
 from pangu_tpu_torch.train.loss import weighted_l1_loss
 from pangu_tpu_torch.train.schedule import multistep_lr
 
@@ -71,7 +72,11 @@ def make_train_step(model: nn.Module, cfg: PanguConfig, optimizer: torch.optim.O
 
     If ``cfg.train.accumulation_steps > 1`` the batch carries a leading
     microbatch axis of that length; loss and gradients are averaged over it.
+    On the card it first checks that the kernels take the model's widths
+    (``check_kernel_widths``).
     """
+    if next(model.parameters()).is_cuda:
+        check_kernel_widths(cfg.model)
     if cfg.model.grads_dtype != "float32":
         raise NotImplementedError(f"grads_dtype={cfg.model.grads_dtype!r} is not ported")
     accum = cfg.train.accumulation_steps

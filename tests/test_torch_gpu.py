@@ -1,12 +1,15 @@
 """The port's CUDA kernels on the card (marker ``gpu``; skips without one):
-the inference block K1, the training attention K2/K3 (K3 also for its
-determinism and its sums over a batch), the post-norm residual K4/K5, the
-MLP tail K6/K7 (K7 also for its determinism and a partial 64-row tile), the
+the inference block K1 (also for its determinism at both stages, shifted and
+unshifted, at batch 2 and with a partial 64-row tile), the training attention
+K2/K3 (K3 also for its determinism and its sums over a batch), the post-norm
+residual K4/K5, the MLP tail K6/K7 (both, and K10, also for their determinism
+and a partial 64-row tile), the
 raw MLP K8/K9, the training block K11/K12, the inference MLP tail K10, K2's
 LN-epilogue mode (and the two-kernel block they make, against K1) and the
 A/B kernels of the three scripts S1-S3
 against their plain versions, the forecast step and flagship train steps on
-the default route and the two A/B routes through the kernels.
+the default route and the two A/B routes through the kernels, and the width
+check of the entry points on a model the kernels do not take.
 
 Imports torch and numpy only, so it runs where jax is absent; the repo's
 conftest imports jax, so on such a machine run it as
@@ -80,6 +83,22 @@ def test_cuda_kernel_matches_plain_version(cuda_device, b, c, heads, masked):
     ref = tfba.fused_earth_block_reference(*args, *statics)
     scale = max(1.0, ref.float().abs().max().item())
     assert ((got.float() - ref.float()).abs().max() / scale).item() < 0.04
+
+
+@pytest.mark.parametrize("c,heads,masked", [(192, 6, False), (192, 6, True), (384, 12, False),
+                                          (384, 12, True)])
+def test_cuda_block_is_deterministic_at_batch_two_with_a_partial_tile(cuda_device, c, heads,
+                                                                     masked):
+    """K1 (its token tail on the wgmma row engine) at both stage widths,
+    shifted and unshifted, at batch 2 on a 2 x 6 x 60 grid: 1440 rows end in
+    a partial 64-row tile. Against its plain version, and the same bits on a
+    second call."""
+    args, statics = _inputs(41, cuda_device, 2, 2, 6, 60, c, heads, masked)
+    first = tfba.fused_earth_block(*args, *statics)
+    second = tfba.fused_earth_block(*args, *statics)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _bounded(first, tfba.fused_earth_block_reference(*args, *statics))
 
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
@@ -206,6 +225,38 @@ def test_cuda_mlp_postnorm_bwd_is_deterministic_with_a_partial_tile(cuda_device,
         assert got.dtype == r.dtype and _bounded(got, r, tol=0.05), name
 
 
+@pytest.mark.parametrize("c,rows", [(192, 4608), (384, 4608), (192, 720), (384, 720)])
+def test_cuda_mlp_postnorm_fwd_is_deterministic_with_a_partial_tile(cuda_device, c, rows):
+    """K6 (the wgmma row engine) and K10 (the same kernel without a scale) on
+    rows against their plain versions, and the same bits on a second call;
+    720 = 144 x 5 rows end in a partial 64-row tile (16 rows), read as zeros
+    and not stored. K10 equals K6 at s = 1 bit for bit."""
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+
+    gen = torch.Generator(cuda_device).manual_seed(18)
+
+    def rn(*shape, dtype=torch.bfloat16, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(shape, generator=gen, device=cuda_device)).to(dtype)
+
+    f32 = torch.float32
+    args = (rn(rows, c), rn(4 * c, c, std=c ** -0.5), rn(4 * c, std=0.02),
+            rn(c, 4 * c, std=(4 * c) ** -0.5), rn(c, std=0.02),
+            rn(c, dtype=f32, mean=1.0, std=0.1), rn(c, dtype=f32, std=0.1))
+    s = 0.5 + torch.rand(rows, generator=gen, device=cuda_device)
+    before = (tfm.FWD_LAUNCHES, tfm.BLOCK_LAUNCHES)
+    with torch.no_grad():
+        first = tfm.fused_mlp_postnorm(*args, s[:, None])
+        second = tfm.fused_mlp_postnorm(*args, s[:, None])
+        block = tfm.fused_mlp_block(*args)
+        block2 = tfm.fused_mlp_block(*args)
+        unit = tfm.fused_mlp_postnorm(*args, torch.ones(rows, 1, device=cuda_device))
+    torch.cuda.synchronize()
+    assert (tfm.FWD_LAUNCHES, tfm.BLOCK_LAUNCHES) == (before[0] + 3, before[1] + 2)
+    assert torch.equal(first, second) and torch.equal(block, block2) and torch.equal(block, unit)
+    assert _bounded(first, tfm.fused_mlp_postnorm_reference(*args, s))
+    assert _bounded(block, tfm.fused_mlp_block_reference(*args))
+
+
 @pytest.mark.parametrize("c", [192, 384])
 def test_cuda_residual_postnorm_fwd_and_bwd_match_plain_versions(cuda_device, c):
     """K4 and K5 through autograd against their plain versions, with a
@@ -301,7 +352,7 @@ def test_cuda_training_wrappers_reject_what_the_kernels_do_not_take(cuda_device)
     b1, b2 = torch.zeros(768, device=cuda_device), torch.zeros(192, device=cuda_device)
     bf = torch.bfloat16
     before = (tfm.FWD_LAUNCHES, tfm.BWD_LAUNCHES)
-    for rows, dtype in ((96, torch.float32), (64, bf)):  # f32 rows; 64 rows, not a multiple of 96
+    for rows, dtype in ((96, torch.float32), (64, bf)):  # f32 rows; 64 rows, not a multiple of 48
         xr = torch.zeros(rows, 192, device=cuda_device, dtype=dtype)
         with pytest.raises(ValueError):
             tfm.fused_mlp_postnorm(xr, w1.to(dtype), b1.to(dtype), w2.to(dtype), b2.to(dtype),
@@ -310,8 +361,9 @@ def test_cuda_training_wrappers_reject_what_the_kernels_do_not_take(cuda_device)
 
 
 def test_flagship_train_step_launches_the_training_kernels(cuda_device):
-    """One flagship train step (remat on): K2, K4 and K6 run 32 times (the
-    checkpoint recompute runs them again), K3, K5 and K7 16 times; loss and
+    """One flagship train step (remat on, the config's flags keep the
+    attention and MLP outputs): K2 and K6 run 16 times, K4 32 times (the
+    checkpoint recompute runs it again), K3, K5 and K7 16 times; loss and
     gradients finite."""
     from pangu_tpu_torch import pangu_pretrain
     from pangu_tpu_torch.ops import fused_epilogue as tfep
@@ -340,9 +392,46 @@ def test_flagship_train_step_launches_the_training_kernels(cuda_device):
     before = counts()
     loss = step(batch, aux, torch.Generator(cuda_device).manual_seed(4))
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(counts(), before)) == (32, 16, 32, 16, 32, 16)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (16, 16, 32, 16, 16, 16)
     assert bool(torch.isfinite(loss))
     assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+def test_cuda_entry_points_check_the_widths_before_any_launch(cuda_device):
+    """``pangu_tiny`` on the kernel route (C 16/32, head dim 8) raises
+    ValueError at the CUDA entry points -- the forecast step, the train step
+    and the model's forward -- before any kernel launches."""
+    from pangu_tpu_torch.ops import fused_epilogue as tfep
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+    from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
+
+    cfg = pangu_tiny(compute_dtype="bfloat16", use_pallas_attention=True)
+    m = cfg.model
+    model = PanguModel(m).to(cuda_device)
+    aux = synthetic_aux_constants(m, cfg.train, device=cuda_device)
+    upper = torch.zeros((1, m.upper_vars, m.levels, m.lat, m.lon), device=cuda_device)
+    surface = torch.zeros((1, m.surface_vars, m.lat, m.lon), device=cuda_device)
+
+    def counts():
+        return (tfba.LAUNCHES, tfba.ATTN_FWD_LAUNCHES, tfep.FWD_LAUNCHES, tfm.FWD_LAUNCHES)
+
+    before = counts()
+    with pytest.raises(ValueError, match="use_pallas_attention=False"):
+        make_forecast_step(model, aux)
+    with pytest.raises(ValueError, match="head dims"):
+        make_train_step(model, cfg, make_optimizer(model, cfg))
+    for mode in (model.eval, model.train):
+        mode()
+        with pytest.raises(ValueError, match="dims"):
+            model(upper, surface, aux, torch.Generator(cuda_device).manual_seed(0))
+    assert counts() == before
+    plain = PanguModel(dataclasses.replace(m, use_pallas_attention=False)).to(cuda_device)
+    ou, _ = make_forecast_step(plain, aux)(upper, surface)
+    assert bool(torch.isfinite(ou).all()) and counts() == before
+    step = make_train_step(plain, dataclasses.replace(cfg, model=plain.cfg),
+                           make_optimizer(plain, cfg))
+    assert bool(torch.isfinite(step(Batch(upper, surface, upper, surface), aux,
+                                    torch.Generator(cuda_device).manual_seed(1))))
 
 
 @pytest.mark.parametrize("c", [192, 384])
@@ -434,13 +523,13 @@ def test_cuda_ab_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 @pytest.mark.parametrize("variant,want", [
     ("fused_block", {"fused_earth_block_train": 16, "fused_earth_block_train_bwd": 16}),
-    ("unfused_tail", {"fused_block_attention": 32, "fused_block_attention_bwd": 16,
+    ("unfused_tail", {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
                       "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
-                      "fused_mlp": 32, "fused_mlp_bwd": 16})])
+                      "fused_mlp": 16, "fused_mlp_bwd": 16})])
 def test_flagship_ab_route_steps_launch_their_kernels(cuda_device, variant, want):
-    """One flagship train step (remat on) per A/B route through the A/B
-    script: exactly the route's launches (K11 is not checkpointed), finite
-    step time and peak memory."""
+    """One flagship train step (remat on, attention and MLP outputs kept) per
+    A/B route through the A/B script: exactly the route's launches (K11 is
+    not checkpointed), finite step time and peak memory."""
     from pangu_tpu_torch.scripts import bench_train_ab
 
     res = bench_train_ab.run_variant(variant, warmup=0, steps=1, device=cuda_device)
@@ -546,10 +635,10 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     lines = proc.stdout.strip().splitlines()
     kernels = {k["name"]: k for k in json.loads(lines[-2])["kernels"]}
     assert {n: k["launches"] for n, k in kernels.items()} == {
-        "fused_earth_block": 48, "fused_block_attention": 96, "fused_block_attention_bwd": 48,
+        "fused_earth_block": 48, "fused_block_attention": 48, "fused_block_attention_bwd": 48,
         "fused_residual_postnorm": 96, "fused_residual_postnorm_bwd": 48,
-        "fused_mlp_postnorm": 96, "fused_mlp_postnorm_bwd": 48,
-        "fused_mlp": 96, "fused_mlp_bwd": 48,
+        "fused_mlp_postnorm": 48, "fused_mlp_postnorm_bwd": 48,
+        "fused_mlp": 48, "fused_mlp_bwd": 48,
         "fused_earth_block_train": 48, "fused_earth_block_train_bwd": 48,
         "fused_mlp_block": 16, "fused_block_attention_ln": 16,
         "bench_mxu_micro:loop": 12, "bench_mxu_micro:blockdiag": 12,

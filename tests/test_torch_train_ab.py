@@ -237,11 +237,24 @@ def test_ab_script_refuses_what_the_port_does_not_run(name):
         bench_train_ab.variant_config(name)
 
 
+@pytest.mark.parametrize("name,flags", [("save_attn", (True, True)),
+                                        ("save_attn_mlp", (True, True))])
+def test_ab_script_remat_variants_set_the_flags_as_the_jax_script(name, flags):
+    """The JAX script sets remat_save_attention (and remat_save_mlp) True on
+    pangu_pretrain's defaults (scripts/bench_train_ab.py:57-61), which keep
+    both already; the port's variants do the same, remat on."""
+    cfg = bench_train_ab.variant_config(name).model
+    assert (cfg.remat_save_attention, cfg.remat_save_mlp) == flags
+    assert (cfg.remat, cfg.compute_dtype, cfg.use_pallas_attention) == (True, "bfloat16", True)
+    assert name in bench_train_ab.VARIANTS and name not in bench_train_ab.REFUSED
+
+
 def test_ab_script_sets_and_restores_every_flag():
     flags = lambda: (tfbt._TRAIN_FUSION, tfm._POSTNORM_FUSION)  # noqa: E731
     assert flags() == (False, True)  # the JAX package's defaults
     want = {"base": (False, True), "noremat": (False, True), "fused_block": (True, True),
-            "unfused_block": (False, True), "unfused_tail": (False, False)}
+            "unfused_block": (False, True), "unfused_tail": (False, False),
+            "save_attn": (False, True), "save_attn_mlp": (False, True)}
     for name in bench_train_ab.VARIANTS:
         with bench_train_ab.variant_flags(name):
             assert flags() == want[name], name
