@@ -21,12 +21,15 @@ Phases (any failure exits non-zero before the last line is printed):
    0.1, RMS(d) < 0.01 in normalized units), median step times and peak
    memory; then, on a line of its own, one forecast step under
    torch.profiler (``profile_train_step.profile_forecast``): device busy
-   time, idle share, time by kernel and K1 split into its window-attention
-   and token-tail kernels;
-5. the training attention K2 and its flash backward K3 against their plain
-   versions at both stage shapes, unshifted and shifted: the forward output
-   and all six gradients under the bounds of phase 3, K3 the same bits on two
-   runs; per-call times;
+   time, idle share, time by kernel and K1 split into its two kernels, the
+   window attention ``window_attention_kernel`` (mma.sync, scores and
+   probabilities in registers) and the token tail ``mlp_tail_kernel``
+   (wgmma/TMA);
+5. the training attention K2 (the same window-attention kernel, then its
+   out-projection on the wgmma product ``wg_gemm_kernel``) and its flash
+   backward K3 against their plain versions at both stage shapes, unshifted
+   and shifted: the forward output and all six gradients under the bounds of
+   phase 3, K2 and K3 the same bits on two runs; per-call times;
 6. the post-norm residual K4 and its backward K5 against their plain
    versions at both stage row counts with a branch scale, same bounds;
 7. the MLP tail K6 and its backward K7 against their plain versions at both
@@ -464,11 +467,12 @@ def check_attention(g, dev) -> dict:
             with torch.no_grad():
                 got = fba.fused_block_attention(*fargs)
                 torch.cuda.synchronize()
+                same2 = same_bits(f"K2 {label}", (got,), (fba.fused_block_attention(*fargs),))
                 err = check_outputs(f"K2 {label}", {"y": compare(
                     got, fba.fused_block_attention_reference(*fargs[:7], *fargs[9:]))})
                 del got
                 geo = (x.numel() // c, c, heads, stage.n_type_windows, shifted)
-                fwd.append(dict(stage=name, shifted=shifted, max_abs_err=err,
+                fwd.append(dict(stage=name, shifted=shifted, max_abs_err=err, same_bits=same2,
                                 **bound("fused_block_attention", *geo),
                                 ms=cuda_times_ms(lambda: fba.fused_block_attention(*fargs)),
                                 plain_ms=cuda_times_ms(lambda: fba.fused_block_attention_reference(

@@ -440,40 +440,6 @@ static_assert((K3_XS * 2) % 32 == 0 && (3 * D * K3_WT_LD * 2) % 32 == 0 &&
                   (K3_STAGE_ELEMS * 2) % 32 == 0 && K3_PS % 32 == 0,
               "wmma needs 256-bit aligned tiles");
 
-// four 8x8 bf16 matrices from shared memory, lane i giving the address of row
-// i % 8 of matrix i / 8; .trans hands each lane the transposed elements
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// Row-major storage X (ld elements a row), the 16 x 16 block at (r0, c0):
-// the A fragment of X (ldsm_x4), the A fragment of X^T (ldsm_x4_t at block
-// (k0, m0) = (r0, c0)); the B fragments of two n8 tiles when X is stored n x k
-// (bfrag_nk: rows n0.., cols k0..) or k x n (bfrag_kn: rows k0.., cols n0..,
-// ldsm_x4_t): regs 0, 1 for n0.., 2, 3 for n0 + 8...
-__device__ __forceinline__ const bf16* afrag_at(const bf16* X, int ld, int r0, int c0, int lane) {
-  return X + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + c0 + 8 * (lane >> 4);
-}
-__device__ __forceinline__ const bf16* atfrag_at(const bf16* X, int ld, int k0, int m0, int lane) {
-  return X + (k0 + (lane & 7) + 8 * (lane >> 4)) * ld + m0 + 8 * ((lane >> 3) & 1);
-}
-__device__ __forceinline__ const bf16* bfrag_nk(const bf16* X, int ld, int n0, int k0, int lane) {
-  return X + (n0 + (lane & 7) + 8 * (lane >> 4)) * ld + k0 + 8 * ((lane >> 3) & 1);
-}
-__device__ __forceinline__ const bf16* bfrag_kn(const bf16* X, int ld, int k0, int n0, int lane) {
-  return X + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0 + 8 * (lane >> 4);
-}
-
 // K3's attention backward for CTA (type, head): per window, the head's q|k|v
 // and dO = g @ Wproj[:, head] recomputed with wmma (K3_KC channels a stage),
 // then warp w's 16 query rows in registers: S = q k^T, p = softmax(S scale +

@@ -30,7 +30,8 @@
 // f32); pass 2 recomputes the scores and forms p = exp(s - m) / sum, rounded to
 // bf16 before the p v product -- the Pallas rounding point of p, at twice the
 // score products. The attention output goes to a (rows, C) bf16 buffer and
-// the projection is gemm.cuh's, as in K2.
+// the projection is K2's (gemm.cuh's wgmma product with its bias), so the
+// variants differ from `shipped` in the attention schedule only.
 //
 // What bounds it on an H100: the products, 8 rows C^2 + 4 rows TN C FLOP (the
 // score work grows with NW), against x in and out and the bias table (0.99 GB

@@ -6,7 +6,9 @@
 // _backward_pallas (K3, _make_bwd_kernel). On the (rolled, window-padded)
 // token grid x (B, Z, Hp, W, C):
 //
-//   forward   y = bf16(attn(x) @ Wproj^T + bproj), attn as in K1 (window_attention.cuh)
+//   forward   y = bf16(attn(x) @ Wproj^T + bproj), attn as in K1 (window_attention.cuh),
+//             the projection on gemm.cuh's wgmma product (Wproj read K-major as
+//             it lies, the bias added to the f32 sums before the one rounding)
 //   LN mode   y = bf16(x + LN1(attn(x) @ Wproj^T + bproj)), projection, LayerNorm
 //             and residual in f32 (with_epilogue=True; K1's token tail without the
 //             MLP, mlp_wg.cuh)
@@ -87,14 +89,10 @@ int pangu_block_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const Geom g{B, Z, Hp, W, C, heads, wz, wh, ww};
   const long long windows = (long long)B * (Z / wz) * (Hp / wh) * (W / ww);
-  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  window_attention_kernel<<<(unsigned)(windows * heads), ATT_THREADS, ATT_SMEM, s>>>(
+  cudaError_t err = launch_window_attention(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<bf16*>(attn_buf), g, scale);
-  err = cudaGetLastError();
+      static_cast<const float*>(mask), static_cast<bf16*>(attn_buf), g, scale, s);
   if (err != cudaSuccess) return (int)err;
   return (int)gemm<true, false>(static_cast<const bf16*>(attn_buf), C,
                                 static_cast<const bf16*>(wproj), C, (int)(windows * T), C, C, 1,
@@ -114,14 +112,11 @@ int pangu_block_attention_ln_fwd(const void* x, const void* wqkv, const void* bq
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const Geom g{B, Z, Hp, W, C, heads, wz, wh, ww};
   const long long windows = (long long)B * (Z / wz) * (Hp / wh) * (W / ww);
-  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  window_attention_kernel<<<(unsigned)(windows * heads), ATT_THREADS, ATT_SMEM, s>>>(
+  cudaError_t err = launch_window_attention(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<bf16*>(attn_buf), g, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      static_cast<const float*>(mask), static_cast<bf16*>(attn_buf), g, scale, s);
+  if (err != cudaSuccess) return (int)err;
   const long long rows = windows * T;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* ab = static_cast<const bf16*>(attn_buf);

@@ -1,7 +1,7 @@
 // Device helpers shared by the port's CUDA sources (sm_90a): the window
 // geometry, the GELU, warp reductions, cp.async staging with a two-stage ring, the
-// mma.sync product and the wmma fragment types, and the reduction of per-CTA
-// f32 partials.
+// mma.sync product with its ldmatrix fragment loads, the wmma fragment types,
+// and the reduction of per-CTA f32 partials.
 
 #pragma once
 
@@ -119,6 +119,40 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices from shared memory, lane i giving the address of row
+// i % 8 of matrix i / 8; .trans hands each lane the transposed elements
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// Row-major storage X (ld elements a row), the 16 x 16 block at (r0, c0):
+// the A fragment of X (ldsm_x4), the A fragment of X^T (ldsm_x4_t at block
+// (k0, m0) = (r0, c0)); the B fragments of two n8 tiles when X is stored n x k
+// (bfrag_nk: rows n0.., cols k0..) or k x n (bfrag_kn: rows k0.., cols n0..,
+// ldsm_x4_t): regs 0, 1 for n0.., 2, 3 for n0 + 8...
+__device__ __forceinline__ const bf16* afrag_at(const bf16* X, int ld, int r0, int c0, int lane) {
+  return X + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + c0 + 8 * (lane >> 4);
+}
+__device__ __forceinline__ const bf16* atfrag_at(const bf16* X, int ld, int k0, int m0, int lane) {
+  return X + (k0 + (lane & 7) + 8 * (lane >> 4)) * ld + m0 + 8 * ((lane >> 3) & 1);
+}
+__device__ __forceinline__ const bf16* bfrag_nk(const bf16* X, int ld, int n0, int k0, int lane) {
+  return X + (n0 + (lane & 7) + 8 * (lane >> 4)) * ld + k0 + 8 * ((lane >> 3) & 1);
+}
+__device__ __forceinline__ const bf16* bfrag_kn(const bf16* X, int ld, int k0, int n0, int lane) {
+  return X + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0 + 8 * (lane >> 4);
 }
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;

@@ -452,17 +452,13 @@ cudaError_t launch_bwd(const BwdArgs& p, const Geom& g, float scale, cudaStream_
   const long long rows = (long long)g.B * g.Z * g.Hp * g.W;
   const long long rps = rows / g.B;
   const int n_types = (g.Z / g.wz) * (g.Hp / g.wh);
-  const long long windows = (long long)g.B * n_types * (g.W / g.ww);
   const int grid = tail_grid<C>(rows);
   if (grid < 1) return cudaErrorInvalidValue;
 
   // 1. the attention output, recomputed
-  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
+  cudaError_t err =
+      launch_window_attention(p.x, p.wqkv, p.bqkv, p.bias, p.mask, p.acc, g, scale, s);
   if (err != cudaSuccess) return err;
-  window_attention_kernel<<<(unsigned)(windows * g.heads), ATT_THREADS, ATT_SMEM, s>>>(
-      p.x, p.wqkv, p.bqkv, p.bias, p.mask, p.acc, g, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // 2. the token tail backward, then its partials summed in order
   float* col_part = p.part;
@@ -505,8 +501,8 @@ cudaError_t launch_bwd(const BwdArgs& p, const Geom& g, float scale, cudaStream_
     return err;
 
   // 4. dx = bf16(dqkv Wqkv + dh W1 + g); dWqkv = dqkv^T x; dW2 (C, 4C) = dy2^T GELU(h)
-  if ((err = gemm_sum<true>(p.dqkv, 3 * C, p.wqkv, C, 3 * C, p.dh, 4 * C, p.w1, C, 4 * C,
-                                  (int)rows, C, p.gy, p.dx, s)) != cudaSuccess)
+  if ((err = gemm_sum(p.dqkv, 3 * C, p.wqkv, C, 3 * C, p.dh, 4 * C, p.w1, C, 4 * C, (int)rows,
+                      C, p.gy, p.dx, s)) != cudaSuccess)
     return err;
   if ((err = gemm<false, true>(p.dqkv, 3 * C, p.x, C, 3 * C, C, rows,
                                weight_grad_splits(3 * C, C, rows), nullptr, p.dwqkv, p.part, s)) !=
@@ -536,14 +532,11 @@ int pangu_block_train_fwd(const void* x, const void* wqkv, const void* bqkv, con
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const long long windows = (long long)B * (Z / wz) * (Hp / wh) * (W / ww);
   const long long rows = windows * T;
-  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  window_attention_kernel<<<(unsigned)(windows * heads), ATT_THREADS, ATT_SMEM, s>>>(
+  cudaError_t err = launch_window_attention(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<bf16*>(attn_buf), g, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      static_cast<const float*>(mask), static_cast<bf16*>(attn_buf), g, scale, s);
+  if (err != cudaSuccess) return (int)err;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* ab = static_cast<const bf16*>(attn_buf);
   const bf16* wp = static_cast<const bf16*>(wproj);

@@ -28,18 +28,18 @@
 // the outer stage); a CTA has at most 227 KB of shared memory, so the block is
 // two kernels instead:
 //
-//  * window_attention_kernel (window_attention.cuh, shared with the training
-//    attention of block_attention.cu): one CTA per (batch, window, head), 9 warps, one
-//    16-row query tile per warp. It gathers the window's 144 tokens straight
-//    from the grid by index (no partition transpose), forms that head's q, k, v
-//    (144 x 32 each) with bf16 tensor-core MMAs (nvcuda::wmma, f32 accumulate),
-//    then each warp computes its 16 x 144 score tile, the f32 softmax (written
-//    back over the scores as bf16 probabilities) and P @ v, and stores the
-//    head's 32 columns of a bf16 (B, Z, Hp, W, C) attention-output buffer.
+//  * window_attention_kernel (window_attention.cuh, where its design is
+//    described; shared with K2, K2's LN mode, K11 and K12): one CTA per
+//    (batch, window, head), 9 warps. It gathers the window's 144 tokens
+//    straight from the grid by index (no partition transpose), forms that
+//    head's q, k, v (144 x 32 each) on mma.sync from a three-stage cp.async
+//    ring, then each warp keeps its 16 query rows' scores, f32 softmax and
+//    bf16 probabilities in registers and forms P @ v, and stores the head's
+//    32 columns of a bf16 (B, Z, Hp, W, C) attention-output buffer.
 //    Consecutive CTAs are the heads of one window and then the lon windows of
 //    one type, so a window's x rows and a (type, head) bias tile are reused
 //    from L2 (the bias tile by the 30 or 15 lon windows of its type).
-//    112,896 B of shared memory: two CTAs per SM.
+//    103,680 B of shared memory: two CTAs per SM.
 //  * mlp_tail_kernel<C, true, true, false> (mlp_wg.cuh, the token tail, shared
 //    with the training block K11, K2's LN mode and the MLP tail K6): a
 //    persistent CTA per SM walks 64-row tiles of the flattened grid. A
@@ -54,10 +54,10 @@
 //    exists whole; then LN2 and the final residual in f32. The LayerNorm row
 //    statistics add both warpgroups' halves in a fixed order.
 //
-// The attention kernel's products are wmma 16x16x16 bf16 fragments (f32
-// accumulate) from tiles staged by cp.async through a two-stage ring; the
-// tail's are wgmma from TMA tiles; the weights are shared by every CTA and
-// come from L2.
+// The attention kernel's products are mma.sync m16n8k16 (bf16, f32
+// accumulate) from ldmatrix fragments of tiles staged by cp.async; the tail's
+// are wgmma from TMA tiles; the weights are shared by every CTA and come from
+// L2.
 
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // pangu_tpu_torch/ops/fused_block_attention.py; the plain PyTorch version of the
@@ -85,18 +85,10 @@ int pangu_fused_earth_block(const void* x, const void* wqkv, const void* bqkv,
   const Geom g{B, Z, Hp, W, C, heads, wz, wh, ww};
   const long long windows = (long long)B * (Z / wz) * (Hp / wh) * (W / ww);
 
-  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(window_attention_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  window_attention_kernel<<<(unsigned)(windows * heads), ATT_THREADS, ATT_SMEM, s>>>(
+  cudaError_t err = launch_window_attention(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<bf16*>(attn_buf), g, scale);
-  err = cudaGetLastError();
+      static_cast<const float*>(mask), static_cast<bf16*>(attn_buf), g, scale, s);
   if (err != cudaSuccess) return (int)err;
 
   const long long rows = windows * T;

@@ -2,14 +2,15 @@
 // sums: the weight grads over every token row (dW = A^T B, gemm<false, true>:
 // K7's dW1 = dh^T x and dW2 = dy^T a, K9's, K3's dWqkv = dqkv^T x and dWproj =
 // g^T acc, K12's), K3's dx = dqkv @ Wqkv (gemm<true, true>), the out-projection
-// of the forward K2 (gemm<true, false>) and K12's dx sum (gemm_sum).
+// of the forward K2 with its bias (gemm<true, false>, B stored (n, k)) and K12's
+// dx sum (gemm_sum).
 //
 //   out(m, n) = sum_k A(m, k) B(k, n)  [+ sum_k A2(m, k) B2(k, n) + addend(m, n)]
 //   A(m, k) = A[m * lda + k] (A_ROW) or A[k * lda + m] (A stored transposed)
 //   B(k, n) = B[k * ldb + n] (B_ROW) or B[n * ldb + k] (B stored transposed)
 //
-// The two B_ROW layouts run on wgmma (wg_gemm_kernel): a persistent CTA of
-// three consumer warpgroups and one producer warp computes 192 x 192 output
+// gemm<> runs on wgmma (wg_gemm_kernel): a persistent CTA of three consumer
+// warpgroups and one producer warp computes 192 x 192 output
 // tiles, each warpgroup 64 rows with its f32 sums in registers (96 a thread);
 // the producer keeps a ring of four 64-deep stages (48 KB each: three 64 x 64
 // boxes of A and three of B, 128-byte swizzle) filled by TMA, each stage
@@ -26,13 +27,12 @@
 // ~2 rows M N FLOP, ~150 FLOP per byte, under the card's ~295 FLOP/B ridge:
 // bytes. The design reads each operand once from device memory and keeps the
 // tensor cores fed from TMA stages, so it is held by the L2 and memory feed.
-// The remaining wmma layouts (K2's projection, K12's dx sum): 64 x 64 tiles
-// of 4 warps, 16x16x16 fragments from a two-stage cp.async ring, bound by the
-// fragment loads from shared memory.
+// K2's projection moves 2 rows C bf16 bytes for 2 rows C^2 FLOP: bytes. The
+// remaining wmma product (K12's dx sum, gemm_sum): 64 x 64 tiles of 4 warps,
+// 16x16x16 fragments from a two-stage cp.async ring, bound by the fragment
+// loads from shared memory.
 
 #pragma once
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -41,7 +41,7 @@ namespace {
 constexpr int GM = 64, GN = 64, GK = 32;
 constexpr int GEMM_THREADS = 128;
 constexpr int G_A_ELEMS = GM * (GK + 8);
-constexpr int G_B_ELEMS = GK * (GN + 8) > GN * (GK + 8) ? GK * (GN + 8) : GN * (GK + 8);
+constexpr int G_B_ELEMS = GK * (GN + 8);
 constexpr int G_STAGE_ELEMS = G_A_ELEMS + G_B_ELEMS;
 constexpr int G_C_LD = GN + 4;
 constexpr int G_SMEM = 2 * G_STAGE_ELEMS * 2 > GM * G_C_LD * 4 ? 2 * G_STAGE_ELEMS * 2
@@ -49,15 +49,13 @@ constexpr int G_SMEM = 2 * G_STAGE_ELEMS * 2 > GM * G_C_LD * 4 ? 2 * G_STAGE_ELE
 static_assert((G_A_ELEMS * 2) % 32 == 0 && (G_STAGE_ELEMS * 2) % 32 == 0,
               "wmma needs 256-bit aligned tiles");
 
-// out = bf16(A B (+ A2 B2) (+ bias) (+ addend)), A and A2 row-major, one CTA
-// per 64 x 64 output tile, the depths K then K2 through one cp.async ring.
-template <bool B_ROW>
+// out = bf16(A B + A2 B2 (+ addend)), all four row-major, one CTA per 64 x 64
+// output tile, the depths K then K2 through one cp.async ring.
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ B,
             long long ldb, int N, long long K, const bf16* __restrict__ A2, long long lda2,
             const bf16* __restrict__ B2, long long ldb2, long long K2,
-            const bf16* __restrict__ bias, const bf16* __restrict__ addend,
-            bf16* __restrict__ out) {
+            const bf16* __restrict__ addend, bf16* __restrict__ out) {
   __shared__ __align__(128) unsigned char smem[G_SMEM];
   bf16* st0 = reinterpret_cast<bf16*>(smem);
   const int warp = threadIdx.x >> 5;
@@ -65,7 +63,7 @@ gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ 
   const long long m0 = (long long)blockIdx.x * GM;  // x: up to 2^31 - 1 row tiles
   const int n0 = blockIdx.y * GN;
   constexpr int A_LD = GK + 8;
-  constexpr int B_LD = B_ROW ? GN + 8 : GK + 8;
+  constexpr int B_LD = GN + 8;
 
   FragC acc[2][2];
   for (int i = 0; i < 2; ++i)
@@ -81,10 +79,7 @@ gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ 
           const long long la = first ? lda : lda2, lb = first ? ldb : ldb2;
           const long long k0 = (long long)(first ? i : i - nk) * GK;
           stage_tile(st, A_LD, a + m0 * la + k0, la, GM, GK);
-          if (B_ROW)
-            stage_tile(st + G_A_ELEMS, B_LD, b + k0 * lb + n0, lb, GK, GN);
-          else
-            stage_tile(st + G_A_ELEMS, B_LD, b + (long long)n0 * lb + k0, lb, GN, GK);
+          stage_tile(st + G_A_ELEMS, B_LD, b + k0 * lb + n0, lb, GK, GN);
         },
         [&](int, bf16* st) {
           const bf16* As = st;
@@ -94,13 +89,8 @@ gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ 
               FragA a;
               wmma::load_matrix_sync(a, As + (wm * 32 + i * 16) * A_LD + kk, A_LD);
               for (int j = 0; j < 2; ++j) {
-                const int nc = wn * 32 + j * 16;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                               typename std::conditional<B_ROW, wmma::row_major,
-                                                         wmma::col_major>::type>
-                    b;
-                wmma::load_matrix_sync(b, B_ROW ? Bs + kk * B_LD + nc : Bs + nc * B_LD + kk,
-                                       B_LD);
+                FragB b;
+                wmma::load_matrix_sync(b, Bs + kk * B_LD + wn * 32 + j * 16, B_LD);
                 wmma::mma_sync(acc[i][j], a, b, acc[i][j]);
               }
             }
@@ -118,7 +108,6 @@ gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ 
     __align__(16) bf16 tmp[8];
     for (int e = 0; e < 8; ++e) {
       float y = Cs[r * G_C_LD + c + e];
-      if (bias) y += __bfloat162float(bias[n0 + c + e]);
       if (addend) y += __bfloat162float(addend[(m0 + r) * N + n0 + c + e]);
       tmp[e] = __float2bfloat16(y);
     }
@@ -143,14 +132,16 @@ struct WgMaps {
 
 // ROWSPLIT: part[split] (M x N f32) = A^T B over the split's rows [split *
 // kchunk, +kchunk) of A (K, M) and B (K, N), both MN-major; units = tiles x
-// splits, split-major. Otherwise out (M x N bf16) = A B with A (M, K) K-major
-// and B (K, N) MN-major, rows >= M not stored; units = tiles. A unit is one
-// 192 x 192 output tile (with its row slice); CTA i takes units i, i + grid,
-// ... The maps read 64 x 64 boxes, 128-byte swizzle.
-template <bool ROWSPLIT>
+// splits, split-major. Otherwise out (M x N bf16) = A B (+ bias) with A (M, K)
+// K-major and B (K, N) MN-major, or with BT stored (N, K) (nn.Linear's
+// weight, K-major), rows >= M not stored; units = tiles. A unit is one 192 x
+// 192 output tile (with its row slice); CTA i takes units i, i + grid, ... The
+// maps read 64 x 64 boxes, 128-byte swizzle.
+template <bool ROWSPLIT, bool BT = false>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wg_gemm_kernel(const __grid_constant__ WgMaps maps, int M, int N, long long K, long long kchunk,
-               int units, float* __restrict__ part, bf16* __restrict__ out) {
+               int units, const bf16* __restrict__ bias, float* __restrict__ part,
+               bf16* __restrict__ out) {
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * WG_STAGE_BYTES);
   uint64_t* empty = full + WG_STAGES;
@@ -192,9 +183,14 @@ wg_gemm_kernel(const __grid_constant__ WgMaps maps, int M, int N, long long K, l
             else
               tma_load(st + b * WG_BOX, &maps.a, &full[stage], (int)k0, m0 + 64 * b);
           }
-          for (int b = 0; b < WG_BN / 64; ++b)
-            tma_load(st + (WG_BM / 64 + b) * WG_BOX, &maps.b, &full[stage], n0 + 64 * b,
-                     (int)k0);
+          for (int b = 0; b < WG_BN / 64; ++b) {
+            if (BT)
+              tma_load(st + (WG_BM / 64 + b) * WG_BOX, &maps.b, &full[stage], (int)k0,
+                       n0 + 64 * b);
+            else
+              tma_load(st + (WG_BM / 64 + b) * WG_BOX, &maps.b, &full[stage], n0 + 64 * b,
+                       (int)k0);
+          }
           if (++stage == WG_STAGES) stage = 0, phase ^= 1;
         }
       }
@@ -225,8 +221,10 @@ wg_gemm_kernel(const __grid_constant__ WgMaps maps, int M, int N, long long K, l
         // A: MN-major rows kk*16.. of the box, or K-major columns kk*16..
         const uint64_t da = ROWSPLIT ? gmma_desc(a + kk * 2048, WG_BOX, 1024, SW128)
                                      : gmma_desc(a + kk * 32, 16, 1024, SW128);
-        const uint64_t db = gmma_desc(b + kk * 2048, WG_BOX, 1024, SW128);
-        wgmma_m64n192<ROWSPLIT ? 1 : 0, 1>(acc, da, db);
+        // B: MN-major rows kk*16.., or (BT) K-major columns kk*16.. of 192 rows
+        const uint64_t db = BT ? gmma_desc(b + kk * 32, 16, 1024, SW128)
+                               : gmma_desc(b + kk * 2048, WG_BOX, 1024, SW128);
+        wgmma_m64n192<ROWSPLIT ? 1 : 0, BT ? 0 : 1>(acc, da, db);
       }
       wgmma_commit();
       reg_fence(acc);
@@ -249,6 +247,18 @@ wg_gemm_kernel(const __grid_constant__ WgMaps maps, int M, int N, long long K, l
           *reinterpret_cast<float2*>(p + (long long)(r0 + 8 * h) * N + c0 + 8 * g) =
               make_float2(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
     } else {
+      if (bias) {
+#pragma unroll
+        for (int g = 0; g < 24; ++g) {
+          const float2 bb =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + c0 + 8 * g));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            acc[4 * g + 2 * h] += bb.x;
+            acc[4 * g + 2 * h + 1] += bb.y;
+          }
+        }
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (r0 + 8 * h >= M) continue;
@@ -272,68 +282,61 @@ inline int weight_grad_splits(int M, int N, long long K) {
   return (int)s;
 }
 
-// One product, M x N, depth K, bf16 out_bf16.
+// One product on wgmma, M x N, depth K, bf16 out_bf16.
 //  * gemm<false, true>: out = bf16(A^T B) over the K token rows, split over
 //    at most `splits` row slices with f32 partials in `part` (splits x M x N),
 //    summed in order; M and N multiples of 192, K any.
 //  * gemm<true, true>: out = bf16(A B); M any, N a multiple of 192, K of 64;
 //    splits 1, no bias.
-//  * gemm<true, false> (wmma): out = bf16(A B (+ bias)), splits 1; M, N
-//    multiples of 64, K of 32.
+//  * gemm<true, false>: out = bf16(A B + bias) with B stored (N, K)
+//    (nn.Linear's weight: x W^T + b, K2's out-projection); the bias (N bf16)
+//    may be null; M any, N a multiple of 192, K of 64; splits 1.
 // lda, ldb multiples of 8 and 16-byte aligned bases (checked by the caller).
 template <bool A_ROW, bool B_ROW>
 cudaError_t gemm(const bf16* A, long long lda, const bf16* B, long long ldb, int M, int N,
                  long long K, int splits, const bf16* bias, bf16* out_bf16, float* part,
                  cudaStream_t stream) {
+  static_assert(A_ROW || B_ROW, "a weight-grad product takes B stored (K, N)");
   if (splits < 1) return cudaErrorInvalidValue;
-  if constexpr (B_ROW) {
-    constexpr bool ROWSPLIT = !A_ROW;
-    const bool shape_ok = ROWSPLIT ? M % WG_BM == 0 : (K % WG_BK == 0 && splits == 1);
-    if (N % WG_BN || bias || !shape_ok) return cudaErrorInvalidValue;
-    WgMaps maps;
-    const bool ok = (ROWSPLIT ? tensor_map(&maps.a, A, M, K, lda, 64, 64,
-                                           CU_TENSOR_MAP_SWIZZLE_128B)
-                              : tensor_map(&maps.a, A, K, M, lda, 64, 64,
-                                           CU_TENSOR_MAP_SWIZZLE_128B)) &&
-                    tensor_map(&maps.b, B, N, K, ldb, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
-    if (!ok) return cudaErrorInvalidValue;
-    long long kchunk = K;
-    int parts = 1;
-    if (ROWSPLIT) {
-      kchunk = ((K + WG_BK - 1) / WG_BK + splits - 1) / splits * WG_BK;
-      parts = (int)((K + kchunk - 1) / kchunk);
-    }
-    const int units = (M + WG_BM - 1) / WG_BM * (N / WG_BN) * parts;
-    const int sms = sm_count();
-    const int grid = sms > 0 && sms < units ? sms : units;
-    cudaError_t err = cudaFuncSetAttribute(wg_gemm_kernel<ROWSPLIT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-    if (err != cudaSuccess) return err;
-    wg_gemm_kernel<ROWSPLIT><<<grid, WG_THREADS, WG_SMEM, stream>>>(maps, M, N, K, kchunk, units,
-                                                                    part, out_bf16);
-    if ((err = cudaGetLastError()) != cudaSuccess || !ROWSPLIT) return err;
-    return reduce_partials(part, parts, (long long)M * N, out_bf16, nullptr, stream);
-  } else {
-    static_assert(A_ROW, "the wmma product takes a row-major A");
-    if (M % GM || N % GN || K % GK || splits != 1) return cudaErrorInvalidValue;
-    const dim3 grid(M / GM, N / GN, 1);
-    gemm_kernel<false><<<grid, GEMM_THREADS, 0, stream>>>(A, lda, B, ldb, N, K, nullptr, 0,
-                                                          nullptr, 0, 0, bias, nullptr, out_bf16);
-    return cudaGetLastError();
+  constexpr bool ROWSPLIT = !A_ROW, BT = !B_ROW;
+  const bool shape_ok = ROWSPLIT ? M % WG_BM == 0 : (K % WG_BK == 0 && splits == 1);
+  if (N % WG_BN || (bias && B_ROW) || !shape_ok) return cudaErrorInvalidValue;
+  WgMaps maps;
+  const bool ok = (ROWSPLIT ? tensor_map(&maps.a, A, M, K, lda, 64, 64,
+                                         CU_TENSOR_MAP_SWIZZLE_128B)
+                            : tensor_map(&maps.a, A, K, M, lda, 64, 64,
+                                         CU_TENSOR_MAP_SWIZZLE_128B)) &&
+                  (BT ? tensor_map(&maps.b, B, K, N, ldb, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B)
+                      : tensor_map(&maps.b, B, N, K, ldb, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B));
+  if (!ok) return cudaErrorInvalidValue;
+  long long kchunk = K;
+  int parts = 1;
+  if (ROWSPLIT) {
+    kchunk = ((K + WG_BK - 1) / WG_BK + splits - 1) / splits * WG_BK;
+    parts = (int)((K + kchunk - 1) / kchunk);
   }
+  const int units = (M + WG_BM - 1) / WG_BM * (N / WG_BN) * parts;
+  const int sms = sm_count();
+  const int grid = sms > 0 && sms < units ? sms : units;
+  cudaError_t err = cudaFuncSetAttribute(wg_gemm_kernel<ROWSPLIT, BT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return err;
+  wg_gemm_kernel<ROWSPLIT, BT><<<grid, WG_THREADS, WG_SMEM, stream>>>(
+      maps, M, N, K, kchunk, units, bias, part, out_bf16);
+  if ((err = cudaGetLastError()) != cudaSuccess || !ROWSPLIT) return err;
+  return reduce_partials(part, parts, (long long)M * N, out_bf16, nullptr, stream);
 }
 
 // out_bf16 = bf16(A B + A2 B2 (+ addend)), M x N, depths K and K2 (multiples
-// of 32), A and A2 row-major, B and B2 in the layout B_ROW; addend (M x N
-// bf16, row stride N) may be null; M, N multiples of 64 (wmma).
-template <bool B_ROW>
+// of 32), all four row-major; addend (M x N bf16, row stride N) may be null;
+// M, N multiples of 64 (wmma).
 cudaError_t gemm_sum(const bf16* A, long long lda, const bf16* B, long long ldb, long long K,
                      const bf16* A2, long long lda2, const bf16* B2, long long ldb2, long long K2,
                      int M, int N, const bf16* addend, bf16* out_bf16, cudaStream_t stream) {
   if (M % GM || N % GN || K % GK || K2 % GK) return cudaErrorInvalidValue;
   const dim3 grid(M / GM, N / GN, 1);
-  gemm_kernel<B_ROW><<<grid, GEMM_THREADS, 0, stream>>>(A, lda, B, ldb, N, K, A2, lda2, B2, ldb2,
-                                                        K2, nullptr, addend, out_bf16);
+  gemm_kernel<<<grid, GEMM_THREADS, 0, stream>>>(A, lda, B, ldb, N, K, A2, lda2, B2, ldb2, K2,
+                                                 addend, out_bf16);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,44 @@
 // The window-attention kernel: per (batch, window, head), softmax(q k^T * scale
-// + earth bias (+ shift mask)) @ v with the Pallas body's rounding points.
-// Shared by the inference block (fused_earth_block.cu, K1) and the training
-// attention forward (block_attention.cu, K2); the design notes are in
-// fused_earth_block.cu.
+// + earth bias (+ shift mask)) @ v with the Pallas body's rounding points
+// (pangu_tpu/ops/fused_block_attention.py::_make_kernel):
+//
+//   q|k|v = bf16(x Wqkv^T + bqkv)                          f32 sums
+//   s     = (q k^T) scale + bias[type, head] (+ mask[type])  in that order, f32
+//   p     = exp(s - max) / sum                               f32, over all T keys
+//   O     = bf16(bf16(p) v)                                   f32 sums
+//
+// Shared by the inference block (fused_earth_block.cu, K1), the training
+// attention forward and its LN mode (block_attention.cu, K2), and the training
+// block (fused_block_train.cu: K11, and K12's recompute of the attention
+// output), all through launch_window_attention.
+//
+// Design. A CTA of 9 warps runs one (window, head):
+//
+//  * the q|k|v product (144 x C) (C x 96) on mma.sync m16n8k16: x and this
+//    head's 96 Wqkv rows are staged 64 channels at a time through a
+//    three-stage cp.async ring, two chunks in flight ahead of the one
+//    multiplied; warp w forms rows 48 (w / 3).. and the 32 columns of q, k
+//    or v (w % 3) from ldmatrix fragments (5 ldmatrix per 12 MMAs), adds
+//    bqkv to the C fragments and writes bf16 q|k|v to the qkv tile;
+//  * each warp then keeps its 16 query rows in registers, in the layout of
+//    K3's backward (attention_bwd.cuh; FlashAttention-2's): S as 18 n8 tiles
+//    (72 f32 a thread), each tile scaled and given its bias (and mask) from
+//    8-byte loads right after its MMAs; the softmax over all 144 keys in one
+//    pass (T is small: no online rescaling, the Pallas rounding point of p),
+//    row max and sum through quad shuffles; P packed to bf16 A fragments in
+//    registers, v's B fragments by ldmatrix.trans; O from the C fragments to
+//    the head's 32 columns of the (rows, C) bf16 output. No score or
+//    probability goes to shared memory.
+//
+// Shared memory: a ring of three stages of 34,560 B, 103,680 B, the q|k|v
+// tile (29,952 B) written over it; two CTAs (18 warps) per SM, at 96
+// registers a thread (five warps per SM quarter).
+//
+// What bounds it on an H100: the products, 2 T C 96 + 4 T T 32 FLOP per
+// (window, head) (0.18 / 0.155 ms at the outer / inner stage at the bf16
+// peak), against x and Wqkv read per (window, head) from the L2 and the f32
+// bias (and mask) tile of its type: mma.sync from ldmatrix fragments and the L2
+// feed hold it well above that.
 
 #pragma once
 
@@ -16,22 +52,20 @@ constexpr int ATT_THREADS = ATT_WARPS * 32;     // 288
 constexpr int QKV_LD = 3 * D + 8;               // bf16 row stride of the q|k|v tile
 constexpr int KC = 64;                          // x channels staged per step
 constexpr int XS_LD = KC + 8;
-constexpr int S_LD = T;                         // f32 score row stride
-constexpr int P_LD = T + 8;                     // bf16 prob row stride (over the scores)
-constexpr int WARP_SCRATCH = 16 * S_LD * 4;     // 9,216 B per warp
-constexpr int QKV_BYTES = T * QKV_LD * 2;       // 29,952 B
-constexpr int ATT_SMEM = QKV_BYTES + ATT_WARPS * WARP_SCRATCH;  // 112,896 B
-constexpr int O_OFFSET = 16 * P_LD * 2;         // P @ v tile after the probs
 constexpr int WT_LD = KC + 8;                   // row stride of a staged (96, KC) Wqkv chunk
 constexpr int XS_ELEMS = T * XS_LD;             // x chunk, then the Wqkv chunk
 constexpr int ATT_STAGE_ELEMS = XS_ELEMS + 3 * D * WT_LD;  // 34,560 B per stage
+constexpr int ATT_STAGES = 3;
+constexpr int QKV_BYTES = T * QKV_LD * 2;       // 29,952 B
+// the q|k|v tile is written over the ring once its last chunk is read
+constexpr int ATT_SMEM = cmax(ATT_STAGES * ATT_STAGE_ELEMS * 2, QKV_BYTES);  // 103,680 B
 
-static_assert(2 * ATT_STAGE_ELEMS * 2 <= ATT_WARPS * WARP_SCRATCH, "two stages fit the scratch");
-static_assert((XS_ELEMS * 2) % 32 == 0 && (ATT_STAGE_ELEMS * 2) % 32 == 0,
-              "wmma needs 256-bit aligned tiles");
-static_assert(16 * 3 * D * 4 <= WARP_SCRATCH, "qkv staging fits a warp's scratch");
-static_assert(O_OFFSET + 16 * D * 4 <= WARP_SCRATCH, "probs + output fit a warp's scratch");
-static_assert(O_OFFSET % 32 == 0, "wmma needs 256-bit aligned tiles");
+static_assert(ATT_WARPS == 9 && T == 3 * 48, "3 x 3 warps tile the q|k|v product");
+static_assert(T * (KC / 8) == 4 * ATT_THREADS && 3 * D * (KC / 8) <= 3 * ATT_THREADS &&
+                  ATT_THREADS % (KC / 8) == 0,
+              "a thread's copies of a chunk: 4 of x, at most 3 of Wqkv, one column");
+static_assert(QKV_BYTES % 128 == 0 && (ATT_STAGE_ELEMS * 2) % 128 == 0, "aligned tiles");
+static_assert(2 * (ATT_SMEM + 1024) <= 233472, "two CTAs per SM");
 
 __global__ void __launch_bounds__(ATT_THREADS, 2)
 window_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
@@ -39,147 +73,214 @@ window_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqk
                         const float* __restrict__ mask, bf16* __restrict__ attn_out,
                         Geom g, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qkv = reinterpret_cast<bf16*>(smem);
-  unsigned char* scratch = smem + QKV_BYTES;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* qkv = ring;  // after the last chunk
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;  // fragment row and column pair
   const int zn = g.Z / g.wz, hn = g.Hp / g.wh, wn = g.W / g.ww;
-  int idx = blockIdx.x;
-  const int head = idx % g.heads;
-  idx /= g.heads;
-  const int wi = idx % wn;
-  idx /= wn;
-  const int hi = idx % hn;
-  idx /= hn;
-  const int zi = idx % zn;
-  const int b = idx / zn;
-  const int type = zi * hn + hi;
-  const int C = g.C;
+  const int C = g.C, nc = C / KC;
+  const int head = blockIdx.x % g.heads;
+  const int idx = blockIdx.x / g.heads;  // ((b zn + zi) hn + hi) wn + wi
+  const int type = (idx / wn) % (zn * hn);
+  // the window b wn + wi of its type; b and wi are formed from it where they
+  // are used (kept live from the start, they or the window's 64-bit offset
+  // cost 170-200 B of spills against 36 and up to 16%; PERF.md)
+  const int win = idx / (wn * zn * hn) * wn + idx % wn;
+  const int zi = type / hn, hi = type - zi * hn;
 
-  // ---- q | k | v of this head: (144, C) @ (C, 96), KC channels of x and the
-  // same KC input columns of this head's 96 Wqkv rows (its q, k and v outputs)
-  // per stage
-  bf16* stage0 = reinterpret_cast<bf16*>(scratch);
-  FragC acc[6];
-  for (int n = 0; n < 6; ++n) wmma::fill_fragment(acc[n], 0.f);
-  pipelined(
-      C / KC, stage0, stage0 + ATT_STAGE_ELEMS,
-      [&](int i, bf16* st) {
-        const int k0 = i * KC;
-        for (int v = threadIdx.x; v < T * (KC / 8); v += ATT_THREADS) {
-          const int t = v / (KC / 8), cv = v - t * (KC / 8);
-          cp_async16(st + t * XS_LD + cv * 8,
-                     x + token_row(g, b, zi, hi, wi, t) * C + k0 + cv * 8);
-        }
-        for (int v = threadIdx.x; v < 3 * D * (KC / 8); v += ATT_THREADS) {
-          const int r = v / (KC / 8), cv = v - r * (KC / 8);
-          const int seg = r / D, j = r - seg * D;  // seg 0,1,2: q, k, v
-          cp_async16(st + XS_ELEMS + r * WT_LD + cv * 8,
-                     wqkv + (long long)(seg * C + head * D + j) * C + k0 + cv * 8);
-        }
-      },
-      [&](int, bf16* st) {
-        for (int kk = 0; kk < KC; kk += 16) {
-          FragA a;
-          wmma::load_matrix_sync(a, st + warp * 16 * XS_LD + kk, XS_LD);
-          for (int n = 0; n < 6; ++n) {  // n = 0,1: q columns; 2,3: k; 4,5: v
-            FragBt w;
-            wmma::load_matrix_sync(w, st + XS_ELEMS + n * 16 * WT_LD + kk, WT_LD);
-            wmma::mma_sync(acc[n], a, w, acc[n]);
+  // chunk `chunk` of the ring: KC channels of the window's x rows and the same
+  // channels of this head's 96 Wqkv rows (its q, k and v outputs). Thread i
+  // copies the 16 bytes at column 8 (i % 8) of x rows (i + 288 k) / 8, k < 4,
+  // and of Wqkv rows (i + 288 k) / 8 below 96. The element offsets of those
+  // rows are formed once, from the window's first row: 32-bit (the caller
+  // checks wz Hp W C < 2^31, which bounds an x row's offset in its window).
+  const int cv = (threadIdx.x % (KC / 8)) * 8;
+  uint32_t xrel[4], woff[3];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    xrel[k] = (uint32_t)((token_row(g, 0, 0, 0, 0, (threadIdx.x + ATT_THREADS * k) / (KC / 8)) *
+                          C) + cv);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int r = (threadIdx.x + ATT_THREADS * k) / (KC / 8), sg = r / D;
+    woff[k] = (uint32_t)((sg * C + head * D + r - sg * D) * C + cv);
+  }
+  auto load = [&](int chunk, bf16* st) {
+    const int k0 = chunk * KC;
+    const int b = win / wn, wi = win - b * wn;
+    const bf16* xw = x + token_row(g, b, zi, hi, wi, 0) * C + k0;  // the window's first row
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int t = (threadIdx.x + ATT_THREADS * k) / (KC / 8);
+      cp_async16(st + t * XS_LD + cv, xw + xrel[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int r = (threadIdx.x + ATT_THREADS * k) / (KC / 8);
+      if (r < 3 * D) cp_async16(st + XS_ELEMS + r * WT_LD + cv, wqkv + woff[k] + k0);
+    }
+  };
+
+  const int rg = warp / 3, seg = warp - 3 * rg;  // q|k|v: rows 48 rg.., columns of q, k or v
+  const int q0 = warp * 16;                       // scores: the warp's query rows
+  const float* bias_rows = bias + ((long long)(type * g.heads + head) * T + q0) * T + 2 * tq;
+  const float* mask_rows = mask ? mask + ((long long)type * T + q0) * T + 2 * tq : nullptr;
+  // the ring: ATT_STAGES - 1 chunks in flight ahead of the one multiplied
+  // (one commit group per chunk, empty past the last)
+  for (int p = 0; p < ATT_STAGES - 1; ++p) {
+    if (p < nc) load(p, ring + p * ATT_STAGE_ELEMS);
+    cp_async_commit();
+  }
+  {
+    float acc[3][4][4] = {};
+    for (int chunk = 0; chunk < nc; ++chunk) {
+      const int ahead = chunk + ATT_STAGES - 1;
+      if (ahead < nc) load(ahead, ring + (ahead % ATT_STAGES) * ATT_STAGE_ELEMS);
+      cp_async_commit();
+      cp_async_wait<ATT_STAGES - 1>();
+      __syncthreads();
+      const bf16* st = ring + (chunk % ATT_STAGES) * ATT_STAGE_ELEMS;
+      // ---- q|k|v += x chunk (rows 48 rg..) Wqkv chunk^T (the 32 rows of seg)
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t a[3][4], w[2][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ldsm_x4(a[i], afrag_at(st, XS_LD, 48 * rg + 16 * i, 16 * kk, lane));
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+          ldsm_x4(w[nb], bfrag_nk(st + XS_ELEMS, WT_LD, D * seg + 16 * nb, 16 * kk, lane));
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int f = 0; f < 4; ++f)
+            mma_bf16(acc[i][f], a[i], w[f >> 1][2 * (f & 1)], w[f >> 1][2 * (f & 1) + 1]);
+      }
+      __syncthreads();  // the stage is read: the next load (or the q|k|v tile) may overwrite it
+    }
+
+    // ---- bf16(q|k|v + bqkv) -> the qkv tile
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int col = D * seg + 8 * f + 2 * tq;
+      const float2 bb = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(bqkv + seg * C + head * D + 8 * f + 2 * tq));
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<__nv_bfloat162*>(qkv + (48 * rg + 16 * i + gq + 8 * h) * QKV_LD + col) =
+              __floats2bfloat162_rn(acc[i][f][2 * h] + bb.x, acc[i][f][2 * h + 1] + bb.y);
+    }
+    __syncthreads();  // q|k|v of every row are in place
+  }
+
+  const int b = win / wn, wi = win - b * wn;
+
+  // ---- S = q k^T of the warp's 16 rows, then s = S scale + bias (+ mask)
+  float s[T / 8][4];
+  {
+    uint32_t qa[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) ldsm_x4(qa[kk], afrag_at(qkv, QKV_LD, q0, 16 * kk, lane));
+#pragma unroll
+    for (int nb = 0; nb < T / 16; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[2 * nb][e] = s[2 * nb + 1][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t kb[4];
+        ldsm_x4(kb, bfrag_nk(qkv, QKV_LD, 16 * nb, D + 16 * kk, lane));
+        mma_bf16(s[2 * nb], qa[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * nb + 1], qa[kk], kb[2], kb[3]);
+      }
+#pragma unroll
+      for (int j = 2 * nb; j < 2 * nb + 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 bv =
+              __ldg(reinterpret_cast<const float2*>(bias_rows + (gq + 8 * h) * T + 8 * j));
+          s[j][2 * h] = s[j][2 * h] * scale + bv.x;
+          s[j][2 * h + 1] = s[j][2 * h + 1] * scale + bv.y;
+          if (mask_rows) {
+            const float2 mv =
+                __ldg(reinterpret_cast<const float2*>(mask_rows + (gq + 8 * h) * T + 8 * j));
+            s[j][2 * h] += mv.x;
+            s[j][2 * h + 1] += mv.y;
           }
         }
-      });
-  // the stages are dead: the scratch is now per warp
-  float* ws = reinterpret_cast<float*>(scratch + warp * WARP_SCRATCH);
-  for (int n = 0; n < 6; ++n)
-    wmma::store_matrix_sync(ws + n * 16, acc[n], 3 * D, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 16 * 3 * D; e += 32) {
-    const int r = e / (3 * D), cidx = e - r * (3 * D);
-    const int seg = cidx / D, j = cidx - seg * D;
-    const float v = ws[e] + __bfloat162float(bqkv[seg * C + head * D + j]);
-    qkv[(warp * 16 + r) * QKV_LD + cidx] = __float2bfloat16(v);
-  }
-  __syncthreads();
-
-  // ---- this warp's 16 query rows: scores, softmax, P @ v
-  const int q0 = warp * 16;
-  float* S = ws;
-  bf16* P = reinterpret_cast<bf16*>(ws);  // written over S, row r after row r is read
-  float* O = reinterpret_cast<float*>(scratch + warp * WARP_SCRATCH + O_OFFSET);
-  {
-    FragA qa[2];
-    wmma::load_matrix_sync(qa[0], qkv + q0 * QKV_LD, QKV_LD);
-    wmma::load_matrix_sync(qa[1], qkv + q0 * QKV_LD + 16, QKV_LD);
-    for (int j = 0; j < T / 16; ++j) {
-      FragC s;
-      wmma::fill_fragment(s, 0.f);
-      for (int kk = 0; kk < 2; ++kk) {
-        FragBt kt;  // k^T: column n of the tile is key token 16 j + n
-        wmma::load_matrix_sync(kt, qkv + j * 16 * QKV_LD + D + kk * 16, QKV_LD);
-        wmma::mma_sync(s, qa[kk], kt, s);
-      }
-      wmma::store_matrix_sync(S + j * 16, s, S_LD, wmma::mem_row_major);
     }
   }
-  __syncwarp();
-
-  const float* bias_rows = bias + ((long long)(type * g.heads + head) * T + q0) * T;
-  const float* mask_rows = mask ? mask + ((long long)type * T + q0) * T : nullptr;
-  constexpr int PER_LANE = (T + 31) / 32;
-  for (int r = 0; r < 16; ++r) {
-    float v[PER_LANE];
+  // ---- p = exp(s - max) / sum over the 144 keys of each row (gq, gq + 8)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
     float m = -INFINITY;
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = -INFINITY;
-      if (c < T) {
-        float s = S[r * S_LD + c] * scale + bias_rows[r * T + c];
-        if (mask_rows) s += mask_rows[r * T + c];
-        v[i] = s;
-        m = fmaxf(m, s);
-      }
-    }
-    m = warp_max(m);
+#pragma unroll
+    for (int j = 0; j < T / 8; ++j) m = fmaxf(m, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
     float sum = 0.f;
-    for (int i = 0; i < PER_LANE; ++i) {
-      v[i] = (lane + 32 * i < T) ? expf(v[i] - m) : 0.f;
-      sum += v[i];
+#pragma unroll
+    for (int j = 0; j < T / 8; ++j) {
+      s[j][2 * h] = expf(s[j][2 * h] - m);
+      s[j][2 * h + 1] = expf(s[j][2 * h + 1] - m);
+      sum += s[j][2 * h] + s[j][2 * h + 1];
     }
-    sum = warp_sum(sum);
-    __syncwarp();  // score row r is read by every lane before probs overwrite it
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int c = lane + 32 * i;
-      if (c < T) P[r * P_LD + c] = __float2bfloat16(v[i] / sum);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+    for (int j = 0; j < T / 8; ++j) {
+      s[j][2 * h] /= sum;
+      s[j][2 * h + 1] /= sum;
     }
   }
-  __syncwarp();
+  // ---- O = bf16(p) v: P from the score registers, v by ldmatrix.trans
+  float o[4][4] = {};
+#pragma unroll
+  for (int kb = 0; kb < T / 16; ++kb) {
+    const uint32_t pa[4] = {pack_bf16(s[2 * kb][0], s[2 * kb][1]),
+                            pack_bf16(s[2 * kb][2], s[2 * kb][3]),
+                            pack_bf16(s[2 * kb + 1][0], s[2 * kb + 1][1]),
+                            pack_bf16(s[2 * kb + 1][2], s[2 * kb + 1][3])};
+#pragma unroll
+    for (int dn = 0; dn < 2; ++dn) {
+      uint32_t vb[4];
+      ldsm_x4_t(vb, bfrag_kn(qkv, QKV_LD, 16 * kb, 2 * D + 16 * dn, lane));
+      mma_bf16(o[2 * dn], pa, vb[0], vb[1]);
+      mma_bf16(o[2 * dn + 1], pa, vb[2], vb[3]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bf16* row = attn_out + token_row(g, b, zi, hi, wi, q0 + gq + 8 * h) * C + head * D + 2 * tq;
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn)
+      *reinterpret_cast<uint32_t*>(row + 8 * nn) = pack_bf16(o[nn][2 * h], o[nn][2 * h + 1]);
+  }
+}
 
-  {
-    FragC o[2];
-    wmma::fill_fragment(o[0], 0.f);
-    wmma::fill_fragment(o[1], 0.f);
-    for (int kk = 0; kk < T / 16; ++kk) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, P + kk * 16, P_LD);
-      for (int n = 0; n < 2; ++n) {
-        FragB vb;
-        wmma::load_matrix_sync(vb, qkv + kk * 16 * QKV_LD + 2 * D + n * 16, QKV_LD);
-        wmma::mma_sync(o[n], pa, vb, o[n]);
-      }
-    }
-    wmma::store_matrix_sync(O, o[0], D, wmma::mem_row_major);
-    wmma::store_matrix_sync(O + 16, o[1], D, wmma::mem_row_major);
-  }
-  __syncwarp();
-  {
-    const int r = lane >> 1, c0 = (lane & 1) * 16;
-    const long long row = token_row(g, b, zi, hi, wi, q0 + r);
-    __align__(16) bf16 tmp[16];
-    for (int j = 0; j < 16; ++j) tmp[j] = __float2bfloat16(O[r * D + c0 + j]);
-    uint4* dst = reinterpret_cast<uint4*>(attn_out + row * C + head * D + c0);
-    dst[0] = reinterpret_cast<const uint4*>(tmp)[0];
-    dst[1] = reinterpret_cast<const uint4*>(tmp)[1];
-  }
+// CTAs of window_attention_kernel at geometry g.
+inline long long window_attention_ctas(const Geom& g) {
+  return (long long)g.B * (g.Z / g.wz) * (g.Hp / g.wh) * (g.W / g.ww) * g.heads;
+}
+
+// The attention output (rows, C) bf16 of x on `stream` (C a multiple of KC,
+// wz Hp W C below 2^31); `mask` may be null.
+inline cudaError_t launch_window_attention(const bf16* x, const bf16* wqkv, const bf16* bqkv,
+                                           const float* bias, const float* mask, bf16* attn,
+                                           const Geom& g, float scale, cudaStream_t stream) {
+  if (g.C % KC || (long long)g.wz * g.Hp * g.W * g.C >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(window_attention_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  window_attention_kernel<<<(unsigned)window_attention_ctas(g), ATT_THREADS, ATT_SMEM, stream>>>(
+      x, wqkv, bqkv, bias, mask, attn, g, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace

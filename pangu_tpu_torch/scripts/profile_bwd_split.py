@@ -1,29 +1,34 @@
-"""Where the two costliest backward kernels spend their time, on one CUDA card.
+"""Where the costliest attention kernels and K7 spend their time, on one
+CUDA card.
 
-    python -m pangu_tpu_torch.scripts.profile_bwd_split [--cuts TREE]
+    python -m pangu_tpu_torch.scripts.profile_bwd_split [--cuts TREE [--only TEXT]] [--no-split]
 
 For the MLP-tail backward K7 (``fused_mlp_postnorm_bwd``) and the attention
 backward K3 (``fused_block_attention_bwd``) at the flagship outer and inner
-stage shapes, with seeded inputs: the device time of every kernel that one
-call launches, in launch order (torch.profiler, the mean over 3 calls), and
-beside the weight-grad products one ``torch.mm`` of the same product (bf16
-in, f32 out; the dx product bf16 out), a yardstick the port never calls.
+stage shapes, unshifted and shifted, with seeded inputs: the device time of
+every kernel that one call launches, in launch order (torch.profiler, the
+mean over 3 calls), and beside the weight-grad products one ``torch.mm`` of
+the same product (bf16 in, f32 out; the dx product bf16 out), a yardstick
+the port never calls.
 
-``--cuts TREE``: also time the attention kernel of K3 with one phase cut out,
-phase by phase, in throwaway builds of ``TREE/pangu_tpu_torch/csrc`` written
-to ``build/cuts/`` (their outputs are wrong on purpose; the phase's cost is
-the full kernel's time less the cut one's). The cuts are text edits of the
-kernel that K3 launches in TREE (``PHASE_CUTS``: the earlier schedule,
-``attention_bwd_kernel<false>``, or the register-resident one); a
-tree with neither is refused. For another tree than this one, run the
-script with that tree first on ``PYTHONPATH``.
+``--cuts TREE``: also time kernels of TREE whole and with their phases cut
+out, one phase at a time and all at once (``all``), at every stage and shift:
+K3's attention kernel through K3, the window-attention kernel through K1.
+The cuts (``PHASE_CUTS``) are text edits of the kernel as TREE has it, found
+by a text of its schedule; each is a throwaway build of
+``TREE/pangu_tpu_torch/csrc`` under ``build/variants/`` (the outputs are
+wrong on purpose; a phase's cost is the whole kernel's time less the cut
+one's), loaded in place of this tree's library (the C interface is the
+same). ``--only`` keeps the kernels whose name holds TEXT; a tree with none
+is refused.
 
-Prints one JSON line per stage and shape, then ``{"device_kind": ...}``.
+Prints one JSON line per stage and shift, then ``{"device_kind": ...}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -43,75 +48,120 @@ from pangu_tpu_torch.ops import fused_block_attention as fba
 from pangu_tpu_torch.ops import fused_mlp as fmlp
 from pangu_tpu_torch.scripts.ab_common import cuda_times_ms
 
+
 def _guard(text: str, k: int) -> Tuple[str, str]:
     """The edit that skips the statement starting at ``text`` under cut k."""
     body = text.lstrip(" ")
-    return text, text[:len(text) - len(body)] + f"if (CUT != {k}) " + body
+    return text, text[:len(text) - len(body)] + f"if (!CUT_{k}) " + body
 
 
 def _bound(text: str, old: str, k: int) -> Tuple[str, str]:
     """The edit that makes the loop ``for (... < old; ...)`` starting at
     ``text`` run no iteration under cut k."""
-    return text, text.replace(old, f"(CUT == {k} ? 0 : {old})", 1)
+    return text, text.replace(old, f"(CUT_{k} ? 0 : {old})", 1)
 
 
-#: K3's attention kernel as launched by block_attention.cu -> phase -> edits
-#: (text of the kernel, its replacement, which cuts the phase under CUT)
-PHASE_CUTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
-    # the earlier per-(type, head) schedule, wmma fragments
-    "attention_bwd_kernel<false><<<": {
-        "recompute q|k|v and dO": [
-            _guard("      pipelined(\n          C / KC, stage0, stage0 + B_STAGE_ELEMS,", 1)],
-        "scores and softmax": [
-            ("      // ---- scores of the warp's query rows, f32 softmax: p f32 in S, bf16 in P\n"
-             "      {", "      if (CUT != 2) {"),
-            _guard("      for (int r = 0; r < 16; ++r) {\n        float v[PER_LANE];", 2)],
-        "P v and the acc store": [(
-            "      if (!DO_GIVEN) {\n        FragC o[2];",
-            "      if (!DO_GIVEN && CUT != 3) {\n        FragC o[2];")],
-        "two dP sweeps and the dbias update": [(
-            "then dS (dbias, bf16 dS)\n      {",
-            "then dS (dbias, bf16 dS)\n      if (CUT != 4) {")],
-        "dq, dk, dv (with the dqkv stores)": [(
-            "      // ---- dq (query rows), dk and dv (key rows) of tile `warp`\n      {",
-            "      if (CUT != 5) {")],
-        "the dqkv slab stores": [_guard(
-            "        for (int seg = 0; seg < 3; ++seg) {\n          __align__(16) bf16 t16", 6)],
-    },
-    # the register-resident schedule, mma.sync
-    "attention_bwd_regs_kernel<<<": {
-        "recompute q|k|v and dO": [
-            _guard("      pipelined(\n          C / K3_KC, stage0, stage0 + K3_STAGE_ELEMS,", 1)],
-        "S = q k^T": [_bound("        for (int nb = 0; nb < T / 16; ++nb) {\n#pragma unroll\n"
-                             "          for (int e = 0; e < 4; ++e) s[2 * nb][e]", "T / 16", 2)],
-        "softmax (bias, mask, P rows)": [_bound(
-            "      for (int h = 0; h < 2; ++h) {  // rows gq and gq + 8", "2", 3)],
-        "O = P v, the acc store and D": [
-            _bound("        for (int kb = 0; kb < T / 16; ++kb) {\n          const uint32_t pa[4]",
-                   "T / 16", 4),
-            _bound("        for (int h = 0; h < 2; ++h) {\n"
-                   "          const int r = q0 + gq + 8 * h;", "2", 4)],
-        "dP, dS, dbias and dq": [_bound(
-            "        for (int nb = 0; nb < T / 16; ++nb) {\n          float dp[2][4] = {};",
-            "T / 16", 5)],
-        "dk and dv": [_bound("      for (int qb = 0; qb < T / 16; ++qb) {", "T / 16", 6)],
-        "the dqkv slab stores": [_bound(
-            "      for (int h = 0; h < 2; ++h) {\n        bf16* row = dqkv", "2", 7)],
-    },
+#: kernel -> how to find it in a tree (a file of csrc/ and a text in it), the
+#: header its phase cuts edit, the source built with them, the wrapper call
+#: that times it (``k3``: K3; ``k1``: K1), the prefix of its kernel name, and
+#: its phases: phase -> edits (text of the kernel, its replacement, which cuts
+#: the phase under CUT_k, k the phase's place, from 1). ``all`` cuts every
+#: phase at once.
+PHASE_CUTS: Dict[str, dict] = {
+    # K3, the earlier per-(type, head) schedule, wmma fragments
+    "attention_bwd_kernel": dict(
+        find=("block_attention.cu", "attention_bwd_kernel<false><<<"),
+        header="attention_bwd.cuh", source="block_attention.cu", call="k3",
+        prefix="attention_bwd", phases={
+            "recompute q|k|v and dO": [
+                _guard("      pipelined(\n          C / KC, stage0, stage0 + B_STAGE_ELEMS,",
+                       1)],
+            "scores and softmax": [
+                ("      // ---- scores of the warp's query rows, f32 softmax: p f32 in S, "
+                 "bf16 in P\n      {", "      if (!CUT_2) {"),
+                _guard("      for (int r = 0; r < 16; ++r) {\n        float v[PER_LANE];", 2)],
+            "P v and the acc store": [(
+                "      if (!DO_GIVEN) {\n        FragC o[2];",
+                "      if (!DO_GIVEN && !CUT_3) {\n        FragC o[2];")],
+            "two dP sweeps and the dbias update": [(
+                "then dS (dbias, bf16 dS)\n      {",
+                "then dS (dbias, bf16 dS)\n      if (!CUT_4) {")],
+            "dq, dk, dv (with the dqkv stores)": [(
+                "      // ---- dq (query rows), dk and dv (key rows) of tile `warp`\n      {",
+                "      if (!CUT_5) {")],
+            "the dqkv slab stores": [_guard(
+                "        for (int seg = 0; seg < 3; ++seg) {\n"
+                "          __align__(16) bf16 t16", 6)],
+        }),
+    # K3, the register-resident schedule, mma.sync
+    "attention_bwd_regs_kernel": dict(
+        find=("block_attention.cu", "attention_bwd_regs_kernel<<<"),
+        header="attention_bwd.cuh", source="block_attention.cu", call="k3",
+        prefix="attention_bwd", phases={
+            "recompute q|k|v and dO": [
+                _guard("      pipelined(\n"
+                       "          C / K3_KC, stage0, stage0 + K3_STAGE_ELEMS,", 1)],
+            "S = q k^T": [_bound("        for (int nb = 0; nb < T / 16; ++nb) {\n"
+                                 "#pragma unroll\n"
+                                 "          for (int e = 0; e < 4; ++e) s[2 * nb][e]",
+                                 "T / 16", 2)],
+            "softmax (bias, mask, P rows)": [_bound(
+                "      for (int h = 0; h < 2; ++h) {  // rows gq and gq + 8", "2", 3)],
+            "O = P v, the acc store and D": [
+                _bound("        for (int kb = 0; kb < T / 16; ++kb) {\n"
+                       "          const uint32_t pa[4]", "T / 16", 4),
+                _bound("        for (int h = 0; h < 2; ++h) {\n"
+                       "          const int r = q0 + gq + 8 * h;", "2", 4)],
+            "dP, dS, dbias and dq": [_bound(
+                "        for (int nb = 0; nb < T / 16; ++nb) {\n          float dp[2][4] = {};",
+                "T / 16", 5)],
+            "dk and dv": [_bound("      for (int qb = 0; qb < T / 16; ++qb) {", "T / 16", 6)],
+            "the dqkv slab stores": [_bound(
+                "      for (int h = 0; h < 2; ++h) {\n        bf16* row = dqkv", "2", 7)],
+        }),
+    # the window-attention forward of K1 and K2, mma.sync with scores and
+    # probabilities in registers
+    "window_attention_kernel (mma.sync)": dict(
+        find=("window_attention.cuh", "P from the score registers"),
+        header="window_attention.cuh", source="fused_earth_block.cu", call="k1",
+        prefix="window_attention", phases={
+            "S = q k^T": [_bound("      for (int kk = 0; kk < 2; ++kk) {\n"
+                                 "        uint32_t kb[4];", "2", 1)],
+            "scale, bias and mask": [_bound(
+                "      for (int j = 2 * nb; j < 2 * nb + 2; ++j)", "2 * nb + 2", 2)],
+            "softmax": [_bound("  for (int h = 0; h < 2; ++h) {\n    float m = -INFINITY;",
+                               "2", 3)],
+            "P v": [_bound("  for (int kb = 0; kb < T / 16; ++kb) {\n    const uint32_t pa[4]",
+                           "T / 16", 4)],
+        }),
 }
 
 
-def kernel_ms(fn: Callable[[], object], n: int = 3) -> List[Tuple[str, float]]:
-    """(name, device ms) of each kernel that one call of ``fn`` launches, in
-    launch order: the mean over n calls under torch.profiler."""
+class NoKernelEvents(RuntimeError):
+    """The profiler saw no kernel event of a call, or a count that the calls
+    do not divide: its per-kernel times cannot be formed."""
+
+
+def _kernel_events(fn: Callable[[], object], n: int) -> list:
+    """The kernel events of n calls of ``fn`` (after one call outside the
+    profile) under torch.profiler."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def kernel_ms(fn: Callable[[], object], n: int = 3) -> List[Tuple[str, float]]:
+    """(name, device ms) of each kernel that one call of ``fn`` launches, in
+    launch order: the mean over n calls under torch.profiler. Raises
+    NoKernelEvents when the profiler recorded no kernel, or a number of them
+    that n does not divide."""
+    ev = sorted(_kernel_events(fn, n), key=lambda e: e.time_range.start)
+    if not ev or len(ev) % n:
+        raise NoKernelEvents(f"the profiler recorded {len(ev)} kernel events over {n} calls")
     per = len(ev) // n
     return [(_short(ev[i].name),
              sum(ev[j * per + i].time_range.elapsed_us() for j in range(n)) / n / 1e3)
@@ -172,75 +222,135 @@ def backward_split(stage, c: int, heads: int, dev, shifted: bool = False) -> dic
                 matmul_ms=yard)
 
 
-def cut_libraries(tree: str) -> Dict[str, str]:
-    """Build block_attention.cu of ``tree`` once per phase cut (in parallel);
-    phase -> shared library."""
+def build_variant(tree: str, source: str, name: str, edits=(), header: str = "",
+                  defines=()) -> Tuple[str, subprocess.Popen]:
+    """Start nvcc on ``TREE/pangu_tpu_torch/csrc/<source>`` as a throwaway
+    variant under ``build/variants/<name>``: ``header`` with text ``edits``
+    applied and ``defines`` (``NAME=VALUE``) prepended to it. Returns the
+    library's path and the nvcc process."""
     src_dir = os.path.join(tree, "pangu_tpu_torch", "csrc")
-    with open(os.path.join(src_dir, "block_attention.cu")) as f:
-        launch = f.read()
-    cuts = [c for launched, c in PHASE_CUTS.items() if launched in launch]
-    if not cuts:
-        raise ValueError(f"{tree}: K3 launches none of {list(PHASE_CUTS)}")
-    with open(os.path.join(src_dir, "attention_bwd.cuh")) as f:
-        src = f.read()
-    root = os.path.join(_build.build_dir(), "..", "cuts")
-    shutil.rmtree(root, ignore_errors=True)
-    procs = {}
-    for k, (phase, edits) in enumerate(cuts[0].items(), start=1):
-        text = src
+    d = os.path.join(_build.build_dir(), "..", "variants", name)
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(src_dir, d)
+    if header:
+        with open(os.path.join(d, header)) as f:
+            text = f.read()
         for old, new in edits:
             if text.count(old) != 1:
-                raise ValueError(f"{tree}: the attention backward has no cut point for {phase!r}")
+                raise ValueError(f"{tree}: {header} has no single cut point {old[:60]!r}")
             text = text.replace(old, new)
-        d = os.path.join(root, f"cut{k}")
-        shutil.copytree(src_dir, d)
-        with open(os.path.join(d, "attention_bwd.cuh"), "w") as f:
-            f.write(f"#define CUT {k}\n" + text)
-        lib = os.path.join(root, f"cut{k}.so")
-        procs[phase] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, os.path.join(d, "block_attention.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    for phase, (lib, proc) in procs.items():
+        with open(os.path.join(d, header), "w") as f:
+            f.write("".join(f"#define {v.replace('=', ' ', 1)}\n" for v in defines) + text)
+    lib = d + ".so"
+    return lib, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
+                                  os.path.join(d, source)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def wait_built(procs: Dict[str, Tuple[str, subprocess.Popen]]) -> Dict[str, str]:
+    """Wait for build_variant's processes; name -> library (ptxas's report
+    beside it, ``.ptxas.txt``). Raises on a failed build."""
+    for name, (lib, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the cut {phase!r}:\n{err}")
-    return {phase: lib for phase, (lib, _) in procs.items()}
+            raise RuntimeError(f"nvcc failed for {name!r}:\n{err}")
+        with open(lib + ".ptxas.txt", "w") as f:
+            f.write(err)
+    return {name: lib for name, (lib, _) in procs.items()}
 
 
-def attention_kernel_ms(fn: Callable[[], object], n: int = 3) -> float:
-    """Device ms of the attention kernel of one K3 call: its launches' total
-    over n calls under torch.profiler, over n."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and _short(e.name).startswith("attention_bwd")) / n / 1e3
+def cut_kernels(tree: str, only: str = "") -> Dict[str, dict]:
+    """The entries of PHASE_CUTS found in ``tree`` (those whose name holds
+    ``only``); a tree with none is refused."""
+    src_dir = os.path.join(tree, "pangu_tpu_torch", "csrc")
+    found = {}
+    for kernel, spec in PHASE_CUTS.items():
+        path, text = spec["find"]
+        with open(os.path.join(src_dir, path)) as f:
+            if text in f.read() and only in kernel:
+                found[kernel] = spec
+    if not found:
+        raise ValueError(f"{tree}: no kernel of {list(PHASE_CUTS)} (matching {only!r})")
+    return found
 
 
-def phase_cuts(libs: Dict[str, str], stage, c: int, heads: int, dev) -> dict:
-    """The attention kernel's time whole and with each phase cut, at one
-    stage (unshifted)."""
-    inp = stage_inputs(stage, c, heads, False, dev, seed=45)
-    call = k3_call(inp)
-    res = {"whole": attention_kernel_ms(call)}
+def cut_libraries(tree: str, only: str = "") -> Dict[str, Dict[str, str]]:
+    """Build, all at once, each kernel of ``tree`` found by ``cut_kernels``
+    once whole, once per phase cut and once with every phase cut (``all``);
+    kernel -> phase -> shared library."""
+    procs, owner = {}, {}
+    for kernel, spec in cut_kernels(tree, only).items():
+        phases = list(spec["phases"])
+        builds = {"whole": set(), **{p: {k} for k, p in enumerate(phases, start=1)},
+                  "all": set(range(1, len(phases) + 1))}
+        edits = [e for p in phases for e in spec["phases"][p]]
+        for label, cut in builds.items():
+            name = f"{spec['prefix']}-{len(owner)}"
+            owner[name] = (kernel, label)
+            procs[name] = build_variant(
+                tree, spec["source"], name, edits, spec["header"],
+                [f"CUT_{k}={int(k in cut)}" for k in range(1, len(phases) + 1)])
+    libs = {}
+    for name, lib in wait_built(procs).items():
+        kernel, label = owner[name]
+        libs.setdefault(kernel, {})[label] = lib
+    return libs
+
+
+def named_kernels_ms(fn: Callable[[], object], prefix: str, n: int = 3) -> float:
+    """Device ms of the kernels of one call of ``fn`` whose names start with
+    ``prefix``: their launches' total over n calls under torch.profiler, over
+    n. Raises NoKernelEvents when the profiler recorded none of them, or a
+    number that n does not divide (a launch it lost)."""
+    ev = [e for e in _kernel_events(fn, n) if _short(e.name).startswith(prefix)]
+    if not ev or len(ev) % n:
+        raise NoKernelEvents(f"the profiler recorded {len(ev)} {prefix} kernel events over "
+                             f"{n} calls")
+    return sum(e.time_range.elapsed_us() for e in ev) / n / 1e3
+
+
+def k1_call(inp: dict) -> Callable[[], object]:
+    wqkv, bqkv, wproj, bias, mask = inp["attn"]
+    w1, b1, w2, b2, ln_s, ln_b = inp["mlp"]
+    args = (inp["x"], wqkv, bqkv, wproj, bqkv[:inp["x"].shape[-1]].contiguous(), bias, mask,
+            ln_s, ln_b, w1, b1, w2, b2, ln_s, ln_b, *inp["statics"])
+    return lambda: fba.fused_earth_block(*args)
+
+
+@contextlib.contextmanager
+def with_library(source: str, path: str):
+    """Inside it, ``_build.load_library(source)`` returns the library at
+    ``path``."""
     load = _build.load_library
+    lib = ctypes.CDLL(path)
+    _build.load_library = lambda s: lib if s == source else load(s)
     try:
-        for phase, path in libs.items():
-            lib = ctypes.CDLL(path)
-            _build.load_library = lambda source, lib=lib: lib
-            res[phase] = attention_kernel_ms(call)
+        yield
     finally:
         _build.load_library = load
+
+
+def phase_cuts(kernel: str, libs: Dict[str, str], stage, c: int, heads: int, dev,
+               shifted: bool) -> dict:
+    """Device ms of ``kernel`` (a PHASE_CUTS entry) whole and with each phase
+    cut, at one stage, shifted or not."""
+    spec = PHASE_CUTS[kernel]
+    inp = stage_inputs(stage, c, heads, shifted, dev, seed=45)
+    call = (k3_call if spec["call"] == "k3" else k1_call)(inp)
+    res = {}
+    for phase, path in libs.items():
+        with with_library(spec["source"], path):
+            res[phase] = named_kernels_ms(call, spec["prefix"])
     return res
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--cuts", metavar="TREE", help="also time phase cuts of TREE's K3 kernel")
+    ap.add_argument("--cuts", metavar="TREE", help="also time phase cuts of TREE's kernels")
+    ap.add_argument("--only", default="", metavar="TEXT",
+                    help="cut only the kernels of PHASE_CUTS whose name holds TEXT")
+    ap.add_argument("--no-split", action="store_true",
+                    help="skip the kernel split of K7 and K3 (with --cuts: only the cuts)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA card")
@@ -249,14 +359,15 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     _build.build_all()
-    libs = cut_libraries(args.cuts) if args.cuts else {}
+    libs = cut_libraries(args.cuts, args.only) if args.cuts else {}
     g = compute_geometry(pangu_pretrain(24).model)
     for name, stage, c, heads in (("outer", g.outer, 192, 6), ("inner", g.inner, 384, 12)):
         for shifted in (False, True):
-            res = backward_split(stage, c, heads, dev, shifted)
-            if libs and not shifted:
-                res["attention_phase_cuts_ms"] = phase_cuts(libs, stage, c, heads, dev)
-            print(json.dumps({"stage": name, **res}), flush=True)
+            res = {} if args.no_split else backward_split(stage, c, heads, dev, shifted)
+            for kernel, kl in libs.items():
+                res.setdefault("phase_cuts_ms", {})[kernel] = phase_cuts(
+                    kernel, kl, stage, c, heads, dev, shifted)
+            print(json.dumps({"stage": name, "shifted": shifted, **res}), flush=True)
             torch.cuda.empty_cache()
     print(json.dumps({"device_kind": torch.cuda.get_device_name(0)}))
     return 0

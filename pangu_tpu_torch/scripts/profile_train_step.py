@@ -32,8 +32,10 @@ from pangu_tpu_torch.model import PanguModel
 from pangu_tpu_torch.rollout import make_forecast_step
 from pangu_tpu_torch.scripts import bench_train_ab
 
-#: K1's two kernels, by a part of their names: (window attention, token tail)
-K1_KERNELS = {"attention": "window_attention_kernel", "tail": "mlp_tail_kernel"}
+#: K1's two kernels, by a part of their names: the window attention (mma.sync,
+#: scores and probabilities in registers) and the token tail (wgmma/TMA)
+K1_KERNELS = {"attention window_attention_kernel (mma.sync)": "window_attention_kernel",
+              "tail mlp_tail_kernel (wgmma)": "mlp_tail_kernel"}
 
 
 def _busy_us(intervals) -> float:

@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card (marker ``gpu``; skips without one):
 the inference block K1 (also for its determinism at both stages, shifted and
 unshifted, at batch 2 and with a partial 64-row tile), the training attention
-K2/K3 (K3 also for its determinism and its sums over a batch), the post-norm
+K2/K3 (K3 also for its determinism and its sums over a batch; K1's and K2's
+window attention for the same bits on two runs and, at batch 2 with an odd
+lon-window count, the single-sample calls' bits; K2 refusing a partial
+projection tile before launch), the post-norm
 residual K4/K5, the MLP tail K6/K7 (both, and K10, also for their determinism
 and a partial 64-row tile), the
 raw MLP K8/K9, the training block K11/K12, the inference MLP tail K10, K2's
@@ -193,6 +196,66 @@ def test_cuda_attention_bwd_is_deterministic_and_sums_the_batch(cuda_device, b, 
         assert torch.equal(first[0], torch.cat([e[0] for e in each]))
         for k, name in enumerate(("wqkv", "bqkv", "wproj", "bproj", "bias"), start=1):
             assert _bounded(first[k], each[0][k].float() + each[1][k].float(), tol=0.05), name
+
+
+@pytest.mark.parametrize("c,heads,masked", [(192, 6, False), (192, 6, True), (384, 12, False),
+                                          (384, 12, True)])
+def test_cuda_window_attention_through_k1_and_k2_matches_plain_with_the_same_bits(
+        cuda_device, c, heads, masked):
+    """The window-attention kernel (scores and probabilities in mma.sync
+    registers) through K1 and K2 (its projection on wgmma) at both stage
+    widths, shifted and unshifted: against their plain versions with
+    chip_smoke.py's bounds, and the same bits on a second call."""
+    args, statics = _inputs(51, cuda_device, 1, 4, 12, 48, c, heads, masked)
+    before = (tfba.LAUNCHES, tfba.ATTN_FWD_LAUNCHES)
+    with torch.no_grad():
+        k1 = [tfba.fused_earth_block(*args, *statics) for _ in range(2)]
+        k2 = [tfba.fused_block_attention(*args[:7], None, None, *statics) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (tfba.LAUNCHES, tfba.ATTN_FWD_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(k1[0], k1[1]) and torch.equal(k2[0], k2[1])
+    assert _bounded(k1[0], tfba.fused_earth_block_reference(*args, *statics))
+    assert _bounded(k2[0], tfba.fused_block_attention_reference(*args[:7], *statics))
+
+
+@pytest.mark.parametrize("c,heads,masked", [(192, 6, True), (384, 12, False)])
+def test_cuda_window_attention_at_batch_two_with_odd_lon_windows_equals_single_samples(
+        cuda_device, c, heads, masked):
+    """K1 and K2 at batch 2 on a 4 x 12 x 36 grid (3 lon windows): each
+    sample's rows are the bits of the single-sample call, and the batch is
+    within the bounds of the plain versions."""
+    args, statics = _inputs(52, cuda_device, 2, 4, 12, 36, c, heads, masked)
+    x = args[0]
+    with torch.no_grad():
+        for fn, ref, rest in ((tfba.fused_earth_block, tfba.fused_earth_block_reference,
+                               args[1:]),
+                              (tfba.fused_block_attention, tfba.fused_block_attention_reference,
+                               (*args[1:7], None, None))):
+            both = fn(x, *rest, *statics)
+            each = torch.cat([fn(x[i:i + 1].contiguous(), *rest, *statics) for i in range(2)])
+            torch.cuda.synchronize()
+            assert torch.equal(both, each), fn.__name__
+            plain = (ref(x, *args[1:], *statics) if fn is tfba.fused_earth_block
+                     else ref(*args[:7], *statics))
+            assert _bounded(both, plain), fn.__name__
+
+
+def test_cuda_attention_projection_refuses_a_partial_row_tile_before_launch(cuda_device):
+    """K2 and its LN mode share ``_geometry``'s check with K3, whose tiles
+    take token rows in multiples of 64 (for 144-token windows, multiples of
+    576; the wgmma projection itself takes any row count): a 2 x 6 x 36 grid
+    (432 rows) is refused with a ValueError before any launch, while K1,
+    whose tail takes any row count, runs it within its bounds."""
+    args, statics = _inputs(53, cuda_device, 1, 2, 6, 36, 192, 6, True)
+    before = (tfba.ATTN_FWD_LAUNCHES, tfba.ATTN_LN_LAUNCHES)
+    with pytest.raises(ValueError):
+        tfba.fused_block_attention(*args[:7], None, None, *statics)
+    with pytest.raises(ValueError):
+        tfba.fused_block_attention(*args[:9], *statics)
+    assert (tfba.ATTN_FWD_LAUNCHES, tfba.ATTN_LN_LAUNCHES) == before
+    with torch.no_grad():
+        got = tfba.fused_earth_block(*args, *statics)
+    assert _bounded(got, tfba.fused_earth_block_reference(*args, *statics))
 
 
 @pytest.mark.parametrize("c,rows", [(192, 4608), (384, 4608), (192, 720), (384, 720)])
