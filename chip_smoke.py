@@ -48,19 +48,23 @@ Phases (any failure exits non-zero before the last line is printed):
    bf16 step the loss within 1%, the gradient's global relative L2 < 1%,
    each earth-specific bias's relative L2 < 10% and every other parameter's
    < 2% (the f32 figures are reported only);
-9. the raw MLP K8 and its backward K9 against their plain versions at both
-   stage row counts: the output and all five gradients, the bounds of phase 3;
-10. the training block K11 and its backward K12 against their plain versions
+9. the raw MLP K8 (the wgmma row kernel's raw mode) and its backward K9
+   against their plain versions at both stage row counts: the output and all
+   five gradients, the bounds of phase 3, K8 the same bits on two runs;
+10. the training block K11 and its backward K12 (the chain of the window
+   attention, the row kernel's backward mode, K7's hidden pass, K5's kernel,
+   K3's attention kernel and the wgmma products) against their plain versions
    at both stage shapes, unshifted and shifted, with per-sample scales s1 !=
-   s2: the output and all sixteen gradients, the bounds of phase 3; and K11 at
-   unit scales against K1, the same bounds (they differ only in rounding a
-   and x1 to bf16);
+   s2: the output and all sixteen gradients, the bounds of phase 3, K12 the
+   same bits on two runs and its peak memory; and K11 at unit scales against
+   K1, the same bounds (they differ only in rounding a and x1 to bf16);
 11. the A/B routes of ``pangu_tpu_torch.scripts.bench_train_ab``:
    ``fused_block`` (K11/K12, exactly 16 launches of each per step) and
    ``unfused_tail`` (K2 16 / K3 16, K4 32 / K5 16, K8 16 / K9 16): one step
    from phase 8's weights, batch and drop-path draws, finite loss and
    gradients and the bounds of phase 8 against the plain bf16 step; then 3
-   timed steps through the script's helper, step time and peak memory;
+   timed steps through the script's helper, step time and peak memory, on one
+   line beside the default route's;
 12. the inference MLP tail K10 (``fused_mlp_block``) at both stage row counts
    and K2's LN-epilogue mode at both stages, unshifted and shifted, against
    their plain versions (the bounds of phase 3); K10 against K6 at s = 1
@@ -606,7 +610,7 @@ def check_mlp(g, dev) -> dict:
 
 def check_raw_mlp(g, dev) -> dict:
     """Phase 9: K8 and K9 against their plain versions at both stage row
-    counts; all five gradients."""
+    counts; all five gradients; K8 the same bits on two runs."""
     fwd, bwd = [], []
     names = ("dx", "dw1", "db1", "dw2", "db2")
     for name, stage, c in (("outer", g.outer, 192), ("inner", g.inner, 384)):
@@ -622,10 +626,11 @@ def check_raw_mlp(g, dev) -> dict:
         with torch.no_grad():
             got = fmlp.fused_mlp(x, *weights)
             torch.cuda.synchronize()
+            same8 = same_bits(f"K8 {name}", (got,), (fmlp.fused_mlp(x, *weights),))
             err = check_outputs(f"K8 {name}", {"out": compare(
                 got, fmlp.fused_mlp_reference(x, *weights))})
             del got
-            fwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err,
+            fwd.append(dict(stage=name, rows=rows, c=c, max_abs_err=err, same_bits=same8,
                             **bound("fused_mlp", rows, c),
                             ms=cuda_times_ms(lambda: fmlp.fused_mlp(x, *weights)),
                             plain_ms=cuda_times_ms(lambda: fmlp.fused_mlp_reference(x, *weights),
@@ -654,7 +659,8 @@ def check_raw_mlp(g, dev) -> dict:
 def check_block_train(g, dev) -> dict:
     """Phase 10: K11 and K12 against their plain versions at both stage
     shapes, unshifted and shifted, with per-sample scales s1 != s2 (all
-    sixteen gradients); K11 at unit scales against K1."""
+    sixteen gradients; K12 the same bits on two runs); K11 at unit scales
+    against K1."""
     fwd, bwd = [], []
     s1, s2 = torch.full((1,), 1.25, device=dev), torch.full((1,), 0.8, device=dev)
     for name, stage, c, heads in (("outer", g.outer, 192, 6), ("inner", g.inner, 384, 12)):
@@ -684,6 +690,7 @@ def check_block_train(g, dev) -> dict:
                 bargs = (*args, s1, s2, gy, *statics)
                 grads = fbt.fused_earth_block_train_bwd(*bargs)
                 torch.cuda.synchronize()
+                same = same_bits(f"K12 {label}", grads, fbt.fused_earth_block_train_bwd(*bargs))
                 torch.cuda.reset_peak_memory_stats(dev)
                 ref = fbt.fused_earth_block_train_bwd_reference(*bargs)
                 plain_peak = torch.cuda.max_memory_allocated(dev)
@@ -694,7 +701,7 @@ def check_block_train(g, dev) -> dict:
                 torch.cuda.reset_peak_memory_stats(dev)
                 fbt.fused_earth_block_train_bwd(*bargs)
                 peak = torch.cuda.max_memory_allocated(dev)
-                bwd.append(dict(stage=name, shifted=shifted, max_abs_err=err,
+                bwd.append(dict(stage=name, shifted=shifted, max_abs_err=err, same_bits=same,
                                 peak_bytes=peak, plain_peak_bytes=plain_peak,
                                 **bound("fused_earth_block_train_bwd", *geo),
                                 ms=cuda_times_ms(lambda: fbt.fused_earth_block_train_bwd(*bargs)),
@@ -1072,8 +1079,9 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     ab = check_ab(cfg, aux, ref, dev)
-    log(f"A/B: default route {tr['step_s']:.6f} s, fused_block "
-        f"{ab['fused_block']['step_s']:.6f} s, unfused_tail {ab['unfused_tail']['step_s']:.6f} s")
+    log("A/B: " + ", ".join(
+        f"{name} {r['step_s']:.6f} s, peak memory {r['peak_bytes'] / 2**30:.3f} GiB"
+        for name, r in (("default route", tr), *ab.items())))
 
     tail, tail_path = check_inference_tail(model_geom, dev)
     shapes.update(tail)

@@ -270,7 +270,7 @@ int pangu_attn_fat_fwd(const void* x, const void* wqkv, const void* bqkv, const 
                        float scale, void* stream) {
   const long long rows = (long long)B * Z * Hp * W;
   if (C != FC || heads != FH || wz * wh * ww != T || B < 1 || Z % wz || Hp % wh || W % ww ||
-      rows % GM)
+      rows % ROW_TILE)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const Geom g{B, Z, Hp, W, C, heads, wz, wh, ww};

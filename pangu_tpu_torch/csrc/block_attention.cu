@@ -70,7 +70,7 @@ namespace {
 bool geometry_ok(int B, int Z, int Hp, int W, int C, int heads, int wz, int wh, int ww) {
   const long long rows = (long long)B * Z * Hp * W;
   return wz * wh * ww == T && C == heads * D && C % 64 == 0 && C <= 1024 && B >= 1 &&
-         Z % wz == 0 && Hp % wh == 0 && W % ww == 0 && rows % GM == 0;
+         Z % wz == 0 && Hp % wh == 0 && W % ww == 0 && rows % ROW_TILE == 0;
 }
 
 }  // namespace
@@ -167,10 +167,10 @@ int pangu_block_attention_bwd(const void* x, const void* gy, const void* wqkv, c
   bf16* ac = static_cast<bf16*>(acc_buf);
   float* part = static_cast<float*>(scratch);
 
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_regs_kernel,
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_regs_kernel<true>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, K3_SMEM);
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_regs_kernel<<<(unsigned)(n_types * heads), BWD_THREADS, K3_SMEM, s>>>(
+  attention_bwd_regs_kernel<true><<<(unsigned)(n_types * heads), BWD_THREADS, K3_SMEM, s>>>(
       xb, gb, static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
       static_cast<const bf16*>(wproj), static_cast<const float*>(bias),
       static_cast<const float*>(mask), dq, ac, static_cast<float*>(dbias), part,

@@ -1,11 +1,11 @@
 // The bf16 matrix products of the training backwards, f32 sums, and column
 // sums: the weight grads over every token row (dW = A^T B, gemm<false, true>:
 // K7's dW1 = dh^T x and dW2 = dy^T a, K9's, K3's dWqkv = dqkv^T x and dWproj =
-// g^T acc, K12's), K3's dx = dqkv @ Wqkv (gemm<true, true>), the out-projection
-// of the forward K2 with its bias (gemm<true, false>, B stored (n, k)) and K12's
-// dx sum (gemm_sum).
+// g^T acc, K12's), K3's dx = dqkv @ Wqkv and K12's dx = dqkv @ Wqkv + dx1 with
+// its f32 addend (gemm<true, true>), and the out-projection of the forward K2
+// with its bias (gemm<true, false>, B stored (n, k)).
 //
-//   out(m, n) = sum_k A(m, k) B(k, n)  [+ sum_k A2(m, k) B2(k, n) + addend(m, n)]
+//   out(m, n) = sum_k A(m, k) B(k, n)  [+ bias(n)]  [+ addend(m, n)]
 //   A(m, k) = A[m * lda + k] (A_ROW) or A[k * lda + m] (A stored transposed)
 //   B(k, n) = B[k * ldb + n] (B_ROW) or B[n * ldb + k] (B stored transposed)
 //
@@ -27,10 +27,7 @@
 // ~2 rows M N FLOP, ~150 FLOP per byte, under the card's ~295 FLOP/B ridge:
 // bytes. The design reads each operand once from device memory and keeps the
 // tensor cores fed from TMA stages, so it is held by the L2 and memory feed.
-// K2's projection moves 2 rows C bf16 bytes for 2 rows C^2 FLOP: bytes. The
-// remaining wmma product (K12's dx sum, gemm_sum): 64 x 64 tiles of 4 warps,
-// 16x16x16 fragments from a two-stage cp.async ring, bound by the fragment
-// loads from shared memory.
+// K2's projection moves 2 rows C bf16 bytes for 2 rows C^2 FLOP: bytes.
 
 #pragma once
 
@@ -38,82 +35,9 @@
 
 namespace {
 
-constexpr int GM = 64, GN = 64, GK = 32;
-constexpr int GEMM_THREADS = 128;
-constexpr int G_A_ELEMS = GM * (GK + 8);
-constexpr int G_B_ELEMS = GK * (GN + 8);
-constexpr int G_STAGE_ELEMS = G_A_ELEMS + G_B_ELEMS;
-constexpr int G_C_LD = GN + 4;
-constexpr int G_SMEM = 2 * G_STAGE_ELEMS * 2 > GM * G_C_LD * 4 ? 2 * G_STAGE_ELEMS * 2
-                                                               : GM * G_C_LD * 4;
-static_assert((G_A_ELEMS * 2) % 32 == 0 && (G_STAGE_ELEMS * 2) % 32 == 0,
-              "wmma needs 256-bit aligned tiles");
-
-// out = bf16(A B + A2 B2 (+ addend)), all four row-major, one CTA per 64 x 64
-// output tile, the depths K then K2 through one cp.async ring.
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ B,
-            long long ldb, int N, long long K, const bf16* __restrict__ A2, long long lda2,
-            const bf16* __restrict__ B2, long long ldb2, long long K2,
-            const bf16* __restrict__ addend, bf16* __restrict__ out) {
-  __shared__ __align__(128) unsigned char smem[G_SMEM];
-  bf16* st0 = reinterpret_cast<bf16*>(smem);
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const long long m0 = (long long)blockIdx.x * GM;  // x: up to 2^31 - 1 row tiles
-  const int n0 = blockIdx.y * GN;
-  constexpr int A_LD = GK + 8;
-  constexpr int B_LD = GN + 8;
-
-  FragC acc[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int nk = (int)(K / GK), nk2 = (int)(K2 / GK);
-  if (nk + nk2 > 0)
-    pipelined(
-        nk + nk2, st0, st0 + G_STAGE_ELEMS,
-        [&](int i, bf16* st) {
-          const bool first = i < nk;
-          const bf16* a = first ? A : A2;
-          const bf16* b = first ? B : B2;
-          const long long la = first ? lda : lda2, lb = first ? ldb : ldb2;
-          const long long k0 = (long long)(first ? i : i - nk) * GK;
-          stage_tile(st, A_LD, a + m0 * la + k0, la, GM, GK);
-          stage_tile(st + G_A_ELEMS, B_LD, b + k0 * lb + n0, lb, GK, GN);
-        },
-        [&](int, bf16* st) {
-          const bf16* As = st;
-          const bf16* Bs = st + G_A_ELEMS;
-          for (int kk = 0; kk < GK; kk += 16) {
-            for (int i = 0; i < 2; ++i) {
-              FragA a;
-              wmma::load_matrix_sync(a, As + (wm * 32 + i * 16) * A_LD + kk, A_LD);
-              for (int j = 0; j < 2; ++j) {
-                FragB b;
-                wmma::load_matrix_sync(b, Bs + kk * B_LD + wn * 32 + j * 16, B_LD);
-                wmma::mma_sync(acc[i][j], a, b, acc[i][j]);
-              }
-            }
-          }
-        });
-  // the stages are dead (pipelined ends with a barrier): the f32 tile goes there
-  float* Cs = reinterpret_cast<float*>(smem);
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * G_C_LD + wn * 32 + j * 16, acc[i][j],
-                              G_C_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int v = threadIdx.x; v < GM * GN / 8; v += GEMM_THREADS) {
-    const int r = v / (GN / 8), c = (v - r * (GN / 8)) * 8;
-    __align__(16) bf16 tmp[8];
-    for (int e = 0; e < 8; ++e) {
-      float y = Cs[r * G_C_LD + c + e];
-      if (addend) y += __bfloat162float(addend[(m0 + r) * N + n0 + c + e]);
-      tmp[e] = __float2bfloat16(y);
-    }
-    *reinterpret_cast<uint4*>(out + (m0 + r) * N + n0 + c) = *reinterpret_cast<const uint4*>(tmp);
-  }
-}
+// The token-row multiple of the attention kernels' grids (K2, K3, K11, K12 and
+// the A/B kernels): one wgmma row block.
+constexpr int ROW_TILE = 64;
 
 // ---- the wgmma products ------------------------------------------------------------
 constexpr int WG_CONSUMERS = 3;                       // warpgroups, 64 output rows each
@@ -134,14 +58,15 @@ struct WgMaps {
 // kchunk, +kchunk) of A (K, M) and B (K, N), both MN-major; units = tiles x
 // splits, split-major. Otherwise out (M x N bf16) = A B (+ bias) with A (M, K)
 // K-major and B (K, N) MN-major, or with BT stored (N, K) (nn.Linear's
-// weight, K-major), rows >= M not stored; units = tiles. A unit is one 192 x
+// weight, K-major), plus the f32 addend (M x N, row stride N) where it is
+// given, rows >= M not stored; units = tiles. A unit is one 192 x
 // 192 output tile (with its row slice); CTA i takes units i, i + grid, ... The
 // maps read 64 x 64 boxes, 128-byte swizzle.
 template <bool ROWSPLIT, bool BT = false>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wg_gemm_kernel(const __grid_constant__ WgMaps maps, int M, int N, long long K, long long kchunk,
-               int units, const bf16* __restrict__ bias, float* __restrict__ part,
-               bf16* __restrict__ out) {
+               int units, const bf16* __restrict__ bias, const float* __restrict__ addend,
+               float* __restrict__ part, bf16* __restrict__ out) {
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * WG_STAGE_BYTES);
   uint64_t* empty = full + WG_STAGES;
@@ -263,6 +188,15 @@ wg_gemm_kernel(const __grid_constant__ WgMaps maps, int M, int N, long long K, l
       for (int h = 0; h < 2; ++h) {
         if (r0 + 8 * h >= M) continue;
         bf16* o = out + (long long)(r0 + 8 * h) * N + c0;
+        if (addend) {
+          const float* ad = addend + (long long)(r0 + 8 * h) * N + c0;
+#pragma unroll
+          for (int g = 0; g < 24; ++g) {
+            const float2 t = *reinterpret_cast<const float2*>(ad + 8 * g);
+            acc[4 * g + 2 * h] += t.x;
+            acc[4 * g + 2 * h + 1] += t.y;
+          }
+        }
 #pragma unroll
         for (int g = 0; g < 24; ++g)
           *reinterpret_cast<__nv_bfloat162*>(o + 8 * g) =
@@ -286,8 +220,8 @@ inline int weight_grad_splits(int M, int N, long long K) {
 //  * gemm<false, true>: out = bf16(A^T B) over the K token rows, split over
 //    at most `splits` row slices with f32 partials in `part` (splits x M x N),
 //    summed in order; M and N multiples of 192, K any.
-//  * gemm<true, true>: out = bf16(A B); M any, N a multiple of 192, K of 64;
-//    splits 1, no bias.
+//  * gemm<true, true>: out = bf16(A B + addend) (the f32 addend, M x N, may
+//    be null); M any, N a multiple of 192, K of 64; splits 1, no bias.
 //  * gemm<true, false>: out = bf16(A B + bias) with B stored (N, K)
 //    (nn.Linear's weight: x W^T + b, K2's out-projection); the bias (N bf16)
 //    may be null; M any, N a multiple of 192, K of 64; splits 1.
@@ -295,12 +229,13 @@ inline int weight_grad_splits(int M, int N, long long K) {
 template <bool A_ROW, bool B_ROW>
 cudaError_t gemm(const bf16* A, long long lda, const bf16* B, long long ldb, int M, int N,
                  long long K, int splits, const bf16* bias, bf16* out_bf16, float* part,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, const float* addend = nullptr) {
   static_assert(A_ROW || B_ROW, "a weight-grad product takes B stored (K, N)");
   if (splits < 1) return cudaErrorInvalidValue;
   constexpr bool ROWSPLIT = !A_ROW, BT = !B_ROW;
   const bool shape_ok = ROWSPLIT ? M % WG_BM == 0 : (K % WG_BK == 0 && splits == 1);
-  if (N % WG_BN || (bias && B_ROW) || !shape_ok) return cudaErrorInvalidValue;
+  if (N % WG_BN || (bias && B_ROW) || (addend && ROWSPLIT) || !shape_ok)
+    return cudaErrorInvalidValue;
   WgMaps maps;
   const bool ok = (ROWSPLIT ? tensor_map(&maps.a, A, M, K, lda, 64, 64,
                                          CU_TENSOR_MAP_SWIZZLE_128B)
@@ -322,22 +257,9 @@ cudaError_t gemm(const bf16* A, long long lda, const bf16* B, long long ldb, int
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
   if (err != cudaSuccess) return err;
   wg_gemm_kernel<ROWSPLIT, BT><<<grid, WG_THREADS, WG_SMEM, stream>>>(
-      maps, M, N, K, kchunk, units, bias, part, out_bf16);
+      maps, M, N, K, kchunk, units, bias, addend, part, out_bf16);
   if ((err = cudaGetLastError()) != cudaSuccess || !ROWSPLIT) return err;
   return reduce_partials(part, parts, (long long)M * N, out_bf16, nullptr, stream);
-}
-
-// out_bf16 = bf16(A B + A2 B2 (+ addend)), M x N, depths K and K2 (multiples
-// of 32), all four row-major; addend (M x N bf16, row stride N) may be null;
-// M, N multiples of 64 (wmma).
-cudaError_t gemm_sum(const bf16* A, long long lda, const bf16* B, long long ldb, long long K,
-                     const bf16* A2, long long lda2, const bf16* B2, long long ldb2, long long K2,
-                     int M, int N, const bf16* addend, bf16* out_bf16, cudaStream_t stream) {
-  if (M % GM || N % GN || K % GK || K2 % GK) return cudaErrorInvalidValue;
-  const dim3 grid(M / GM, N / GN, 1);
-  gemm_kernel<<<grid, GEMM_THREADS, 0, stream>>>(A, lda, B, ldb, N, K, A2, lda2, B2, ldb2, K2,
-                                                 addend, out_bf16);
-  return cudaGetLastError();
 }
 
 // part[b * C + c] = sum of column c of x over rows [b * rpb, (b + 1) * rpb).

@@ -1,10 +1,12 @@
 // The forward MLP row engine on wgmma and TMA (sm_90a), and the row kernel
-// built on it: the MLP tail K6 / K10 (fused_mlp.cu) and the token tail of the
-// blocks K1 (fused_earth_block.cu), K11 (fused_block_train.cu) and K2's
-// LN-epilogue mode (block_attention.cu).
+// built on it: the MLP tail K6 / K10 and the raw MLP K8 (fused_mlp.cu), the
+// row pass of the MLP-tail backward K7 (fused_mlp.cu) and of the block
+// backward K12 (fused_block_train.cu), and the token tail of the blocks K1
+// (fused_earth_block.cu), K11 (fused_block_train.cu) and K2's LN-epilogue mode
+// (block_attention.cu).
 //
-// mlp_tail_kernel<C, PROJ, MLP, TRAIN> computes, per token row of `in`
-// (rows, C) bf16:
+// mlp_tail_kernel<C, PROJ, MLP, TRAIN, BWD, RAW> computes, per token row of
+// `in` (rows, C) bf16:
 //
 //   PROJ    a   = in Wproj^T + bproj          (the attention output projected;
 //                                               TRAIN: rounded to bf16)
@@ -12,6 +14,9 @@
 //           out = bf16(x1)                     (MLP false: K2's LN mode)
 //   MLP     y   = bf16(GELU(u W1^T + b1)) W2^T + b2,   u = bf16(x1) (PROJ) or in
 //           out = bf16(r + s2 LN2(y)),         r = x1 (PROJ) or in (K6, K10)
+//   RAW     out = bf16(y)                      (MLP without PROJ: K8)
+//   BWD     the LayerNorm-2 backward of gy instead of `out` (K7's row pass;
+//           with PROJ and TRAIN, K12's, which also writes a and x1)
 //
 // with the rounding points of the Pallas bodies: the hidden is rounded to bf16
 // after an f32 GELU; the products, LayerNorm (E[y^2] - mu^2, eps 1e-5), the
@@ -324,18 +329,21 @@ __device__ __forceinline__ void row_stats(const float (&v)[C / 4], float* buf, i
 struct TailArgs {
   const bf16 *x, *bproj, *b1, *b2, *gy;
   const float *ln1_s, *ln1_b, *ln2_s, *ln2_b, *s1, *s2;
-  bf16* out;
+  bf16 *out, *a_out, *x1_out;
   float *ds, *part;
   long long rows, rows_per_scale;
 };
 
-// BWD (the row pass of the MLP-tail backward K7, MLP without PROJ): from the
-// output gradient gy and the per-row scale s2, per row ds = sum gy (yhat LN2_s
-// + LN2_b), and dy = LN backward of s2 gy written to `out` (bf16); the f32
-// column sums of s2 gy yhat, s2 gy and dy (dgamma, dbeta, db2) over this
-// CTA's rows go to part[k][4 blockIdx + warp in the warpgroup][C], k = 0, 1,
-// 2 (4 grid partials of each, summed in order by the caller).
-template <int C, bool PROJ, bool MLP, bool TRAIN, bool BWD = false>
+// BWD (the row pass of an MLP-tail backward, MLP): from the output gradient gy
+// and the scale s2 (K7: per row; K12: one per `rows_per_scale` rows), per row
+// ds = sum gy (yhat LN2_s + LN2_b), and dy = LN backward of s2 gy written to
+// `out` (bf16); the f32 column sums of s2 gy yhat, s2 gy and dy (dgamma,
+// dbeta, db2) over this CTA's rows go to part[k][4 blockIdx + warp in the
+// warpgroup][C], k = 0, 1, 2 (4 grid partials of each, summed in order by the
+// caller). With PROJ (K12) the MLP input is recomputed first and a and x1, its
+// bf16 rounding points, go to a_out and x1_out.
+// RAW (K8, MLP without PROJ): out = bf16(y), no LayerNorm, scale or residual.
+template <int C, bool PROJ, bool MLP, bool TRAIN, bool BWD = false, bool RAW = false>
 __global__ void __launch_bounds__(WG_TAIL_THREADS, 1)
 mlp_tail_kernel(const __grid_constant__ TailMaps maps, const bf16* __restrict__ x,
                 const bf16* __restrict__ bproj, const bf16* __restrict__ b1,
@@ -344,9 +352,11 @@ mlp_tail_kernel(const __grid_constant__ TailMaps maps, const bf16* __restrict__ 
                 const float* __restrict__ ln2_s, const float* __restrict__ ln2_b,
                 const float* __restrict__ s1, const float* __restrict__ s2,
                 bf16* __restrict__ out, float* __restrict__ ds, float* __restrict__ part,
-                long long rows, long long rows_per_scale) {
+                bf16* __restrict__ a_out, bf16* __restrict__ x1_out, long long rows,
+                long long rows_per_scale) {
   static_assert(PROJ || MLP, "a tail projects, runs the MLP, or both");
-  static_assert(!BWD || (MLP && !PROJ), "the row pass is an MLP tail's");
+  static_assert(!BWD || (MLP && (!PROJ || TRAIN)), "the row pass is a training MLP tail's");
+  static_assert(!RAW || (MLP && !PROJ && !BWD), "the raw MLP has no tail");
   using L = WgTailLayout<C>;
   constexpr int NV = C / 4;           // f32 values of a thread's half of a 64 x C tile
   constexpr int NG = C / 16;          // its 8-column groups (two columns each)
@@ -380,7 +390,7 @@ mlp_tail_kernel(const __grid_constant__ TailMaps maps, const bf16* __restrict__ 
   const int c0 = w * L::HALF + 2 * (lane & 3);    // its first column (and + 8 g, + 1)
   uint32_t px = 0, seq = 0, nh = 0, nt = 0;
   float y[NV];
-  volatile float x1s[PROJ && MLP ? NV : 1];  // x1 for the final residual (see the header)
+  volatile float x1s[PROJ && MLP && !BWD ? NV : 1];  // x1 for the final residual (see the header)
   float colp[BWD ? OWN : 1][2][3] = {};      // BWD: the warp's column sums this lane keeps
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++nt) {
     const long long row0 = tile * WG_TAIL_ROWS;
@@ -419,9 +429,17 @@ mlp_tail_kernel(const __grid_constant__ TailMaps maps, const bf16* __restrict__ 
             v0 = __low2float(vb);
             v1 = __high2float(vb);
           }
-          if constexpr (MLP) {
+          if constexpr (BWD) {  // a (already rounded) and x1 to their slabs
+            if (live) {
+              *reinterpret_cast<__nv_bfloat162*>(a_out + row * C + c) =
+                  __floats2bfloat162_rn(y[4 * g + 2 * hr], y[4 * g + 2 * hr + 1]);
+              *reinterpret_cast<__nv_bfloat162*>(x1_out + row * C + c) = vb;
+            }
+          } else if constexpr (MLP) {
             x1s[4 * g + 2 * hr] = v0;
             x1s[4 * g + 2 * hr + 1] = v1;
+          }
+          if constexpr (MLP) {
             *reinterpret_cast<__nv_bfloat162*>(smem + L::X + (c >> 6) * L::XBOX + r * 128 +
                                                ((((c & 63) >> 3) ^ (r & 7)) << 4) +
                                                (c & 7) * 2) = vb;
@@ -438,16 +456,37 @@ mlp_tail_kernel(const __grid_constant__ TailMaps maps, const bf16* __restrict__ 
     if constexpr (MLP) {
       tail_mlp<C>(smem, full, empty, x_empty, seq, nh, b1, w, lane, rl, y);
       add_bias<C>(y, b2, c0);
+      if constexpr (RAW) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const long long row = row0 + rl + 8 * hr;
+          if (row >= rows) continue;
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+            *reinterpret_cast<__nv_bfloat162*>(out + row * C + c0 + 8 * g) =
+                __floats2bfloat162_rn(y[4 * g + 2 * hr], y[4 * g + 2 * hr + 1]);
+        }
+        continue;
+      }
       float mu[2], rs[2];
       row_stats<C>(y, stats + 1024, w, rl, lane, mu, rs);
       if constexpr (BWD) {
-        // yhat over y; per row ds, m1 = sum dyh and m2 = sum dyh yhat, dyh = s gy LN2_s
+        // yhat over y; per row ds, m1 = sum dyh and m2 = sum dyh yhat, dyh = s gy LN2_s.
+        // PROJ (K12): s2 is per sample, its index (a 64-bit division) formed once a row
+        float s2r[2] = {0.f, 0.f};
+        if constexpr (PROJ) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const long long row = row0 + rl + 8 * hr;
+            if (row < rows) s2r[hr] = s2[row / rows_per_scale];
+          }
+        }
         float sums[2][3] = {};
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const long long row = row0 + rl + 8 * hr;
           const bool live = row < rows;
-          const float sc = live ? s2[row] : 0.f;
+          const float sc = live ? (PROJ ? s2r[hr] : s2[row]) : 0.f;
 #pragma unroll
           for (int g = 0; g < NG; ++g) {
             const int c = c0 + 8 * g;
@@ -486,7 +525,7 @@ mlp_tail_kernel(const __grid_constant__ TailMaps maps, const bf16* __restrict__ 
           for (int hr = 0; hr < 2; ++hr) {
             const long long row = row0 + rl + 8 * hr;
             const bool live = row < rows;
-            const float sc = live ? s2[row] : 0.f;
+            const float sc = live ? (PROJ ? s2r[hr] : s2[row]) : 0.f;
             const float2 gv = live ? __bfloat1622float2(
                                          *reinterpret_cast<const __nv_bfloat162*>(gy + row * C + c))
                                    : make_float2(0.f, 0.f);
@@ -558,7 +597,7 @@ inline int tail_grid(long long rows) {
 // The row kernel on `stream` over a.rows rows of `in` (see mlp_tail_kernel),
 // tail_grid(a.rows) CTAs. Null pointers where the mode reads nothing (Wproj
 // without PROJ; W1 and W2 without MLP). Base addresses 16-byte aligned.
-template <int C, bool PROJ, bool MLP, bool TRAIN, bool BWD = false>
+template <int C, bool PROJ, bool MLP, bool TRAIN, bool BWD = false, bool RAW = false>
 cudaError_t launch_mlp_tail(const bf16* in, const bf16* wproj, const bf16* w1, const bf16* w2,
                             const TailArgs& a, cudaStream_t stream) {
   using L = WgTailLayout<C>;
@@ -569,13 +608,13 @@ cudaError_t launch_mlp_tail(const bf16* in, const bf16* wproj, const bf16* w1, c
       (MLP && (!tensor_map(&maps.w1, w1, C, 4 * C, C, 32, 64, CU_TENSOR_MAP_SWIZZLE_64B) ||
                !tensor_map(&maps.w2, w2, 4 * C, C, 4 * C, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B))))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(mlp_tail_kernel<C, PROJ, MLP, TRAIN, BWD>,
+  cudaError_t err = cudaFuncSetAttribute(mlp_tail_kernel<C, PROJ, MLP, TRAIN, BWD, RAW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
-  mlp_tail_kernel<C, PROJ, MLP, TRAIN, BWD>
+  mlp_tail_kernel<C, PROJ, MLP, TRAIN, BWD, RAW>
       <<<tail_grid(a.rows), WG_TAIL_THREADS, L::SMEM, stream>>>(
           maps, a.x, a.bproj, a.b1, a.b2, a.gy, a.ln1_s, a.ln1_b, a.ln2_s, a.ln2_b, a.s1, a.s2,
-          a.out, a.ds, a.part, a.rows, a.rows_per_scale);
+          a.out, a.ds, a.part, a.a_out, a.x1_out, a.rows, a.rows_per_scale);
   return cudaGetLastError();
 }
 

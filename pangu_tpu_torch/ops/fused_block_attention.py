@@ -159,7 +159,8 @@ def attention_xla_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
 
 def fused_block_attention_bwd_reference(x, wqkv, bqkv, wproj, bias, mask, g,
                                         window: Tuple[int, int, int], heads: int,
-                                        scale: float, round_grads: bool = True):
+                                        scale: float, round_grads: bool = True,
+                                        dx_addend: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K3: the flash backward of K2 written out with
     the Pallas body's rounding points (q|k|v, the probabilities, dO, dS and
     dq|dk|dv in x's dtype; p, dP and every sum f32), not autograd. ``g`` is
@@ -167,7 +168,8 @@ def fused_block_attention_bwd_reference(x, wqkv, bqkv, wproj, bias, mask, g,
     nn.Linear's layout, rounded to their argument's dtype (dbproj to wproj's,
     as the Pallas wrapper does; f32 with ``round_grads`` False, as the
     attention-backward A/B variants return them), dbias f32 summed over batch
-    and lon windows."""
+    and lon windows. ``dx_addend`` (x's shape, f32) is added to dqkv Wqkv
+    before dx's one rounding, as the training-block backward K12 adds dx1."""
     dt = x.dtype
     b, z, hp, w, c = x.shape
     d = c // heads
@@ -208,7 +210,10 @@ def fused_block_attention_bwd_reference(x, wqkv, bqkv, wproj, bias, mask, g,
     dqkv = torch.cat([per_token(dq), per_token(dk), per_token(dv)], dim=-1)  # f32
     dbqkv = dqkv.sum(dim=(0, 1, 2, 3))
     dqkv = dqkv.to(dt)
-    dx = window_reverse(dot_f32(dqkv, wqkv).to(dt), window, z, hp, w)
+    dx = dot_f32(dqkv, wqkv)
+    if dx_addend is not None:
+        dx = dx + window_partition(dx_addend, window).float()
+    dx = window_reverse(dx.to(dt), window, z, hp, w)
     dwqkv = dot_f32(rows(dqkv).t(), rows(xw))
     dwproj = dot_f32(rows(gw).t(), rows(acc))
     dbproj = rows(gw).float().sum(0)

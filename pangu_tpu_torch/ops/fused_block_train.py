@@ -227,7 +227,7 @@ def _library() -> ctypes.CDLL:
         lib.pangu_block_train_fwd.restype = ctypes.c_int
         lib.pangu_block_train_bwd_scratch.argtypes = [ctypes.c_int] * 9
         lib.pangu_block_train_bwd_scratch.restype = ctypes.c_longlong
-        lib.pangu_block_train_bwd.argtypes = [ctypes.c_void_p] * 42 + tail
+        lib.pangu_block_train_bwd.argtypes = [ctypes.c_void_p] * 45 + tail
         lib.pangu_block_train_bwd.restype = ctypes.c_int
     return lib
 
@@ -244,15 +244,13 @@ def _check_scales(x, s1, s2) -> None:
 def _kernel_scales(name, x, args, s1, s2, window, heads):
     """Raise ValueError on what the kernels do not take (bf16 activations,
     144-token windows, head dim 32, C in (192, 384), hidden 4C, contiguous
-    32-byte aligned tensors, a multiple of 48 token rows per sample and of 64
-    in all); return the per-sample scales as contiguous (B,) f32."""
+    32-byte aligned tensors, a multiple of 64 token rows); return the
+    per-sample scales as contiguous (B,) f32."""
     s1c, s2c = s1.reshape(-1).contiguous(), s2.reshape(-1).contiguous()
     _check_kernel_args(name, (x, *args, s1c, s2c), x, window, heads)
     c = x.shape[-1]
     if args[8].shape[0] != 4 * c:
         raise ValueError(f"the CUDA kernel takes an MLP hidden of 4C, got {args[8].shape[0]}")
-    if (x.numel() // c // x.shape[0]) % 48:
-        raise ValueError("the CUDA kernel takes a multiple of 48 token rows per sample")
     return s1c, s2c
 
 
@@ -290,14 +288,14 @@ def _bwd_launch(x, args, s1, s2, g, window, heads, scale):
         n_scratch = lib.pangu_block_train_bwd_scratch(*geom)
         if n_scratch <= 0:
             raise RuntimeError("fused_earth_block_train_bwd: no scratch size for this shape")
-        bufs = (torch.empty(rows, c, dtype=dt, device=dev),       # acc
-                torch.empty(rows, c, dtype=dt, device=dev),       # dO
-                torch.empty(rows, c, dtype=dt, device=dev),       # dy2
+        f32 = torch.float32
+        bufs = (*(torch.empty(rows, c, dtype=dt, device=dev) for _ in range(5)),  # acc a x1 dy2 da
                 torch.empty(rows, 4 * c, dtype=dt, device=dev),   # GELU(h)
                 torch.empty(rows, 4 * c, dtype=dt, device=dev),   # dh
                 torch.empty(rows, 3 * c, dtype=dt, device=dev),   # dqkv
-                torch.empty(2 * rows, dtype=torch.float32, device=dev),
-                torch.empty(n_scratch, dtype=torch.float32, device=dev))
+                torch.empty(rows, c, dtype=f32, device=dev),      # dx1
+                torch.empty(2 * rows, dtype=f32, device=dev),     # ds1, ds2 per row
+                torch.empty(n_scratch, dtype=f32, device=dev))
         grads = tuple(torch.empty_like(t) for t in (x, wqkv, bqkv, wproj, bproj, bias, ln1_s,
                                                      ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, s1c, s2c))
         stream = torch.cuda.current_stream(dev).cuda_stream

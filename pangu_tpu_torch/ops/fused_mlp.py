@@ -80,11 +80,14 @@ def fused_mlp_postnorm_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, s) -> tor
     return (x.float() + s[:, None] * y).to(x.dtype)
 
 
-def fused_mlp_postnorm_bwd_reference(x, g, w1, b1, w2, b2, ln_scale, ln_bias, s):
+def fused_mlp_postnorm_bwd_reference(x, g, w1, b1, w2, b2, ln_scale, ln_bias, s,
+                                     dx_dtype=None):
     """Plain PyTorch version of K7 on rows, the Pallas body's formula (not
-    autograd): from g = dL/dout (R, C), returns dx (x's dtype), dw1, db1,
-    dw2, db2 (their argument's dtype), dgamma, dbeta (f32, (C,)) and ds (f32,
-    (R,)). dy and dh are rounded to x's dtype where they feed a product."""
+    autograd): from g = dL/dout (R, C), returns dx (x's dtype, or
+    ``dx_dtype``: f32 for the training-block backward K12's unrounded dx1),
+    dw1, db1, dw2, db2 (their argument's dtype), dgamma, dbeta (f32, (C,)) and
+    ds (f32, (R,)). dy and dh are rounded to x's dtype where they feed a
+    product."""
     dt = x.dtype
     gf, gamma = g.float(), ln_scale.float()
     h = dot_f32(x, w1.t()) + b1.float()
@@ -108,7 +111,7 @@ def fused_mlp_postnorm_bwd_reference(x, g, w1, b1, w2, b2, ln_scale, ln_bias, s)
     dh = dot_f32(dyw, w2) * gelu_grad(h)
     del h
     dhw = dh.to(dt)
-    dx = (dot_f32(dhw, w1) + gf).to(dt)
+    dx = (dot_f32(dhw, w1) + gf).to(dx_dtype or dt)
     dw1 = dot_f32(dhw.t(), x)
     return (dx, dw1.to(w1.dtype), dh.sum(0).to(b1.dtype), dw2.to(w2.dtype),
             dy.sum(0).to(b2.dtype), dgamma, dbeta, ds)
@@ -160,19 +163,17 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_args(name: str, x, w1, bf16s, f32s, row_multiple: int = 48) -> None:
+def _check_kernel_args(name: str, x, w1, bf16s, f32s) -> None:
     """Raise ValueError on what the CUDA kernels do not take: bf16 rows and
-    weights with C in (192, 384), hidden 4C and a multiple of ``row_multiple``
-    rows (48 for K6, K7, K9 and K10, whose wgmma kernels mask their last
-    64-row tile; 96 for the raw forward K8, whose wmma kernel takes 48-row
-    tiles); f32 LayerNorm parameters and scales; all contiguous and 16-byte
-    aligned."""
+    weights with C in (192, 384), hidden 4C and a multiple of 48 rows (the
+    wgmma kernels mask their last 64-row tile); f32 LayerNorm parameters and
+    scales; all contiguous and 16-byte aligned."""
     rows, c = x.shape
     if any(t.dtype != torch.bfloat16 for t in bf16s):
         raise ValueError(f"the CUDA kernel takes bfloat16 rows and weights, got {x.dtype}")
-    if c not in (192, 384) or w1.shape[0] != 4 * c or rows % row_multiple:
+    if c not in (192, 384) or w1.shape[0] != 4 * c or rows % 48:
         raise ValueError(f"the CUDA kernel takes C in (192, 384), hidden 4C and a multiple "
-                         f"of {row_multiple} rows; got C={c}, hidden {w1.shape[0]}, {rows} rows")
+                         f"of 48 rows; got C={c}, hidden {w1.shape[0]}, {rows} rows")
     if any(t.dtype != torch.float32 for t in f32s):
         raise ValueError("the CUDA kernel takes f32 LayerNorm parameters and branch scales")
     for i, t in enumerate(bf16s + f32s):
@@ -302,7 +303,7 @@ def fused_mlp_postnorm(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: 
 def _raw_fwd_launch(x, w1, b1, w2, b2) -> torch.Tensor:
     global RAW_FWD_LAUNCHES
     tensors = (x, w1, b1, w2, b2)
-    _check_kernel_args("fused_mlp", x, w1, tensors, (), 96)
+    _check_kernel_args("fused_mlp", x, w1, tensors, ())
     lib = _library()
     rows, c = x.shape
     out = torch.empty_like(x)

@@ -1,7 +1,8 @@
-"""Where the costliest attention kernels and K7 spend their time, on one
+"""Where the costliest attention kernels, K7 and K12 spend their time, on one
 CUDA card.
 
     python -m pangu_tpu_torch.scripts.profile_bwd_split [--cuts TREE [--only TEXT]] [--no-split]
+        [--k12]
 
 For the MLP-tail backward K7 (``fused_mlp_postnorm_bwd``) and the attention
 backward K3 (``fused_block_attention_bwd``) at the flagship outer and inner
@@ -11,9 +12,16 @@ mean over 3 calls), and beside the weight-grad products one ``torch.mm`` of
 the same product (bf16 in, f32 out; the dx product bf16 out), a yardstick
 the port never calls.
 
+``--k12``: also the training-block backward K12 (``fused_earth_block_train_bwd``,
+per-sample scales s1 = 1.25, s2 = 0.8) by kernel at every stage and shift:
+each launch in order with its device ms, and the sums by kernel name. Run as
+a file (``PYTHONPATH=TREE python pangu_tpu_torch/scripts/profile_bwd_split.py
+--k12 --no-split``) it times the kernels of checkout TREE.
+
 ``--cuts TREE``: also time kernels of TREE whole and with their phases cut
 out, one phase at a time and all at once (``all``), at every stage and shift:
-K3's attention kernel through K3, the window-attention kernel through K1.
+K3's attention kernel through K3, the window-attention kernel through K1,
+K12's row pass through K12.
 The cuts (``PHASE_CUTS``) are text edits of the kernel as TREE has it, found
 by a text of its schedule; each is a throwaway build of
 ``TREE/pangu_tpu_torch/csrc`` under ``build/variants/`` (the outputs are
@@ -45,6 +53,7 @@ from pangu_tpu_torch.geometry import compute_geometry
 from pangu_tpu_torch.model.attention import shift_attention_mask
 from pangu_tpu_torch.ops import _build
 from pangu_tpu_torch.ops import fused_block_attention as fba
+from pangu_tpu_torch.ops import fused_block_train as fbt
 from pangu_tpu_torch.ops import fused_mlp as fmlp
 from pangu_tpu_torch.scripts.ab_common import cuda_times_ms
 
@@ -63,39 +72,14 @@ def _bound(text: str, old: str, k: int) -> Tuple[str, str]:
 
 #: kernel -> how to find it in a tree (a file of csrc/ and a text in it), the
 #: header its phase cuts edit, the source built with them, the wrapper call
-#: that times it (``k3``: K3; ``k1``: K1), the prefix of its kernel name, and
-#: its phases: phase -> edits (text of the kernel, its replacement, which cuts
-#: the phase under CUT_k, k the phase's place, from 1). ``all`` cuts every
-#: phase at once.
+#: that times it (``k1``: K1; ``k3``: K3; ``k12``: K12), the prefix of its
+#: kernel name, and its phases: phase -> edits (text of the kernel, its
+#: replacement, which cuts the phase under CUT_k, k the phase's place, from
+#: 1). ``all`` cuts every phase at once.
 PHASE_CUTS: Dict[str, dict] = {
-    # K3, the earlier per-(type, head) schedule, wmma fragments
-    "attention_bwd_kernel": dict(
-        find=("block_attention.cu", "attention_bwd_kernel<false><<<"),
-        header="attention_bwd.cuh", source="block_attention.cu", call="k3",
-        prefix="attention_bwd", phases={
-            "recompute q|k|v and dO": [
-                _guard("      pipelined(\n          C / KC, stage0, stage0 + B_STAGE_ELEMS,",
-                       1)],
-            "scores and softmax": [
-                ("      // ---- scores of the warp's query rows, f32 softmax: p f32 in S, "
-                 "bf16 in P\n      {", "      if (!CUT_2) {"),
-                _guard("      for (int r = 0; r < 16; ++r) {\n        float v[PER_LANE];", 2)],
-            "P v and the acc store": [(
-                "      if (!DO_GIVEN) {\n        FragC o[2];",
-                "      if (!DO_GIVEN && !CUT_3) {\n        FragC o[2];")],
-            "two dP sweeps and the dbias update": [(
-                "then dS (dbias, bf16 dS)\n      {",
-                "then dS (dbias, bf16 dS)\n      if (!CUT_4) {")],
-            "dq, dk, dv (with the dqkv stores)": [(
-                "      // ---- dq (query rows), dk and dv (key rows) of tile `warp`\n      {",
-                "      if (!CUT_5) {")],
-            "the dqkv slab stores": [_guard(
-                "        for (int seg = 0; seg < 3; ++seg) {\n"
-                "          __align__(16) bf16 t16", 6)],
-        }),
     # K3, the register-resident schedule, mma.sync
     "attention_bwd_regs_kernel": dict(
-        find=("block_attention.cu", "attention_bwd_regs_kernel<<<"),
+        find=("block_attention.cu", "attention_bwd_regs_kernel<true><<<"),
         header="attention_bwd.cuh", source="block_attention.cu", call="k3",
         prefix="attention_bwd", phases={
             "recompute q|k|v and dO": [
@@ -133,6 +117,20 @@ PHASE_CUTS: Dict[str, dict] = {
                                "2", 3)],
             "P v": [_bound("  for (int kb = 0; kb < T / 16; ++kb) {\n    const uint32_t pa[4]",
                            "T / 16", 4)],
+        }),
+    # K12's row pass: the row kernel with PROJ and BWD (the projection, LN1, a
+    # and x1 written, the MLP, the LN2 backward), through K12
+    "mlp_tail_kernel (K12 row pass)": dict(
+        find=("fused_block_train.cu", "launch_mlp_tail<C, true, true, true, true>"),
+        header="mlp_wg.cuh", source="fused_block_train.cu", call="k12",
+        prefix="mlp_tail_kernel", phases={
+            "the a and x1 stores": [_guard(
+                "            if (live) {\n"
+                "              *reinterpret_cast<__nv_bfloat162*>(a_out", 1)],
+            "dy and the column sums": [_bound(
+                "        for (int g = 0; g < NG; ++g) {\n          const int c = c0 + 8 * g;\n"
+                "          const float2 gm = *reinterpret_cast<const float2*>(ln2_s + c);\n"
+                "          float p[3][2] = {};", "NG", 2)],
         }),
 }
 
@@ -202,6 +200,34 @@ def k3_call(inp: dict) -> Callable[[], object]:
                                                  inp["gy"], *inp["statics"])
 
 
+def k12_call(inp: dict) -> Callable[[], object]:
+    """K12 on ``stage_inputs``: the MLP's LayerNorm parameters serve both
+    LayerNorms, bproj is bqkv's first C entries, s1 = 1.25 and s2 = 0.8."""
+    wqkv, bqkv, wproj, bias, mask = inp["attn"]
+    w1, b1, w2, b2, ln_s, ln_b = inp["mlp"]
+    x = inp["x"]
+    s1 = torch.full((x.shape[0],), 1.25, device=x.device)
+    s2 = torch.full((x.shape[0],), 0.8, device=x.device)
+    args = (x, wqkv, bqkv, wproj, bqkv[:x.shape[-1]].contiguous(), bias, mask, ln_s, ln_b,
+            w1, b1, w2, b2, ln_s, ln_b, s1, s2, inp["gy"], *inp["statics"])
+    return lambda: fbt.fused_earth_block_train_bwd(*args)
+
+
+def block_bwd_split(stage, c: int, heads: int, dev, shifted: bool = False) -> dict:
+    """K12's launches at one stage shape, in order, and their sums by kernel
+    name (device ms, the mean over 3 calls)."""
+    inp = stage_inputs(stage, c, heads, shifted, dev, seed=45)
+    with torch.no_grad():
+        launches = kernel_ms(k12_call(inp))
+    by_name: Dict[str, list] = {}
+    for name, ms in launches:
+        entry = by_name.setdefault(name.split("<")[0], [0.0, 0])
+        entry[0] += ms
+        entry[1] += 1
+    return dict(k12_kernels=launches, k12_by_kernel=by_name,
+                k12_ms=sum(ms for _, ms in launches))
+
+
 def backward_split(stage, c: int, heads: int, dev, shifted: bool = False) -> dict:
     """K7's and K3's kernels at one stage shape, and the torch.mm yardstick of
     their products."""
@@ -265,9 +291,11 @@ def cut_kernels(tree: str, only: str = "") -> Dict[str, dict]:
     src_dir = os.path.join(tree, "pangu_tpu_torch", "csrc")
     found = {}
     for kernel, spec in PHASE_CUTS.items():
-        path, text = spec["find"]
-        with open(os.path.join(src_dir, path)) as f:
-            if text in f.read() and only in kernel:
+        path = os.path.join(src_dir, spec["find"][0])
+        if not os.path.exists(path):
+            continue
+        with open(path) as f:
+            if spec["find"][1] in f.read() and only in kernel:
                 found[kernel] = spec
     if not found:
         raise ValueError(f"{tree}: no kernel of {list(PHASE_CUTS)} (matching {only!r})")
@@ -336,7 +364,7 @@ def phase_cuts(kernel: str, libs: Dict[str, str], stage, c: int, heads: int, dev
     cut, at one stage, shifted or not."""
     spec = PHASE_CUTS[kernel]
     inp = stage_inputs(stage, c, heads, shifted, dev, seed=45)
-    call = (k3_call if spec["call"] == "k3" else k1_call)(inp)
+    call = {"k1": k1_call, "k3": k3_call, "k12": k12_call}[spec["call"]](inp)
     res = {}
     for phase, path in libs.items():
         with with_library(spec["source"], path):
@@ -351,6 +379,7 @@ def main(argv) -> int:
                     help="cut only the kernels of PHASE_CUTS whose name holds TEXT")
     ap.add_argument("--no-split", action="store_true",
                     help="skip the kernel split of K7 and K3 (with --cuts: only the cuts)")
+    ap.add_argument("--k12", action="store_true", help="also split K12 into its launches")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA card")
@@ -364,6 +393,8 @@ def main(argv) -> int:
     for name, stage, c, heads in (("outer", g.outer, 192, 6), ("inner", g.inner, 384, 12)):
         for shifted in (False, True):
             res = {} if args.no_split else backward_split(stage, c, heads, dev, shifted)
+            if args.k12:
+                res.update(block_bwd_split(stage, c, heads, dev, shifted))
             for kernel, kl in libs.items():
                 res.setdefault("phase_cuts_ms", {})[kernel] = phase_cuts(
                     kernel, kl, stage, c, heads, dev, shifted)

@@ -1,8 +1,9 @@
-"""Device time of the row-engine and window-attention kernels, on one CUDA
-card: the MLP tail K6, the row pass of its backward K7, the two kernels of the
-inference block K1 (window attention, token tail) and the two of the
-training attention K2 (window attention, out-projection), at the flagship
-outer and inner stage shapes, K1 and K2 unshifted and shifted.
+"""Device time of the forecast and default train-step kernels, on one CUDA
+card: the MLP tail K6 and its backward K7, the raw MLP K8, the post-norm
+residual K4 and its backward K5, the two kernels of the inference block K1
+(window attention, token tail), the two of the training attention K2 (window
+attention, out-projection) and those of its backward K3, at the flagship
+outer and inner stage shapes, K1-K3 unshifted and shifted.
 
     PYTHONPATH=TREE python pangu_tpu_torch/scripts/profile_row_kernels.py [TREE]
 
@@ -11,9 +12,9 @@ real shift mask); each time is the mean over a few calls under
 torch.profiler (``profile_bwd_split.kernel_ms``). The kernels are those of the
 checkout TREE first on ``PYTHONPATH``, so one call can time several trees in
 turn (an A/B: old, new, new, old); TREE (default ".") names it in the
-output. Prints one JSON line: per stage, the name and device ms of K6's
-kernel and of K7's first kernel (its row pass), and of each kernel of one K1
-and one K2 call, unshifted and shifted.
+output. Prints one JSON line: per stage, the name and device ms of each
+kernel of one call of K1-K8 (K1-K3 unshifted and shifted; K4 and K5 with a
+per-row scale).
 """
 
 from __future__ import annotations
@@ -28,12 +29,13 @@ from pangu_tpu_torch import pangu_pretrain
 from pangu_tpu_torch.geometry import compute_geometry
 from pangu_tpu_torch.ops import _build
 from pangu_tpu_torch.ops import fused_block_attention as fba
+from pangu_tpu_torch.ops import fused_epilogue as fep
 from pangu_tpu_torch.ops import fused_mlp as fmlp
 from pangu_tpu_torch.scripts.profile_bwd_split import kernel_ms, stage_inputs
 
 
 def row_kernels(stage, c: int, heads: int, dev) -> dict:
-    """K6, K7's row pass and K1's and K2's kernels at one stage shape."""
+    """The kernels of K1-K8 at one stage shape."""
     res = {}
     for shifted in (False, True):
         inp = stage_inputs(stage, c, heads, shifted, dev, seed=45)
@@ -44,15 +46,22 @@ def row_kernels(stage, c: int, heads: int, dev) -> dict:
         k1 = (inp["x"], wqkv, bqkv, wproj, bproj, bias, mask, ln_s, ln_b,
               w1, b1, w2, b2, ln_s, ln_b, *inp["statics"])
         k2 = (inp["x"], wqkv, bqkv, wproj, bproj, bias, mask, None, None, *inp["statics"])
+        k3 = (inp["x"], wqkv, bqkv, wproj, bias, mask, inp["gy"], *inp["statics"])
         label = "shifted" if shifted else "unshifted"
         with torch.no_grad():
             if not shifted:  # the row kernels do not see the shift
+                res["K4"] = kernel_ms(lambda: fep.fused_residual_postnorm(
+                    x2, g2, ln_s, ln_b, inp["s"][:, None]), n=5)
+                res["K5"] = kernel_ms(lambda: fep.fused_residual_postnorm_bwd(
+                    x2, g2, ln_s, ln_b, inp["s"]), n=5)
                 res["K6"] = kernel_ms(lambda: fmlp.fused_mlp_postnorm(x2, *inp["mlp"],
-                                                                     inp["s"][:, None]), n=5)[0]
-                res["K7 row pass"] = kernel_ms(lambda: fmlp.fused_mlp_postnorm_bwd(
-                    x2, g2, *inp["mlp"], inp["s"]))[0]
+                                                                     inp["s"][:, None]), n=5)
+                res["K8"] = kernel_ms(lambda: fmlp.fused_mlp(x2, w1, b1, w2, b2), n=5)
+                res["K7"] = kernel_ms(lambda: fmlp.fused_mlp_postnorm_bwd(
+                    x2, g2, *inp["mlp"], inp["s"]))
             res[f"K1 {label}"] = kernel_ms(lambda: fba.fused_earth_block(*k1), n=5)
             res[f"K2 {label}"] = kernel_ms(lambda: fba.fused_block_attention(*k2), n=5)
+            res[f"K3 {label}"] = kernel_ms(lambda: fba.fused_block_attention_bwd(*k3))
         del inp
         torch.cuda.empty_cache()
     return res

@@ -7,7 +7,10 @@ lon-window count, the single-sample calls' bits; K2 refusing a partial
 projection tile before launch), the post-norm
 residual K4/K5, the MLP tail K6/K7 (both, and K10, also for their determinism
 and a partial 64-row tile), the
-raw MLP K8/K9, the training block K11/K12, the inference MLP tail K10, K2's
+raw MLP K8/K9 (K8 also with a partial 64-row tile and for its determinism),
+the training block K11/K12 (K12 also for its determinism), K1-K7 against the
+bits of the tree before K8 and K12 moved to the Hopper engines, the inference
+MLP tail K10, K2's
 LN-epilogue mode (and the two-kernel block they make, against K1) and the
 A/B kernels of the three scripts S1-S3
 against their plain versions, the forecast step and flagship train steps on
@@ -29,6 +32,7 @@ of docs/PARITY.md (RMS 0.005, max 0.026).
 """
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -147,6 +151,81 @@ def _bounded(got, ref, tol=0.04, rms_tol=0.01):
     ref = ref.float()
     return ((d.abs().max() / max(1.0, ref.abs().max().item())).item() < tol
             and (d.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item() < rms_tol)
+
+
+def kernel_digests(device) -> dict:
+    """The first 16 hex digits of the sha256 of every output of K1-K7 on
+    fixed seeded inputs, at C 192 and 384 (one sample, two window types, four
+    lon windows, masked): the forecast block K1, the training attention K2 and
+    its backward K3, the post-norm residual K4/K5 and the MLP tail K6/K7 (a
+    per-row branch scale)."""
+    from pangu_tpu_torch.ops import fused_epilogue as tfep
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+
+    def digest(t):
+        return hashlib.sha256(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+                              .numpy().tobytes()).hexdigest()[:16]
+
+    out = {}
+    for c, heads in ((192, 6), (384, 12)):
+        args, (window, heads, scale) = _inputs(21, device, 1, 4, 12, 48, c, heads, True)
+        x, wqkv, bqkv, wproj, bproj, bias, mask = args[:7]
+        gen = torch.Generator(device).manual_seed(22)
+        g = (torch.randn(x.shape, generator=gen, device=device) * 0.1).to(torch.bfloat16)
+        rows = x.numel() // c
+        x2, g2 = x.reshape(rows, c), g.reshape(rows, c)
+        s = 0.5 + torch.rand(rows, generator=gen, device=device)
+        mlp = args[9:13] + args[13:15]
+        with torch.no_grad():
+            outs = {
+                "K1": (tfba.fused_earth_block(*args, window, heads, scale),),
+                "K2": (tfba.fused_block_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, None,
+                                                  None, window, heads, scale),),
+                "K3": tfba.fused_block_attention_bwd(x, wqkv, bqkv, wproj, bias, mask, g,
+                                                     window, heads, scale),
+                "K4": (tfep.fused_residual_postnorm(x2, g2, args[7], args[8], s[:, None]),),
+                "K5": tfep.fused_residual_postnorm_bwd(x2, g2, args[7], args[8], s),
+                "K6": (tfm.fused_mlp_postnorm(x2, *mlp, s[:, None]),),
+                "K7": tfm.fused_mlp_postnorm_bwd(x2, g2, *mlp, s),
+            }
+        torch.cuda.synchronize()
+        for k, ts in outs.items():
+            out[f"{k} C={c}"] = [digest(t) for t in ts]
+    return out
+
+
+#: kernel_digests of the tree before K8 and K12 moved to the Hopper engines
+#: and K5, K7's hidden pass, the row engine and the wgmma product gained the
+#: modes K12 uses (recorded on an NVIDIA H100 80GB HBM3): the forecast and
+#: default train kernels must keep these bits
+K1_K7_DIGESTS = {
+    "K1 C=192": ["139fd244803dbfa5"],
+    "K2 C=192": ["0d89ae672c9d3406"],
+    "K3 C=192": [
+        "35d40eff11d5c34c", "fbc76d4d5af8c6ad", "ab3964e499617abf", "0b5af25adaf8e1a4",
+        "f2ea02c259373cd2", "e9eba50826476597"],
+    "K4 C=192": ["a60d43e9f7f07326"],
+    "K5 C=192": ["d8de6aa2547e1901", "44a0d18ba075e889", "208dee31d97297c2", "7a14b4471cb66753"],
+    "K6 C=192": ["b1cd12953341f1cc"],
+    "K7 C=192": [
+        "ec4f699dbdbef01e", "5a8cee40f2a4650d", "da6aee45f066037c", "89cbe47c0ed69781",
+        "f32fe48fa711a04e", "1a406769a3690471", "23e03f29b74390e7", "7430986ee9524133"],
+    "K1 C=384": ["037bb3c00c2cfdc0"],
+    "K2 C=384": ["128ac4dd5c258797"],
+    "K3 C=384": [
+        "2f8c8721b11649ec", "2fec486faf346708", "b2da11b66dfd9758", "2f7affd77049376b",
+        "492ed5985c788444", "872ba0c39f731049"],
+    "K4 C=384": ["1e17270cc1358d46"],
+    "K5 C=384": ["2ec743145d006229", "8ee5674a565edb14", "185247c1fc20adf2", "1db1cc454700f56c"],
+    "K6 C=384": ["85bdcaca66dc6a82"],
+    "K7 C=384": [
+        "e80649d2db55247e", "f397b2b27b8b6697", "b56ef0539ed0fb4c", "75ded0d21286773c",
+        "916efe9c9a594517", "4f7d1e8be2b8d44d", "9c0f8b79f955590a", "2106193c39ddbd1d"],
+}
+
+
+def test_cuda_k1_to_k7_keep_their_bits(cuda_device):
+    assert kernel_digests(cuda_device) == K1_K7_DIGESTS
 
 
 @pytest.mark.parametrize("b,c,heads,masked", [
@@ -523,6 +602,29 @@ def test_cuda_raw_mlp_fwd_and_bwd_match_plain_versions(cuda_device, c):
     for name, leaf, r in zip(("x", "w1", "b1", "w2", "b2"), leaves, ref):
         assert leaf.grad.dtype == r.dtype and _bounded(leaf.grad.reshape(r.shape), r,
                                                        tol=0.05), name
+
+
+@pytest.mark.parametrize("c,rows", [(192, 4608), (384, 4608), (192, 720), (384, 720)])
+def test_cuda_raw_mlp_fwd_is_deterministic_with_a_partial_tile(cuda_device, c, rows):
+    """K8 (the row kernel's raw mode) on rows against its plain version, and
+    the same bits on a second call; 720 = 144 x 5 rows end in a partial 64-row
+    tile (16 rows), read as zeros and not stored."""
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+
+    gen = torch.Generator(cuda_device).manual_seed(19)
+
+    def rn(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen, device=cuda_device)).to(torch.bfloat16)
+
+    args = (rn(rows, c), rn(4 * c, c, std=c ** -0.5), rn(4 * c, std=0.02),
+            rn(c, 4 * c, std=(4 * c) ** -0.5), rn(c, std=0.02))
+    before = tfm.RAW_FWD_LAUNCHES
+    with torch.no_grad():
+        first = tfm.fused_mlp(*args)
+        second = tfm.fused_mlp(*args)
+    torch.cuda.synchronize()
+    assert tfm.RAW_FWD_LAUNCHES == before + 2 and torch.equal(first, second)
+    assert _bounded(first, tfm.fused_mlp_reference(*args))
 
 
 @pytest.mark.parametrize("b,c,heads,masked", [

@@ -24,9 +24,20 @@ from pangu_tpu_torch.scripts import profile_bwd_split as pbs
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def test_every_phase_cut_entry_finds_its_kernel_in_this_tree():
+    """No entry of PHASE_CUTS points at code the tree no longer has: each
+    one's ``find`` text is in its source, and each is a kernel's."""
+    for kernel, spec in pbs.PHASE_CUTS.items():
+        path, text = spec["find"]
+        with open(os.path.join(REPO, "pangu_tpu_torch", "csrc", path)) as f:
+            assert text in f.read(), kernel
+    assert set(pbs.cut_kernels(REPO)) == set(pbs.PHASE_CUTS)
+
+
 def test_phase_cuts_of_this_tree_apply_once_each():
     found = pbs.cut_kernels(REPO)
-    assert set(found) == {"attention_bwd_regs_kernel", "window_attention_kernel (mma.sync)"}
+    assert set(found) == {"attention_bwd_regs_kernel", "window_attention_kernel (mma.sync)",
+                          "mlp_tail_kernel (K12 row pass)"}
     for kernel, spec in found.items():
         with open(os.path.join(REPO, "pangu_tpu_torch", "csrc", spec["header"])) as f:
             text = f.read()
