@@ -89,7 +89,24 @@ Phases (any failure exits non-zero before the last line is printed):
 15. the attention-backward A/B ``bench_attn_bwd_ab``: ``shipped`` (K3) and
    ``local_accum``, all six outputs against their plain versions, the JAX
    metric against ``shipped`` (<= 0.05), ``local_accum``'s same bits on two
-   runs, the refused variants raise; then the script's run, ms per call.
+   runs, the refused variants raise; then the script's run, ms per call;
+16. forecast and score: seeded flagship weights in bf16 written through
+   ``interop.from_jax.save_params_npz``, then the ``test`` script's ``main``
+   (evaluate) on that file over the synthetic store's 2024-01-01..05 at 24 h
+   (3 samples) and the ``rollout`` script's ``--mode multi --lead-days 2``
+   over the same range (3 inits of 2 steps), both on the kernel route
+   (``--set model.compute_dtype=bfloat16 --set
+   model.use_pallas_attention=true``): exactly 16 K1 launches per forecast
+   step and no other kernel; all 8 ``rmse_*`` and 6 ``acc_*`` CSVs with one
+   row per sample, the ERA5 level and surface-variable columns, finite
+   values equal to the scores of the score step on the same weights and
+   samples (float32 round trip); on the first sample the kernel route
+   against the plain bf16 composition, per channel |RMSE_kernel -
+   RMSE_plain| <= RMSE(pred_kernel, pred_plain) * (1 + 1e-4) (the weighted
+   RMSE is a norm) and |dACC| <= 0.02; then, on a line of its own,
+   evaluate's wall time per sample split into host load, H2D, forecast and
+   scoring, the rollout's wall time per forecast step, peak memory, and the
+   card's name and power limit.
 
 A ``detail:`` line holds the per-shape kernel results and the slices'
 numbers as JSON. The second-to-last line is a JSON object with one entry per
@@ -110,19 +127,30 @@ the other functions. The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from datetime import datetime, timedelta
 
+import numpy as np
 import torch
 
 from pangu_tpu_torch import pangu_pretrain
-from pangu_tpu_torch.aux import synthetic_aux_constants
-from pangu_tpu_torch.interop.from_jax import init_params
+from pangu_tpu_torch.aux import load_aux_constants, synthetic_aux_constants
+from pangu_tpu_torch.cli import base_parser, build_config, load_model_and_params
+from pangu_tpu_torch.config import ERA5_SURFACE_VARIABLES, ERA5_UPPER_LEVELS
+from pangu_tpu_torch.data import make_loader
+from pangu_tpu_torch.eval.csv_io import load_error_scores
+from pangu_tpu_torch.eval.evaluate import (ACC_FAMILIES, RMSE_FAMILIES, make_field_scorer,
+                                           make_score_step, to_device)
+from pangu_tpu_torch.interop.from_jax import init_params, save_params_npz
 from pangu_tpu_torch.model import PanguModel
 from pangu_tpu_torch.model.attention import EarthAttention3D, shift_attention_mask
 from pangu_tpu_torch.model.blocks import Mlp
@@ -134,6 +162,8 @@ from pangu_tpu_torch.ops import fused_mlp as fmlp
 from pangu_tpu_torch.rollout import make_forecast_step
 from pangu_tpu_torch.scripts import (bench_attn_bwd_ab, bench_attn_fwd_ab, bench_mxu_micro,
                                      bench_train_ab, profile_bwd_split, profile_train_step)
+from pangu_tpu_torch.scripts import rollout as rollout_script
+from pangu_tpu_torch.scripts import test as test_script
 from pangu_tpu_torch.scripts.ab_common import (KERNEL_RMS_TOL, KERNEL_TOL, PEAK_BF16, PEAK_BYTES,
                                                compare, cuda_times_ms)
 from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
@@ -162,6 +192,14 @@ AB_LAUNCHES = {
 PER_STEP = {("outer", False): 2, ("outer", True): 2, ("inner", False): 6, ("inner", True): 6}
 #: H100 SXM f32 CUDA-core peak (NVIDIA's data sheet; bf16, int8 and HBM3 in ab_common)
 PEAK_F32 = 67e12
+#: phase 16: the kernel route's overrides, the scored range of the synthetic store (3
+#: samples at 24 h; the rollout: 3 inits of 2 steps) and the bounds against the plain route
+KERNEL_ROUTE = ["--set", "model.compute_dtype=bfloat16", "--set", "model.use_pallas_attention=true"]
+SCORE_RANGE = ["--set", "data.store=synthetic", "--set", "data.test_start=20240101",
+               "--set", "data.test_end=20240105", "--set", "data.test_freq=24h"]
+SCORE_TARGETS = ["2024010200", "2024010300", "2024010400"]
+ROLLOUT_INITS, ROLLOUT_DAYS = ["2024010100", "2024010200", "2024010300"], 2
+SCORE_RMSE_SLACK, SCORE_ACC_TOL = 1e-4, 0.02
 #: (replaced TPU kernel, CUDA source) of every kernel, in table order
 KERNELS = {
     "fused_earth_block": ("pangu_tpu/ops/fused_block_attention.py:555", "fused_earth_block.cu"),
@@ -194,10 +232,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card() -> None:
-    log(subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def card() -> None:
+    log(card_line())
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs the card")
 
@@ -1053,6 +1096,143 @@ def check_attn_bwd_ab(dev) -> tuple:
                         [(v, m.check_variant) for v in m.REFUSED], dev)
 
 
+def score_tables(csv_dir: str, rows: list) -> dict:
+    """The 8 rmse_* and 6 acc_* tables under ``csv_dir``: each with the rows
+    ``rows``, the ERA5 level or surface-variable columns and finite values."""
+    tables = {}
+    for error, families in (("rmse", RMSE_FAMILIES), ("acc", ACC_FAMILIES)):
+        for f in families:
+            index, columns, values = load_error_scores(csv_dir, error, f)
+            want = (list(ERA5_SURFACE_VARIABLES) if f == "surface" else
+                    ["wind_speed"] if f == "surface_wind_speed" else list(ERA5_UPPER_LEVELS))
+            if index != rows or columns != want or not np.isfinite(values).all():
+                raise AssertionError(f"{csv_dir} {error}_{f}: rows {index} (want {rows}), "
+                                     f"columns {columns}, finite {np.isfinite(values).all()}")
+            tables[f"{error}_{f}"] = values
+    if sorted(os.listdir(csv_dir)) != sorted(f"{k}.csv" for k in tables):
+        raise AssertionError(f"{csv_dir} holds {sorted(os.listdir(csv_dir))}")
+    return tables
+
+
+def only_k1(label: str, want: int) -> None:
+    """Raise unless the run launched K1 ``want`` times and no other kernel."""
+    counts = {k: v for k, v in launch_counts().items() if v}
+    log(f"{label}: kernel launches {counts} (want fused_earth_block {want})")
+    if counts != {"fused_earth_block": want}:
+        raise AssertionError(f"{label}: launches {counts}, want fused_earth_block {want}")
+
+
+def check_forecast_and_score(dev) -> dict:
+    """Phase 16: the test and rollout scripts on the kernel route, their
+    launches and score tables, the tables against the score step's scores,
+    and the kernel route against the plain bf16 route on the first sample."""
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "weights.npz")
+        argv = ["--weights", weights, "--out", tmp, *KERNEL_ROUTE, *SCORE_RANGE]
+        cfg = build_config(base_parser("").parse_args(argv))
+        depth = sum(cfg.model.depths)
+        with dev:
+            model = PanguModel(cfg.model)
+        init_params(model, seed=0)
+        t0 = time.perf_counter()
+        save_params_npz(weights, model)
+        res["save_weights_s"] = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        aux = load_aux_constants(cfg.model, cfg.train, None, cfg.horizon, device=dev)
+        model = load_model_and_params(cfg, argparse.Namespace(weights=weights), aux, device=dev)
+        torch.cuda.synchronize()
+        res["model_setup_s"] = time.perf_counter() - t0
+
+        spans = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res["test_loss"] = test_script.main(argv, device=dev, spans=spans)
+        res["test_main_s"] = time.perf_counter() - t0
+        only_k1("test script", depth * len(SCORE_TARGETS))
+        tables = score_tables(os.path.join(tmp, "test", "24", "csv"), SCORE_TARGETS)
+        n = len(SCORE_TARGETS)
+        res["eval_per_sample_s"] = {k: v / n for k, v in spans.items()}
+        res["eval_per_sample_s"]["total"] = sum(spans.values()) / n
+
+        steps = len(ROLLOUT_INITS) * ROLLOUT_DAYS
+        reset_counts()
+        t0 = time.perf_counter()
+        out = rollout_script.main([*argv, "--mode", "multi", "--lead-days", str(ROLLOUT_DAYS)],
+                                  device=dev)
+        res["rollout_main_s"] = time.perf_counter() - t0
+        only_k1("rollout script", depth * steps)
+        inits = sorted(d for d in os.listdir(out) if os.path.isdir(os.path.join(out, d)))
+        if inits != ROLLOUT_INITS:
+            raise AssertionError(f"rollout wrote the inits {inits}, want {ROLLOUT_INITS}")
+        for init in ROLLOUT_INITS:
+            t = datetime.strptime(init, "%Y%m%d%H")
+            score_tables(os.path.join(out, init, "csv"),
+                         [(t + timedelta(days=d + 1)).strftime("%Y%m%d%H")
+                          for d in range(ROLLOUT_DAYS)])
+        # the script's own set-up (aux and weights) timed above on the same files
+        res["rollout_per_step_s"] = (res["rollout_main_s"] - res["model_setup_s"]) / steps
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+
+        # the score step on the same weights and samples gives the tables' values
+        step = make_score_step(model, cfg, return_fields=True)
+        first = None
+        for host, periods in make_loader(cfg.data, cfg.model, "test", cfg.horizon, 1):
+            batch = Batch(*(to_device(x, dev) for x in host))
+            scores = {k: v.cpu().numpy() for k, v in step(batch, aux).items()
+                      if not k.startswith("output")}
+            row = SCORE_TARGETS.index(periods[0][1])
+            for k, table in tables.items():
+                if not np.array_equal(table[row], scores[k][0].astype(np.float32)):
+                    raise AssertionError(f"{k} at {periods[0][1]}: the CSV holds {table[row]}, "
+                                         f"the score step gives {scores[k][0]}")
+            if first is None:
+                first = batch, scores
+        log(f"score tables: {len(tables)} files x {len(SCORE_TARGETS)} rows equal the score "
+            "step's scores")
+        del step
+
+        # the kernel route against the plain bf16 composition on the first sample
+        batch, kernel_scores = first
+        kout = make_score_step(model, cfg, return_fields=True)(batch, aux)
+        plain = PanguModel(dataclasses.replace(cfg.model, use_pallas_attention=False)).to(dev)
+        plain.load_state_dict(model.state_dict())
+        pout = make_score_step(plain, cfg, return_fields=True)(batch, aux)
+        between = make_field_scorer(cfg)(kout["output_upper"], kout["output_surface"],
+                                         pout["output_upper"], pout["output_surface"], aux)
+        worst_rmse, worst_acc = 0.0, 0.0
+        for f in RMSE_FAMILIES:
+            k = kernel_scores[f"rmse_{f}"][0].astype(np.float64)
+            p = pout[f"rmse_{f}"][0].cpu().numpy().astype(np.float64)
+            norm = between[f"rmse_{f}"][0].cpu().numpy().astype(np.float64)
+            gap = np.abs(k - p)
+            if not (gap <= norm * (1 + SCORE_RMSE_SLACK)).all():
+                raise AssertionError(f"rmse_{f}: |kernel - plain| {gap} exceeds "
+                                     f"RMSE(pred_kernel, pred_plain) {norm}")
+            worst_rmse = max(worst_rmse, float((gap / np.maximum(norm, 1e-30)).max()))
+        for f in ACC_FAMILIES:
+            d = np.abs(kernel_scores[f"acc_{f}"][0] - pout[f"acc_{f}"][0].cpu().numpy())
+            worst_acc = max(worst_acc, float(d.max()))
+        res["kernel_vs_plain"] = dict(worst_rmse_gap_over_norm=worst_rmse, max_acc_diff=worst_acc)
+        log(f"kernel route vs plain bf16 route, first sample: worst |dRMSE| / RMSE(kernel, plain) "
+            f"{worst_rmse:.6g} (bound {1 + SCORE_RMSE_SLACK}), max |dACC| {worst_acc:.6g} "
+            f"(bound {SCORE_ACC_TOL})")
+        if worst_acc > SCORE_ACC_TOL:
+            raise AssertionError(f"ACC of the kernel route is {worst_acc} from the plain route")
+        del model, plain, kout, pout, between, first, batch
+        torch.cuda.empty_cache()
+    res["card"] = card_line()
+    log("forecast and score: " + json.dumps(
+        {k: res[k] for k in ("eval_per_sample_s", "rollout_per_step_s", "peak_bytes",
+                             "model_setup_s", "test_main_s", "rollout_main_s",
+                             "save_weights_s", "card")}))
+    return res
+
+
 def main() -> int:
     card()
     dev = torch.device("cuda:0")
@@ -1088,10 +1268,12 @@ def main() -> int:
     micro, micro_counts = check_mxu_micro(dev)
     fwd_ab, fwd_counts = check_attn_fwd_ab(dev)
     bwd_ab, bwd_counts = check_attn_bwd_ab(dev)
+    score = check_forecast_and_score(dev)
 
     log("detail: " + json.dumps({"slice": sl, **shapes, "products": products, "train": tr,
                                  "ab": ab, "two_kernel_path": tail_path, "mxu_micro": micro,
-                                 "attn_fwd_ab": fwd_ab, "attn_bwd_ab": bwd_ab}))
+                                 "attn_fwd_ab": fwd_ab, "attn_bwd_ab": bwd_ab,
+                                 "forecast_and_score": score}))
     # launches over the run of each kernel's path
     launches = {"fused_earth_block": sl["launches"], **tr["launches"],
                 **{k: ab["unfused_tail"]["launches"][k] for k in ("fused_mlp", "fused_mlp_bwd")},

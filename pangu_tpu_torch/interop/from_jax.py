@@ -17,7 +17,8 @@ import torch
 from torch import nn
 
 from pangu_tpu_torch.config import ModelConfig
-from pangu_tpu_torch.interop.torch_import import state_dict_from_params
+from pangu_tpu_torch.interop import npz_io
+from pangu_tpu_torch.interop.torch_import import params_from_state_dict, state_dict_from_params
 from pangu_tpu_torch.model.attention import EarthAttention3D
 
 
@@ -26,6 +27,15 @@ def load_jax_params(model: nn.Module, cfg: ModelConfig, jax_params: Mapping) -> 
     (strict: every reference key, nothing else)."""
     state = state_dict_from_params(cfg, jax_params)
     model.load_state_dict({k: torch.tensor(v) for k, v in state.items()}, strict=True)
+
+
+def save_params_npz(path: str, model: nn.Module) -> None:
+    """Write ``model``'s weights as the JAX package's ``.npz`` param tree
+    (``params_from_state_dict``, keys flattened by ``npz_io.flatten_tree``): a
+    file either package writes loads in both. Stored uncompressed: float
+    weights deflate by ~7%, and deflating the flagship's 1.06 GB takes ~45 s."""
+    state = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    np.savez(path, **npz_io.flatten_tree(params_from_state_dict(model.cfg, state)))
 
 
 def _adam_state(opt_state: Any):

@@ -814,4 +814,8 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
                and 0 < k["bound_ms"] < k["ms"] and k["bound_by"] in ("bytes", "operations")
                and "library_ms" in k for k in kernels.values())
     assert kernels["bench_mxu_micro:loop"]["library_ms"] > 0
+    score = [ln for ln in lines if ln.startswith("forecast and score: ")]
+    assert len(score) == 1
+    assert set(json.loads(score[0].split(": ", 1)[1])["eval_per_sample_s"]) == {
+        "load", "h2d", "forecast", "score", "total"}
     assert json.loads(lines[-1])["ok"] is True

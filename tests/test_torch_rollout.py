@@ -129,10 +129,25 @@ def _port_modules():
                   for rel in [os.path.relpath(os.path.join(d, f), PORT)])
 
 
+#: the forecast-and-score path: weight import, scores, data, engines and scripts
+FORECAST_AND_SCORE = [
+    "pangu_tpu_torch.cli", "pangu_tpu_torch.data", "pangu_tpu_torch.data.dataset",
+    "pangu_tpu_torch.eval", "pangu_tpu_torch.eval.csv_io", "pangu_tpu_torch.eval.evaluate",
+    "pangu_tpu_torch.eval.visualize", "pangu_tpu_torch.interop.npz_io",
+    "pangu_tpu_torch.interop.onnx_import", "pangu_tpu_torch.interop.onnx_wire",
+    "pangu_tpu_torch.metrics", "pangu_tpu_torch.rollout.aggregate",
+    "pangu_tpu_torch.rollout.engines", "pangu_tpu_torch.scripts.convert_weights",
+    "pangu_tpu_torch.scripts.rollout", "pangu_tpu_torch.scripts.test",
+    "pangu_tpu_torch.utils.logger",
+]
+
+
 def test_importing_the_port_does_not_import_jax():
-    """A fresh process that imports every module of the port and
-    chip_smoke.py (its imports; main() is not run) holds no jax, jaxlib or
-    flax and no module of the JAX package."""
+    """A fresh process that imports every module of the port (the
+    forecast-and-score modules and scripts among them) and chip_smoke.py
+    (its imports; main() is not run) holds no jax, jaxlib or flax and no
+    module of the JAX package."""
+    assert set(FORECAST_AND_SCORE) <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
@@ -168,3 +183,29 @@ def test_no_port_source_imports_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "pangu_tpu"), (path, name)
+
+
+def test_evaluate_and_rollout_run_without_pandas_or_matplotlib(tmp_path):
+    """The test script (evaluate) and a multi-day rollout at tiny geometry
+    in a process where pandas and matplotlib cannot be imported: the card's
+    machine has neither, and nothing chip_smoke.py runs may need them."""
+    out = str(tmp_path)
+    code = (
+        "import sys\n"
+        "sys.modules['pandas'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import math, os\n"
+        "from pangu_tpu_torch.scripts import rollout, test\n"
+        "argv = ['--preset', 'tiny', '--out', %r, '--set', 'data.test_start=20180101',\n"
+        "        '--set', 'data.test_end=20180104', '--set', 'data.prefetch=0']\n"
+        "assert math.isfinite(test.main(argv, device='cpu'))\n"
+        "d = rollout.main(argv + ['--mode', 'multi', '--lead-days', '1'], device='cpu')\n"
+        "assert len(os.listdir(os.path.join(d, '2018010100', 'csv'))) == 14\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None\n"
+        "             and m.split('.')[0] in ('pandas', 'matplotlib', 'jax', 'pangu_tpu'))\n"
+        "assert not bad, bad\n" % out
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=300)
+    assert len(os.listdir(os.path.join(out, "test", "24", "csv"))) == 14
