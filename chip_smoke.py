@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: build, kernel checks, the
 24 h forecast step, the train step and its two A/B routes at full geometry,
-the two-kernel inference block, and the three kernel A/B scripts.
+the two-kernel inference block, the three kernel A/B scripts, forecast and
+score, and finetuning (full and LoRA).
 
     python3 chip_smoke.py
 
@@ -106,7 +107,26 @@ Phases (any failure exits non-zero before the last line is printed):
    RMSE is a norm) and |dACC| <= 0.02; then, on a line of its own,
    evaluate's wall time per sample split into host load, H2D, forecast and
    scoring, the rollout's wall time per forecast step, peak memory, and the
-   card's name and power limit.
+   card's name and power limit;
+17. finetune: flagship bf16 on the kernel route with seeded weights, the
+   synthetic store's 2024-01-01..04 as the train range (2 samples: 2 steps an
+   epoch) and 2024-01-05..07 as the val range (1 sample). ``Trainer.fit`` for
+   2 epochs (a train-state checkpoint each epoch, one validation pass at
+   epoch 2, the best params read back): exactly 16 launches of K2, K3, K5,
+   K6, K7 and 32 of K4 a step, 16 of K1 for the validation forward, no
+   other kernel; then ``Trainer.resume`` from ``train_1`` and epoch 2 again:
+   the same losses and the same parameter bits as the uninterrupted run.
+   Merged LoRA (rank 16, alpha 16) from the initial weights through the
+   same Trainer for 2 steps: the same launches a step, the base weights
+   untouched, ``changed_param_report`` naming exactly the targets and the
+   heads. One step's LoRA gradients: the merged kernel step against the
+   plain bf16 step and the unmerged form (adapter dropout 0; only K4/K5 run,
+   32 and 16) against the plain bf16 unmerged step, each under phase 8's
+   bounds (loss within 1%, global relative L2 < 1%); the two forms against
+   each other reported (in bf16 the merged weight rounds the small delta
+   away, the unmerged tap keeps it in f32). Then, on a line of its own, the
+   wall time a train step split into host load, H2D and the step, the
+   train-state save time and size, peak memory, and the card.
 
 A ``detail:`` line holds the per-shape kernel results and the slices'
 numbers as JSON. The second-to-last line is a JSON object with one entry per
@@ -145,7 +165,7 @@ import torch
 from pangu_tpu_torch import pangu_pretrain
 from pangu_tpu_torch.aux import load_aux_constants, synthetic_aux_constants
 from pangu_tpu_torch.cli import base_parser, build_config, load_model_and_params
-from pangu_tpu_torch.config import ERA5_SURFACE_VARIABLES, ERA5_UPPER_LEVELS
+from pangu_tpu_torch.config import DataConfig, ERA5_SURFACE_VARIABLES, ERA5_UPPER_LEVELS
 from pangu_tpu_torch.data import make_loader
 from pangu_tpu_torch.eval.csv_io import load_error_scores
 from pangu_tpu_torch.eval.evaluate import (ACC_FAMILIES, RMSE_FAMILIES, make_field_scorer,
@@ -167,6 +187,13 @@ from pangu_tpu_torch.scripts import test as test_script
 from pangu_tpu_torch.scripts.ab_common import (KERNEL_RMS_TOL, KERNEL_TOL, PEAK_BF16, PEAK_BYTES,
                                                compare, cuda_times_ms)
 from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
+from pangu_tpu_torch.train import checkpoint as ckpt
+from pangu_tpu_torch.train.lora import (LoraConfig, attach_lora, changed_param_report,
+                                        flatten_trainable, init_lora_params,
+                                        lora_target_paths, make_lora_eval_step,
+                                        make_lora_train_step, merge_params, set_lora_form)
+from pangu_tpu_torch.train.step import loss_fn
+from pangu_tpu_torch.train.trainer import Trainer
 from pangu_tpu_torch.utils.flops import train_matmul_flops
 
 STEPS = 3
@@ -200,6 +227,13 @@ SCORE_RANGE = ["--set", "data.store=synthetic", "--set", "data.test_start=202401
 SCORE_TARGETS = ["2024010200", "2024010300", "2024010400"]
 ROLLOUT_INITS, ROLLOUT_DAYS = ["2024010100", "2024010200", "2024010300"], 2
 SCORE_RMSE_SLACK, SCORE_ACC_TOL = 1e-4, 0.02
+#: phase 17: the synthetic store's train range (2 samples at 24 h: 2 steps an epoch at
+#: batch 1) and val range (1 sample), the epochs, the LoRA rank and alpha (the reference's)
+FINETUNE_DATA = dict(store="synthetic", train_start="20240101", train_end="20240104",
+                     train_freq="24h", val_start="20240105", val_end="20240107",
+                     val_freq="24h")
+FINETUNE_EPOCHS, LORA_RANK, LORA_ALPHA = 2, 16, 16.0
+
 #: (replaced TPU kernel, CUDA source) of every kernel, in table order
 KERNELS = {
     "fused_earth_block": ("pangu_tpu/ops/fused_block_attention.py:555", "fused_earth_block.cu"),
@@ -1233,6 +1267,217 @@ def check_forecast_and_score(dev) -> dict:
     return res
 
 
+class Scalars:
+    """A writer for the Trainer: its scalars by epoch."""
+
+    def __init__(self):
+        self.by_epoch = {}
+
+    def add_scalars(self, tag, values, epoch):
+        self.by_epoch[epoch] = dict(values)
+
+
+def want_launches(steps: int, val_samples: int = 0) -> dict:
+    """Every kernel's launches over ``steps`` flagship default-route train
+    steps and ``val_samples`` eval forwards (K1, once per block: 16)."""
+    want = {k: TRAIN_LAUNCHES.get(k, 0) * steps for k in launch_counts()}
+    want["fused_earth_block"] = TRAIN_LAUNCHES["fused_block_attention"] * val_samples
+    return want
+
+
+def check_launches(label: str, want: dict) -> dict:
+    got = launch_counts()
+    log(f"{label}: kernel launches {({k: v for k, v in got.items() if v})}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    return {k: v for k, v in got.items() if v}
+
+
+def lora_grads(model, cfg, tree, lcfg, batch, aux, dev, unmerged: bool = False):
+    """One training forward and backward of ``model`` with ``tree`` attached
+    (phase 8's drop-path draws): (loss, the tree's gradients by name)."""
+    for t in flatten_trainable(tree).values():
+        t.grad = None
+    set_lora_form(model, tree, lcfg, unmerged)
+    model.train()
+    loss = loss_fn(model, batch, aux, cfg, torch.Generator(device=dev).manual_seed(3))
+    loss.backward()
+    return loss.item(), {k: t.grad.float().clone() for k, t in flatten_trainable(tree).items()}
+
+
+def lora_deviation(label: str, loss0: float, g0: dict, loss: float, g_ref: dict,
+                   hold: bool = True) -> dict:
+    """One step's LoRA loss and gradients against a reference step's; with
+    ``hold``, phase 8's bounds: the loss within 1%, the global relative L2
+    below 1%."""
+    d2 = sum((g0[k] - g_ref[k]).pow(2).sum().item() for k in g_ref)
+    n2 = sum(g.pow(2).sum().item() for g in g_ref.values())
+    rel_l2, loss_dev = math.sqrt(d2 / n2), abs(loss0 - loss) / abs(loss)
+    log(f"{label}: loss {loss0:.6g} vs {loss:.6g} (rel {loss_dev:.6g}), gradient rel L2 "
+        f"{rel_l2:.6g} over {len(g_ref)} tensors" + ("" if hold else " (reported, no bound)"))
+    if hold and not (loss_dev < TRAIN_LOSS_TOL and rel_l2 < TRAIN_GRAD_TOL):
+        raise AssertionError(f"{label}: out of phase 8's bounds")
+    return dict(loss_rel_dev=loss_dev, grad_rel_l2=rel_l2)
+
+
+def per_step(spans: dict, steps: int) -> dict:
+    """The train loop's spans a step (the checkpoints' ``save`` apart)."""
+    loop = {k: v / steps for k, v in spans.items() if k != "save"}
+    return {**loop, "total": sum(loop.values())}
+
+
+def check_finetune(dev) -> dict:
+    """Phase 17: full finetuning through ``Trainer.fit`` (2 epochs of 2
+    steps, a checkpoint each epoch, one validation pass, the best params),
+    its resume from ``train_1`` against the uninterrupted run, then merged
+    LoRA through the same Trainer and the LoRA gradients against the plain
+    bf16 route and the unmerged form."""
+    res = {}
+    cfg = pangu_pretrain(24, compute_dtype="bfloat16", use_pallas_attention=True)
+    cfg = cfg.replace(data=DataConfig(**FINETUNE_DATA), train=dataclasses.replace(
+        cfg.train, epochs=FINETUNE_EPOCHS, batch_size=1, save_interval=1,
+        val_interval=FINETUNE_EPOCHS))
+    m = cfg.model
+    aux = synthetic_aux_constants(m, cfg.train, seed=0, device=dev)
+    with dev:  # parameters allocated there; .to moves the shift masks built from numpy
+        model = PanguModel(m).to(dev)
+    init_params(model, seed=0)
+    w0 = {k: v.clone() for k, v in model.state_dict().items()}
+    train = make_loader(cfg.data, m, "train", cfg.horizon, 1)
+    val = make_loader(cfg.data, m, "val", cfg.horizon, 1)
+    steps = len(train)
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- full finetuning, uninterrupted
+        writer, spans = Scalars(), {}
+        trainer = Trainer(cfg, model, aux, tmp, writer=writer, steps_per_epoch=steps)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        best, state = trainer.fit(train, val, spans=spans)
+        res["fit_s"] = time.perf_counter() - t0
+        res["fit_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        n = FINETUNE_EPOCHS * steps
+        res["fit_launches"] = check_launches(f"finetune fit ({n} steps, 1 val sample)",
+                                             want_launches(n, 1))
+        res["fit_per_step_s"] = per_step(spans, n)
+        losses = writer.by_epoch[FINETUNE_EPOCHS]
+        if not (state.step == n and all(map(math.isfinite, losses.values()))):
+            raise AssertionError(f"finetune: {state.step} updates, losses {losses}")
+        models = os.path.join(tmp, "models")
+        if sorted(os.listdir(models)) != ["best"] + [f"train_{e}" for e in (1, 2)]:
+            raise AssertionError(f"checkpoints {sorted(os.listdir(models))}")
+        named = dict(model.named_parameters())
+        if not all(torch.equal(best[k], named[k]) for k in best):
+            raise AssertionError("best/ (epoch 2, the only validation) is not the final params")
+        final = {k: p.detach().clone() for k, p in named.items()}
+        res["save_train_state_s"] = spans["save"] / FINETUNE_EPOCHS
+        res["train_state_bytes"] = os.path.getsize(
+            os.path.join(models, "train_1", ckpt.STATE_FILE))
+        log(f"finetune fit: {n} steps, epoch {FINETUNE_EPOCHS} losses {losses}, fit "
+            f"{res['fit_s']:.3f} s, per step {res['fit_per_step_s']}, peak memory "
+            f"{res['fit_peak_bytes'] / 2**30:.3f} GiB, train-state save "
+            f"{res['save_train_state_s']:.3f} s for {res['train_state_bytes']} B")
+        del trainer, state, best
+
+        # -- resume from train_1: epoch 2 again, from the checkpoint (saving no train state)
+        writer2 = Scalars()
+        no_saves = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                         save_interval=FINETUNE_EPOCHS + 1))
+        trainer = Trainer(no_saves, model, aux, tmp, writer=writer2, steps_per_epoch=steps)
+        t0 = time.perf_counter()
+        state, start = trainer.resume(epoch=1)
+        torch.cuda.synchronize(dev)
+        res["resume_s"] = time.perf_counter() - t0
+        reset_counts()
+        trainer.fit(train, val, start_epoch=start, state=state)
+        check_launches("finetune resumed epoch", want_launches(steps, 1))
+        if writer2.by_epoch[FINETUNE_EPOCHS] != losses:
+            raise AssertionError(f"resumed epoch: {writer2.by_epoch} vs {losses}")
+        differ = [k for k, p in model.named_parameters() if not torch.equal(p, final[k])]
+        if start != 2 or differ:
+            raise AssertionError(f"the resumed run (start {start}) differs in {differ[:5]}")
+        log(f"resume from train_1 ({res['resume_s']:.3f} s): epoch 2 gives the same loss and "
+            "parameter bits as the uninterrupted run")
+        del trainer, state, final
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+
+    # -- merged LoRA through the same Trainer, from the initial weights
+    model.load_state_dict(w0)
+    base = model.state_dict()
+    lcfg = LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA, dropout=0.0)
+    tree = init_lora_params(base, lcfg, torch.Generator(device=dev).manual_seed(cfg.train.seed))
+    lora_cfg = cfg.replace(train=dataclasses.replace(cfg.train, epochs=1))
+    with tempfile.TemporaryDirectory() as tmp:
+        spans = {}
+        trainer = Trainer(
+            lora_cfg, model, aux, tmp, steps_per_epoch=steps,
+            optimizer=make_optimizer(flatten_trainable(tree).values(), cfg),
+            train_step_fn=lambda opt: make_lora_train_step(model, cfg, opt, base, lcfg, tree,
+                                                           steps_per_epoch=steps),
+            eval_step_fn=make_lora_eval_step(model, cfg, base, lcfg, tree))
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, state = trainer.fit(train, spans=spans)
+        res["lora_fit_s"] = time.perf_counter() - t0
+        res["lora_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        res["lora_launches"] = check_launches(f"merged LoRA fit ({steps} steps)",
+                                              want_launches(steps))
+        res["lora_per_step_s"] = per_step(spans, steps)
+        del trainer, state
+    if not all(torch.equal(base[k], w0[k]) for k in w0):
+        raise AssertionError("merged LoRA changed a base weight")
+    changed = changed_param_report(w0, merge_params(w0, tree, lcfg))
+    want = sorted(lora_target_paths(w0, lcfg) + list(tree["full"]))
+    if sorted(changed) != want:
+        raise AssertionError(f"LoRA changed {len(changed)} params, want the {len(want)} "
+                             "targets and heads")
+    log(f"merged LoRA: {steps} steps, {res['lora_fit_s']:.3f} s, per step "
+        f"{res['lora_per_step_s']}, peak memory {res['lora_peak_bytes'] / 2**30:.3f} GiB; "
+        f"changed: the {len(changed)} targets and heads only")
+
+    # -- one step's LoRA gradients, merged and unmerged (adapter dropout 0): the
+    #    kernel route against the plain bf16 route under phase 8's bounds; the two
+    #    forms against each other reported (in bf16 they round differently: the
+    #    merged weight rounds the small delta into W, the unmerged tap keeps it in f32)
+    host, _ = next(iter(train))
+    batch = Batch(*(to_device(x, dev) for x in host))
+    loss_k, g_k = lora_grads(model, cfg, tree, lcfg, batch, aux, dev)
+    reset_counts()
+    loss_u, g_u = lora_grads(model, cfg, tree, lcfg, batch, aux, dev, unmerged=True)
+    unmerged_want = dict.fromkeys(launch_counts(), 0)
+    unmerged_want.update(fused_residual_postnorm=32, fused_residual_postnorm_bwd=16)
+    check_launches("unmerged LoRA step", unmerged_want)
+    with dev:
+        plain = PanguModel(dataclasses.replace(m, use_pallas_attention=False)).to(dev)
+    plain.load_state_dict(w0)
+    ptree = {"lora": {k: {ab: t.detach().clone().requires_grad_() for ab, t in v.items()}
+                      for k, v in tree["lora"].items()},
+             "full": {k: torch.nn.Parameter(t.detach().clone()) for k, t in tree["full"].items()}}
+    attach_lora(plain, ptree, lcfg)
+    reset_counts()
+    loss_p, g_p = lora_grads(plain, cfg, ptree, lcfg, batch, aux, dev)
+    loss_pu, g_pu = lora_grads(plain, cfg, ptree, lcfg, batch, aux, dev, unmerged=True)
+    if any(launch_counts().values()):
+        raise AssertionError("the plain LoRA steps launched a kernel")
+    res["lora_vs_plain"] = lora_deviation("merged LoRA step vs plain bf16 step", loss_k, g_k,
+                                          loss_p, g_p)
+    res["unmerged_vs_plain"] = lora_deviation(
+        "unmerged LoRA step (dropout 0) vs plain bf16 unmerged step", loss_u, g_u, loss_pu, g_pu)
+    res["unmerged_vs_merged"] = lora_deviation("unmerged LoRA step vs merged LoRA step",
+                                               loss_u, g_u, loss_k, g_k, hold=False)
+    del plain, ptree, model, tree, base, w0
+    torch.cuda.empty_cache()
+    res["card"] = card_line()
+    log("finetune: " + json.dumps(
+        {k: res[k] for k in ("fit_per_step_s", "lora_per_step_s", "fit_peak_bytes",
+                             "lora_peak_bytes", "save_train_state_s", "train_state_bytes",
+                             "resume_s", "fit_s", "lora_fit_s", "fit_launches",
+                             "lora_launches", "card")}))
+    return res
+
+
 def main() -> int:
     card()
     dev = torch.device("cuda:0")
@@ -1269,11 +1514,14 @@ def main() -> int:
     fwd_ab, fwd_counts = check_attn_fwd_ab(dev)
     bwd_ab, bwd_counts = check_attn_bwd_ab(dev)
     score = check_forecast_and_score(dev)
+    t0 = time.perf_counter()
+    finetune = check_finetune(dev)
+    log(f"phase 17 (finetune): {time.perf_counter() - t0:.3f} s")
 
     log("detail: " + json.dumps({"slice": sl, **shapes, "products": products, "train": tr,
                                  "ab": ab, "two_kernel_path": tail_path, "mxu_micro": micro,
                                  "attn_fwd_ab": fwd_ab, "attn_bwd_ab": bwd_ab,
-                                 "forecast_and_score": score}))
+                                 "forecast_and_score": score, "finetune": finetune}))
     # launches over the run of each kernel's path
     launches = {"fused_earth_block": sl["launches"], **tr["launches"],
                 **{k: ab["unfused_tail"]["launches"][k] for k in ("fused_mlp", "fused_mlp_bwd")},

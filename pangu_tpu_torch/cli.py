@@ -34,7 +34,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    metavar="KEY=VALUE", help="dotted config override")
     p.add_argument("--out", type=str, default=None, help="output directory")
     p.add_argument("--weights", type=str, default=None,
-                   help="checkpoint: reference .pth or params .npz")
+                   help="checkpoint: reference .pth, params .npz or a trainer "
+                        "checkpoint directory (best/, train_<n>/)")
     p.add_argument("--aux-dir", type=str, default=None,
                    help="directory with normalization/mask .npy files "
                         "(synthetic constants when absent)")
@@ -68,8 +69,10 @@ def require_device(device) -> torch.device:
 def load_model_and_params(cfg: PanguConfig, args, aux, device="cuda"):
     """Build the model on ``device`` and load its weights from --weights: a
     reference ``.pth`` (the port's names are the reference's, so the state
-    dict loads strictly as it is) or a params ``.npz`` written by either
-    package; without --weights, seeded weights from ``cfg.train.seed``.
+    dict loads strictly as it is), a params ``.npz`` written by either
+    package, or a checkpoint directory of the port's trainer (``best/`` or
+    ``train_<n>/``; a JAX orbax directory raises, naming the ``.npz``
+    route); without --weights, seeded weights from ``cfg.train.seed``.
     Returns the model, in eval mode."""
     from pangu_tpu_torch.interop.from_jax import init_params, load_jax_params
     from pangu_tpu_torch.model import PanguModel
@@ -89,11 +92,14 @@ def load_model_and_params(cfg: PanguConfig, args, aux, device="cuda"):
             from pangu_tpu_torch.interop.npz_io import load_params_npz
 
             load_jax_params(model, cfg.model, load_params_npz(path))
-        else:
-            raise NotImplementedError(
-                f"{path}: orbax checkpoint directories belong to the trainer, which is not "
-                "ported yet (ROADMAP queue 1, item 6); convert the params to .npz with the "
-                "JAX package")
+        else:  # a checkpoint directory of the port's trainer: best/ or train_<n>/
+            from pangu_tpu_torch.train.checkpoint import load_checkpoint_params
+
+            state = load_checkpoint_params(path)
+            if any(k.startswith(("lora/", "full/")) for k in state):
+                raise ValueError(f"{path} holds a LoRA trainable tree, not model weights: "
+                                 "pass the base --weights and --lora-weights")
+            model.load_state_dict(state, strict=True)
     else:
         init_params(model, cfg.train.seed)
     return model.to(device).eval()

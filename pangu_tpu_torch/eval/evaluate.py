@@ -171,7 +171,7 @@ def make_score_step(model: nn.Module, cfg: PanguConfig,
     return score
 
 
-class _Spans:
+class Spans:
     """Wall seconds by span, summed over the loop; each mark waits for the
     device, so a span holds the work queued in it."""
 
@@ -215,7 +215,7 @@ def evaluate(
     acc_scores: Dict[str, Dict[str, np.ndarray]] = {f: {} for f in ACC_FAMILIES}
 
     total_loss, n = 0.0, 0
-    timer = _Spans(spans, device)
+    timer = Spans(spans, device)
     for host_batch, periods in loader:
         timer.mark("load")
         batch = Batch(*(to_device(x, device) for x in host_batch))

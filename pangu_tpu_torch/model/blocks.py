@@ -20,7 +20,12 @@ The route keys on the module's mode, as the JAX package keys on
   ``ops.fused_mlp._POSTNORM_FUSION = False`` runs the MLP tail as the raw MLP
   K8 (backward K9) followed by the XLA formula of the residual. Without the
   kernels both residuals are the XLA formula (``postnorm_residual``), which
-  rounds LN(.) to the compute dtype first.
+  rounds LN(.) to the compute dtype first. As in JAX
+  (pangu_tpu/model/blocks.py:102-137, 297, 360-364), active dropout sends
+  the attention and the MLP off their kernels, and so does an unmerged LoRA
+  adapter on one of their linears; the first residual keeps K4/K5; K1 and
+  K11/K12 run only with no dropout and no unmerged adapter in the block.
+  Merged adapters change only the weights the kernels are given.
 
 ``EarthSpecificLayer`` draws the scales and, with ``remat``, checkpoints each
 block (``torch.utils.checkpoint``, non-reentrant) -- except a block on the
@@ -33,7 +38,9 @@ after a raw MLP, the second residual. ``remat_save_attention`` and
 policy ``save_only_these_names("attn_out", "mlp_out")`` does: the backward
 recomputes the other stages but not those two. A kept kernel stage runs
 outside the checkpoint (its autograd Function saves only its inputs); a
-kept plain stage is a checkpoint of its own, whose output is kept.
+kept plain stage is a checkpoint of its own, whose output is kept. Dropout
+masks come from per-site seeds drawn before the stages (``train_seeds``), so
+a recompute draws the masks of the forward.
 """
 
 from __future__ import annotations
@@ -46,7 +53,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pangu_tpu_torch.geometry import StageGeometry
-from pangu_tpu_torch.model.attention import EarthAttention3D, shift_attention_mask
+from pangu_tpu_torch.model.attention import (ATTENTION_SITES, EarthAttention3D, add_tap, draws,
+                                             dropout, linear_weight, seed_of,
+                                             shift_attention_mask, train_seeds, unmerged)
 from pangu_tpu_torch.ops import fused_block_train, fused_mlp
 from pangu_tpu_torch.ops.fused_block_attention import dense, fused_earth_block, layer_norm_f32
 from pangu_tpu_torch.ops.fused_epilogue import fused_residual_postnorm
@@ -66,29 +75,54 @@ def postnorm_residual(x: torch.Tensor, y: torch.Tensor, norm: nn.LayerNorm,
     return (x.float() + branch).to(x.dtype)
 
 
-class Mlp(nn.Module):
-    """Linear(4x) -> exact GELU -> Linear; returns the raw MLP output, or
-    with ``fused=True`` the whole block tail ``x + LN(mlp(x))`` as one call of
-    the inference MLP kernel K10 (``ops.fused_mlp.fused_mlp_block``), ``ln``
-    the LayerNorm's (scale, bias)."""
+#: the random sites of one MLP: its two dropouts and two adapters
+MLP_SITES = ("drop1", "drop2", "fc1", "fc2")
 
-    def __init__(self, dim: int, ratio: int = 4):
+
+class Mlp(nn.Module):
+    """Linear(4x) -> exact GELU -> dropout -> Linear -> dropout; returns the
+    raw MLP output, or with ``fused=True`` the whole block tail
+    ``x + LN(mlp(x))`` as one call of the inference MLP kernel K10
+    (``ops.fused_mlp.fused_mlp_block``), ``ln`` the LayerNorm's (scale, bias)."""
+
+    def __init__(self, dim: int, ratio: int = 4, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.linear1 = nn.Linear(dim, dim * ratio)
         self.linear2 = nn.Linear(dim * ratio, dim)
 
-    def forward(self, x: torch.Tensor, ln: Optional[tuple] = None,
-                fused: bool = False) -> torch.Tensor:
+    def plain_only(self) -> bool:
+        """Whether this call must take the plain path: active dropout or an
+        unmerged adapter (pangu_tpu/model/blocks.py:102-108)."""
+        return ((self.training and self.dropout_rate > 0.0)
+                or unmerged(self.linear1, self.linear2))
+
+    def weights(self, dtype: torch.dtype) -> tuple:
+        """(w1, b1, w2, b2) in ``dtype`` for a kernel (merged adapters applied)."""
+        return (linear_weight(self.linear1).to(dtype), self.linear1.bias.to(dtype),
+                linear_weight(self.linear2).to(dtype), self.linear2.bias.to(dtype))
+
+    def forward(self, x: torch.Tensor, ln: Optional[tuple] = None, fused: bool = False,
+                seeds: Optional[dict] = None) -> torch.Tensor:
+        """``seeds`` (``train_seeds`` of ``MLP_SITES``) draw the dropout masks
+        in training; required when one is active."""
         if fused:
             if ln is None:
                 raise ValueError("the fused MLP tail needs ln = (scale, bias)")
-            cdt = x.dtype
-            return fused_mlp.fused_mlp_block(
-                x, self.linear1.weight.to(cdt), self.linear1.bias.to(cdt),
-                self.linear2.weight.to(cdt), self.linear2.bias.to(cdt),
-                ln[0].float(), ln[1].float())
-        h = F.gelu(dense(x, self.linear1.weight, self.linear1.bias))
-        return dense(h, self.linear2.weight, self.linear2.bias)
+            if self.plain_only():
+                raise ValueError("the fused MLP tail has no dropout or unmerged-adapter path")
+            return fused_mlp.fused_mlp_block(x, *self.weights(x.dtype), ln[0].float(),
+                                             ln[1].float())
+        rate = self.dropout_rate if self.training else 0.0
+        if self.training and seeds is None and draws(rate, self.linear1, self.linear2):
+            raise ValueError("dropout in training needs its seeds (train_seeds)")
+        seed = seed_of(seeds, self.training)
+        h = add_tap(dense(x, linear_weight(self.linear1), self.linear1.bias),
+                    self.linear1, x, seed("fc1"))
+        h = dropout(F.gelu(h), rate, seed("drop1"))
+        y = add_tap(dense(h, linear_weight(self.linear2), self.linear2.bias),
+                    self.linear2, h, seed("fc2"))
+        return dropout(y, rate, seed("drop2"))
 
 
 class EarthSpecificBlock(nn.Module):
@@ -103,15 +137,29 @@ class EarthSpecificBlock(nn.Module):
         self.shifted, self.use_kernel = shifted, use_kernel
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
-        self.linear = Mlp(dim, mlp_ratio)
+        self.linear = Mlp(dim, mlp_ratio, dropout_rate)
         self.attention = EarthAttention3D(dim, heads, stage, use_kernel, dropout_rate)
         mask = torch.from_numpy(shift_attention_mask(stage)) if shifted else None
         self.register_buffer("attn_mask", mask, persistent=False)
 
+    def linears(self) -> tuple:
+        return (self.attention.linear1, self.attention.linear2,
+                self.linear.linear1, self.linear.linear2)
+
+    def adapted(self) -> bool:
+        """Whether an unmerged adapter rides one of the block's linears."""
+        return unmerged(*self.linears())
+
+    def draw_seeds(self, generator: Optional[torch.Generator]) -> Optional[dict]:
+        """The block's dropout seeds for a training call that draws masks, else None."""
+        return train_seeds(self, generator, BLOCK_SITES, self.attention.dropout_rate,
+                           *self.linears())
+
     def train_fused(self, x: torch.Tensor) -> bool:
         """Whether a training call on ``x`` takes the K11/K12 route."""
         return (self.training and self.use_kernel and x.dtype == torch.bfloat16
-                and fused_block_train._TRAIN_FUSION and self.attention.dropout_rate == 0.0)
+                and fused_block_train._TRAIN_FUSION and self.attention.dropout_rate == 0.0
+                and not self.adapted())
 
     def _enter(self, x: torch.Tensor):
         """Pad rows re-zeroed, then the shifted block's roll: (shortcut, x)."""
@@ -131,33 +179,32 @@ class EarthSpecificBlock(nn.Module):
         return torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
 
     def forward(self, x: torch.Tensor, s1: Optional[torch.Tensor] = None,
-                s2: Optional[torch.Tensor] = None,
-                kept: Optional[frozenset] = None) -> torch.Tensor:
+                s2: Optional[torch.Tensor] = None, kept: Optional[frozenset] = None,
+                seeds: Optional[dict] = None) -> torch.Tensor:
         """In training, ``s1``/``s2`` are the stochastic-depth branch scales
-        of the two residuals, (B, 1, 1, 1, 1) f32 (``drop_path_scale``), and
+        of the two residuals, (B, 1, 1, 1, 1) f32 (``drop_path_scale``),
         ``kept`` is None (no checkpoint) or the set of stage outputs the
         backward keeps ("attention", "mlp"; empty: the whole block is
-        recomputed)."""
+        recomputed) and ``seeds`` the dropout seeds (``draw_seeds``)."""
         if self.training:
             if s1 is None or s2 is None:
                 raise ValueError("a training block needs its drop-path scales s1 and s2")
             if self.train_fused(x):
                 return self._train_fused(x, s1, s2)
-            kernels = self.use_kernel and x.dtype == torch.bfloat16
-            return run_stages(self._train_stages(kernels, s1, s2), x, kept, kernels)
+            return run_stages(self._train_stages(x, s1, s2, seeds), x, kept)
 
         shortcut, x = self._enter(x)
-        if self.use_kernel and x.dtype == torch.bfloat16 and not torch.is_grad_enabled():
+        if (self.use_kernel and x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+                and not self.adapted()):
             cdt = x.dtype
             attn, mlp = self.attention, self.linear
             x = fused_earth_block(
                 x,
-                attn.linear1.weight.to(cdt), attn.linear1.bias.to(cdt),
-                attn.linear2.weight.to(cdt), attn.linear2.bias.to(cdt),
+                linear_weight(attn.linear1).to(cdt), attn.linear1.bias.to(cdt),
+                linear_weight(attn.linear2).to(cdt), attn.linear2.bias.to(cdt),
                 attn.earth_specific_bias[0].float(), self.attn_mask,
                 self.norm1.weight.float(), self.norm1.bias.float(),
-                mlp.linear1.weight.to(cdt), mlp.linear1.bias.to(cdt),
-                mlp.linear2.weight.to(cdt), mlp.linear2.bias.to(cdt),
+                *mlp.weights(cdt),
                 self.norm2.weight.float(), self.norm2.bias.float(),
                 self.stage.window, self.heads, (self.dim // self.heads) ** -0.5,
             )
@@ -173,82 +220,87 @@ class EarthSpecificBlock(nn.Module):
         cdt, attn, mlp = x.dtype, self.attention, self.linear
         x = fused_block_train.fused_earth_block_train(
             x,
-            attn.linear1.weight.to(cdt), attn.linear1.bias.to(cdt),
-            attn.linear2.weight.to(cdt), attn.linear2.bias.to(cdt),
+            linear_weight(attn.linear1).to(cdt), attn.linear1.bias.to(cdt),
+            linear_weight(attn.linear2).to(cdt), attn.linear2.bias.to(cdt),
             attn.earth_specific_bias[0].float(), self.attn_mask,
             self.norm1.weight.float(), self.norm1.bias.float(),
-            mlp.linear1.weight.to(cdt), mlp.linear1.bias.to(cdt),
-            mlp.linear2.weight.to(cdt), mlp.linear2.bias.to(cdt),
+            *mlp.weights(cdt),
             self.norm2.weight.float(), self.norm2.bias.float(),
             s1.reshape(-1), s2.reshape(-1),
             self.stage.window, self.heads, (self.dim // self.heads) ** -0.5,
         )
         return self._roll_back(x)
 
-    def _train_stages(self, kernels: bool, s1: torch.Tensor, s2: torch.Tensor) -> list:
-        """The training block as (function, name) stages, each a function of
-        the previous stage's tensors returning a tuple; the names "attention"
-        and "mlp" mark the stages whose outputs the remat flags keep.
-        ``kernels``: the bf16 kernel route (K2, K4, and K6 or K8)."""
+    def _train_stages(self, x: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
+                      seeds: Optional[dict]) -> list:
+        """The training block as (function, name, kernel) stages, each a
+        function of the previous stage's tensors returning a tuple; the names
+        "attention" and "mlp" mark the stages whose outputs the remat flags
+        keep, ``kernel`` whether the stage is one kernel call. The bf16
+        kernel route runs K2 for the attention, K4 for the first residual and
+        K6 (or K8) for the MLP; active dropout or an unmerged adapter sends
+        the attention or the MLP to the plain path."""
         attn, mlp, norm1, norm2 = self.attention, self.linear, self.norm1, self.norm2
+        residual_kernel = self.use_kernel and x.dtype == torch.bfloat16
+        attn_kernel = attn.uses_kernel(x)
+        mlp_kernel = residual_kernel and not mlp.plain_only()
 
         def attention(x):
             shortcut, x = self._enter(x)
-            return shortcut, attn(x, self.attn_mask)
+            return shortcut, attn(x, self.attn_mask, seeds=seeds)
 
         def residual(shortcut, y):
             y = self._roll_back(y)
-            if kernels:
+            if residual_kernel:
                 return (fused_residual_postnorm(shortcut, y, norm1.weight, norm1.bias, s1),)
             return (postnorm_residual(shortcut, y, norm1, s1),)
 
-        def weights():  # the kernel route's bf16 MLP weights
-            bf = torch.bfloat16
-            return (mlp.linear1.weight.to(bf), mlp.linear1.bias.to(bf),
-                    mlp.linear2.weight.to(bf), mlp.linear2.bias.to(bf))
-
-        stages = [(attention, "attention"), (residual, None)]
-        if kernels and fused_mlp._POSTNORM_FUSION:
+        stages = [(attention, "attention", attn_kernel), (residual, None, residual_kernel)]
+        if mlp_kernel and fused_mlp._POSTNORM_FUSION:
             def tail(x):
-                return (fused_mlp.fused_mlp_postnorm(x, *weights(), norm2.weight, norm2.bias,
-                                                     s2),)
+                return (fused_mlp.fused_mlp_postnorm(x, *mlp.weights(torch.bfloat16),
+                                                     norm2.weight, norm2.bias, s2),)
 
-            return stages + [(tail, "mlp")]
+            return stages + [(tail, "mlp", True)]
 
         def mlp_out(x):
-            return x, (fused_mlp.fused_mlp(x, *weights()) if kernels else mlp(x))
+            return x, (fused_mlp.fused_mlp(x, *mlp.weights(torch.bfloat16)) if mlp_kernel
+                       else mlp(x, seeds=seeds))
 
         def finish(x, y):
             return (postnorm_residual(x, y, norm2, s2),)
 
-        return stages + [(mlp_out, "mlp"), (finish, None)]
+        return stages + [(mlp_out, "mlp", mlp_kernel), (finish, None, False)]
+
+
+#: the random sites of one block (distinct names, one seed each)
+BLOCK_SITES = ATTENTION_SITES + MLP_SITES
 
 
 def _chain(stages):
     def run(*state):
-        for fn, _ in stages:
+        for fn, *_ in stages:
             state = fn(*state)
         return state
     return run
 
 
-def run_stages(stages, x: torch.Tensor, kept: Optional[frozenset],
-               kernels: bool) -> torch.Tensor:
+def run_stages(stages, x: torch.Tensor, kept: Optional[frozenset]) -> torch.Tensor:
     """Run a block's training ``stages`` on ``x``. ``kept`` None: plainly.
     Otherwise each run of consecutive stages whose names are not in ``kept``
     goes under one non-reentrant ``torch.utils.checkpoint`` (the backward
     recomputes it), and each kept stage runs alone: outside any checkpoint
-    when it is a kernel (``kernels``: its autograd Function saves only its
-    inputs, so its backward does not run it again), else under a checkpoint
-    of its own, which keeps the stage's output and recomputes only its
-    inside."""
+    when it is one kernel call (its autograd Function saves only its inputs,
+    so its backward does not run it again), else under a checkpoint of its
+    own, which keeps the stage's output and recomputes only its inside."""
     if kept is None:
         return _chain(stages)(x)[0]
     state, i = (x,), 0
     while i < len(stages):
         j = i + 1
-        if stages[i][1] in kept:
-            if kernels:
+        _, name, kernel = stages[i]
+        if name in kept:
+            if kernel:
                 state = stages[i][0](*state)
                 i = j
                 continue
@@ -277,10 +329,11 @@ class EarthSpecificLayer(nn.Module):
     """A stack of blocks alternating unshifted/shifted windows. Latitude is
     window-padded once for the whole stack and cropped at the end.
 
-    In training each block gets two fresh drop-path scales, drawn here,
-    outside the checkpoint: a recompute under ``torch.utils.checkpoint`` does
-    not replay an explicit generator, so scales drawn inside the block would
-    differ between the forward and its recompute. With ``remat`` a block is
+    In training each block gets two fresh drop-path scales and, when it
+    draws dropout masks, its per-site seeds, drawn here, outside the
+    checkpoint: a recompute under ``torch.utils.checkpoint`` does not replay
+    an explicit generator, so draws inside the block would differ between
+    the forward and its recompute. With ``remat`` a block is
     checkpointed but for the stage outputs that ``save_attention`` and
     ``save_mlp`` keep (see the module docstring); a block on the K11 route
     is not checkpointed."""
@@ -313,7 +366,7 @@ class EarthSpecificLayer(nn.Module):
                 continue
             s1 = drop_path_scale(x.shape[0], rate, generator, x.device)
             s2 = drop_path_scale(x.shape[0], rate, generator, x.device)
-            x = block(x, s1, s2, self.kept)
+            x = block(x, s1, s2, self.kept, block.draw_seeds(generator))
         return x[:, :, :st.h]
 
 
@@ -327,13 +380,18 @@ class DownSample(nn.Module):
         self.norm = nn.LayerNorm(4 * dim)
         self.linear = nn.Linear(4 * dim, 2 * dim, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws an unmerged adapter's dropout in training."""
+        seed = seed_of(train_seeds(self, generator, ("reduction",), 0.0, self.linear),
+                       self.training)
         b, z, h, w, c = x.shape
         x = F.pad(x, (0, 0, 0, 0, 0, self.h_pad))
         hp = h + self.h_pad
         x = x.reshape(b, z, hp // 2, 2, w // 2, 2, c).permute(0, 1, 2, 4, 3, 5, 6)
         x = x.reshape(b, z, hp // 2, w // 2, 4 * c)
-        return dense(apply_layer_norm(x, self.norm.weight, self.norm.bias), self.linear.weight)
+        x = apply_layer_norm(x, self.norm.weight, self.norm.bias)
+        return add_tap(dense(x, linear_weight(self.linear)), self.linear, x, seed("reduction"))
 
 
 class UpSample(nn.Module):
@@ -347,9 +405,14 @@ class UpSample(nn.Module):
         self.norm = nn.LayerNorm(out_dim)
         self.linear2 = nn.Linear(out_dim, out_dim, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the unmerged adapters' dropout in training."""
+        seed = seed_of(train_seeds(self, generator, ("expand", "mix"), 0.0, self.linear1,
+                                   self.linear2), self.training)
         b, z, h2, w2, _ = x.shape
-        x = dense(x, self.linear1.weight)
+        x = add_tap(dense(x, linear_weight(self.linear1)), self.linear1, x, seed("expand"))
         x = x.reshape(b, z, h2, w2, 2, 2, self.out_dim).permute(0, 1, 2, 4, 3, 5, 6)
         x = x.reshape(b, z, 2 * h2, 2 * w2, self.out_dim)[:, :, :self.h_out]
-        return dense(apply_layer_norm(x, self.norm.weight, self.norm.bias), self.linear2.weight)
+        x = apply_layer_norm(x, self.norm.weight, self.norm.bias)
+        return add_tap(dense(x, linear_weight(self.linear2)), self.linear2, x, seed("mix"))

@@ -93,16 +93,17 @@ class PanguModel(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Physical (B, Vu, L, lat, lon) and (B, Vs, lat, lon) -> normalized
         next-state fields of the same shapes, f32. ``generator`` draws the
-        drop paths in training (required when a rate is above 0)."""
+        drop paths and dropout masks in training (required when a rate is
+        above 0 or an unmerged adapter has dropout)."""
         if upper.is_cuda:
             check_kernel_widths(self.cfg)
         layers = list(self.layers.values())
         x = self._input_layer(upper, surface, aux, self.compute_dtype)
         x = layers[0](x, generator)
         skip = x
-        x = self.downsample(x)
+        x = self.downsample(x, generator)
         x = layers[1](x, generator)
         x = layers[2](x, generator)
-        x = self.upsample(x)
+        x = self.upsample(x, generator)
         x = layers[3](x, generator)
         return self._output_layer(torch.cat([skip, x], dim=-1))

@@ -29,10 +29,9 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
     p = base_parser("Evaluate a Pangu-Weather checkpoint")
     p.add_argument("--visualize", action="store_true")
     p.add_argument("--lora-weights", type=str, default=None,
-                   help="merge a LoRA trainable tree before evaluating (not ported yet)")
+                   help="merge a LoRA trainable tree (.npz of either package) before "
+                        "evaluating")
     args = p.parse_args(argv)
-    if args.lora_weights:
-        raise SystemExit("--lora-weights: LoRA is not ported yet (ROADMAP queue 1, item 7)")
     device = require_device(device)
 
     cfg = build_config(args)
@@ -42,6 +41,12 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
 
     aux = load_aux_constants(cfg.model, cfg.train, args.aux_dir, cfg.horizon, device=device)
     model = load_model_and_params(cfg, args, aux, device=device)
+    if args.lora_weights:
+        from pangu_tpu_torch.interop.from_jax import load_lora_npz
+        from pangu_tpu_torch.train.lora import LoraConfig, merge_params
+
+        trainable = load_lora_npz(args.lora_weights, cfg.model, device)
+        model.load_state_dict(merge_params(model, trainable, LoraConfig()))
     loader = make_loader(cfg.data, cfg.model, "test", cfg.horizon, cfg.eval.batch_size)
     loss = evaluate(model, loader, aux, cfg, out_dir, visualize=args.visualize, logger=logger,
                     spans=spans)

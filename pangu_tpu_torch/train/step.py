@@ -13,7 +13,7 @@ The JAX step's ZeRO sharding constraints have no counterpart on one card.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -38,10 +38,27 @@ class Batch(NamedTuple):
     target_surface: torch.Tensor
 
 
-def make_optimizer(model: nn.Module, cfg: PanguConfig) -> torch.optim.Adam:
-    """Adam with coupled L2 weight decay over every parameter of ``model``."""
-    return torch.optim.Adam(model.parameters(), lr=cfg.train.lr,
-                            weight_decay=cfg.train.weight_decay)
+class TrainState(NamedTuple):
+    """What a train step updates, in place: the trainable tensors by name
+    (``model.named_parameters()`` for full finetuning, the flattened LoRA
+    tree for LoRA) and the optimizer over them, whose Adam state holds the
+    moments and the update count ``step`` the LR schedule reads."""
+
+    params: Dict[str, torch.Tensor]
+    opt_state: torch.optim.Optimizer
+
+    @property
+    def step(self) -> int:
+        return optimizer_step_count(self.opt_state)
+
+
+def make_optimizer(params: Union[nn.Module, Iterable[torch.Tensor]],
+                   cfg: PanguConfig) -> torch.optim.Adam:
+    """Adam with coupled L2 weight decay over the trainable tensors: every
+    parameter of a module that requires a gradient, or the tensors given."""
+    if isinstance(params, nn.Module):
+        params = [p for p in params.parameters() if p.requires_grad]
+    return torch.optim.Adam(params, lr=cfg.train.lr, weight_decay=cfg.train.weight_decay)
 
 
 def optimizer_step_count(optimizer: torch.optim.Optimizer) -> int:
@@ -57,7 +74,7 @@ def optimizer_step_count(optimizer: torch.optim.Optimizer) -> int:
 def loss_fn(model: nn.Module, batch: Batch, aux: AuxConstants, cfg: PanguConfig,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The loss of one batch, in the model's current mode; ``generator``
-    draws the drop paths in training."""
+    draws the drop paths and dropout masks in training."""
     out_u, out_s = model(batch.upper, batch.surface, aux, generator)
     tgt_u, tgt_s = norm_data(batch.target_upper, batch.target_surface, aux)
     mask = aux.custom_mask if cfg.train.use_custom_mask else None

@@ -312,9 +312,13 @@ def test_scripts_refuse_to_run_without_a_card_unless_asked(setup, tmp_path):
 
 
 def test_lora_weights_are_refused_with_the_roadmap_item(setup, tmp_path):
-    with pytest.raises(SystemExit, match="queue 1, item 7"):
+    """LoRA is ported (ROADMAP queue 1, item 7): ``--lora-weights`` now
+    merges a tree (tests/test_torch_lora.py), and a file that is not there
+    is refused before any scoring."""
+    with pytest.raises(FileNotFoundError, match="x.npz"):
         port_test_script.main(["--preset", "tiny", "--out", str(tmp_path),
-                               "--lora-weights", "x.npz"], device="cpu")
+                               "--lora-weights", str(tmp_path / "x.npz")], device="cpu")
+    assert not (tmp_path / "test" / "24" / "csv").exists()
 
 
 def test_masked_scores_match_jax(setup):

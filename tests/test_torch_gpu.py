@@ -576,6 +576,110 @@ def test_cuda_entry_points_check_the_widths_before_any_launch(cuda_device):
                                     torch.Generator(cuda_device).manual_seed(1))))
 
 
+def _flagship(cuda_device, **kw):
+    from pangu_tpu_torch import pangu_pretrain
+
+    cfg = pangu_pretrain(24, compute_dtype="bfloat16", use_pallas_attention=True, **kw)
+    with cuda_device:
+        model = PanguModel(cfg.model).to(cuda_device)
+    init_params(model, seed=0)
+    return cfg, model, synthetic_aux_constants(cfg.model, cfg.train, device=cuda_device)
+
+
+def _training_counts():
+    from pangu_tpu_torch.scripts.bench_train_ab import launch_counts
+
+    return {"fused_earth_block": tfba.LAUNCHES, **launch_counts()}
+
+
+def test_merged_lora_kernel_step_matches_the_plain_bf16_step(cuda_device):
+    """One flagship LoRA step (rank 16, alpha 16, B drawn nonzero) with the
+    merged weights: K2, K3, K5, K6 and K7 16 launches and K4 32; the loss
+    within 1% and the adapters' and heads' gradient within 1% relative L2
+    of the plain bf16 step (chip_smoke.py's phase 8 bounds)."""
+    from pangu_tpu_torch.train import Batch
+    from pangu_tpu_torch.train.lora import (LoraConfig, attach_lora, flatten_trainable,
+                                            init_lora_params)
+    from pangu_tpu_torch.train.step import loss_fn
+
+    cfg, model, aux = _flagship(cuda_device)
+    m = cfg.model
+    lcfg = LoraConfig(rank=16, alpha=16.0, dropout=0.0)
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    fields = [aux.upper_mean + aux.upper_std * torch.randn(
+        (1, m.upper_vars, m.levels, m.lat, m.lon), generator=gen, device=cuda_device),
+              aux.surface_mean + aux.surface_std * torch.randn(
+        (1, m.surface_vars, m.lat, m.lon), generator=gen, device=cuda_device)]
+    batch = Batch(*fields, *(f + 0.1 * torch.randn(f.shape, generator=gen, device=cuda_device)
+                             for f in fields))
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    results = []
+    for kernel in (True, False):
+        if not kernel:
+            with cuda_device:
+                model = PanguModel(dataclasses.replace(m, use_pallas_attention=False)).to(
+                    cuda_device)
+            model.load_state_dict(base)
+        tree = init_lora_params(base, lcfg, torch.Generator(cuda_device).manual_seed(1))
+        with torch.no_grad():
+            for ab in tree["lora"].values():
+                ab["b"].normal_(0.0, 0.02, generator=torch.Generator(cuda_device).manual_seed(2))
+        attach_lora(model, tree, lcfg)
+        before = _training_counts()
+        model.train()
+        loss = loss_fn(model, batch, aux, cfg, torch.Generator(cuda_device).manual_seed(3))
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _training_counts().items() if v != before[k]}
+        assert launched == ({"fused_block_attention": 16, "fused_block_attention_bwd": 16,
+                             "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
+                             "fused_mlp_postnorm": 16, "fused_mlp_postnorm_bwd": 16}
+                            if kernel else {})
+        results.append((loss.item(), {k: t.grad.float() for k, t in
+                                      flatten_trainable(tree).items()}))
+    (loss_k, g_k), (loss_p, g_p) = results
+    assert abs(loss_k - loss_p) / abs(loss_p) < 0.01
+    d2 = sum(float((g_k[k] - g_p[k]).pow(2).sum()) for k in g_p)
+    n2 = sum(float(g.pow(2).sum()) for g in g_p.values())
+    assert (d2 / n2) ** 0.5 < 0.01
+
+
+def test_trainer_fit_launches_the_training_kernels(cuda_device, tmp_path):
+    """``Trainer.fit``, one epoch of one flagship synthetic sample and one
+    validation sample: K2, K3, K5, K6, K7 16 launches and K4 32 for the
+    step, K1 16 for the validation forward; a finite loss, a checkpoint and
+    the best params."""
+    from pangu_tpu_torch.config import DataConfig
+    from pangu_tpu_torch.data import make_loader
+    from pangu_tpu_torch.train.trainer import Trainer
+
+    cfg, model, aux = _flagship(cuda_device)
+    cfg = cfg.replace(
+        data=DataConfig(store="synthetic", train_start="20240101", train_end="20240103",
+                        val_start="20240104", val_end="20240106"),
+        train=dataclasses.replace(cfg.train, epochs=1, batch_size=1))
+    train = make_loader(cfg.data, cfg.model, "train", 24, 1)
+    val = make_loader(cfg.data, cfg.model, "val", 24, 1)
+    assert (len(train), len(val)) == (1, 1)
+    losses = []
+
+    class Writer:
+        def add_scalars(self, tag, values, epoch):
+            losses.append(values)
+
+    before = _training_counts()
+    best, state = Trainer(cfg, model, aux, str(tmp_path), writer=Writer()).fit(train, val)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _training_counts().items() if v != before[k]}
+    assert launched == {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
+                        "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
+                        "fused_mlp_postnorm": 16, "fused_mlp_postnorm_bwd": 16,
+                        "fused_earth_block": 16}
+    assert state.step == 1 and all(np.isfinite(v) for v in losses[0].values())
+    assert sorted(os.listdir(tmp_path / "models")) == ["best", "train_1"]
+    assert sorted(best) == sorted(state.params)
+
+
 @pytest.mark.parametrize("c", [192, 384])
 def test_cuda_raw_mlp_fwd_and_bwd_match_plain_versions(cuda_device, c):
     """K8 and K9 through autograd against their plain versions, five grads."""
@@ -818,4 +922,8 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     assert len(score) == 1
     assert set(json.loads(score[0].split(": ", 1)[1])["eval_per_sample_s"]) == {
         "load", "h2d", "forecast", "score", "total"}
+    finetune = [ln for ln in lines if ln.startswith("finetune: ")]
+    assert len(finetune) == 1
+    assert set(json.loads(finetune[0].split(": ", 1)[1])["fit_per_step_s"]) == {
+        "load", "h2d", "step", "total"}
     assert json.loads(lines[-1])["ok"] is True

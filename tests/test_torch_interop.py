@@ -142,7 +142,11 @@ def test_no_weights_gives_the_seeded_init(setup):
 
 
 def test_orbax_directory_is_refused_with_the_roadmap_item(setup, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    """The trainer is ported (ROADMAP queue 1, item 6): a directory loads
+    when it is one of its checkpoints (tests/test_torch_trainer.py); any
+    other, a JAX orbax directory among them, is refused naming the JAX
+    package's ``.npz`` export."""
+    with pytest.raises(FileNotFoundError, match=r"orbax.*\.npz"):
         load_model_and_params(setup["cfg"], Args(str(tmp_path)), None, device="cpu")
 
 

@@ -142,12 +142,21 @@ FORECAST_AND_SCORE = [
 ]
 
 
+#: the finetuning path: summary, checkpoints, the Trainer, LoRA and their scripts
+FINETUNE = [
+    "pangu_tpu_torch.utils.summary", "pangu_tpu_torch.train.checkpoint",
+    "pangu_tpu_torch.train.trainer", "pangu_tpu_torch.train.lora",
+    "pangu_tpu_torch.interop.from_jax", "pangu_tpu_torch.scripts.finetune",
+    "pangu_tpu_torch.scripts.lora_tune",
+]
+
+
 def test_importing_the_port_does_not_import_jax():
     """A fresh process that imports every module of the port (the
-    forecast-and-score modules and scripts among them) and chip_smoke.py
-    (its imports; main() is not run) holds no jax, jaxlib or flax and no
-    module of the JAX package."""
-    assert set(FORECAST_AND_SCORE) <= set(_port_modules())
+    forecast-and-score and finetuning modules and scripts among them) and
+    chip_smoke.py (its imports; main() is not run) holds no jax, jaxlib or
+    flax and no module of the JAX package."""
+    assert set(FORECAST_AND_SCORE + FINETUNE) <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
