@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: build, kernel checks, the
 24 h forecast step, the train step and its two A/B routes at full geometry,
 the two-kernel inference block, the three kernel A/B scripts, forecast and
-score, and finetuning (full and LoRA).
+score, finetuning (full and LoRA), and serving an exported forecast step.
 
     python3 chip_smoke.py
 
@@ -126,7 +126,23 @@ Phases (any failure exits non-zero before the last line is printed):
    each other reported (in bf16 the merged weight rounds the small delta
    away, the unmerged tap keeps it in f32). Then, on a line of its own, the
    wall time a train step split into host load, H2D and the step, the
-   train-state save time and size, peak memory, and the card.
+   train-state save time and size, peak memory, and the card;
+18. serving: the flagship bf16 model (seeded weights and aux constants)
+   exported through ``serving.export_forecast_step`` to a ``.pt2``: the
+   graph holds exactly 16 calls of the K1 operator
+   ``pangu_tpu_torch::fused_earth_block`` and no other op outside aten. A
+   fresh process that imports ``pangu_tpu_torch.serving`` and no
+   ``pangu_tpu_torch.model`` loads it (``load_forecast_step``) and runs 3
+   autoregressive steps from seeded fields: exactly 16 K1 launches a step,
+   the loaded graph's 16 calls, every tensor of the artifact on the card;
+   then one step under ``utils.profiling.trace``. Its first step against the
+   eager ``make_forecast_step`` on the same weights and input: the same bits
+   (else the bounds of phase 4, reported). Then, on a line of its own, the
+   export time, the artifact's bytes, the load time, the median step time,
+   peak memory, the traced step's device busy time and idle share
+   (``trace_device_busy_split``) and the card; and, on another, the bf16
+   route's deviation from the f32 path at flagship geometry
+   (``scripts.parity_bf16_bound.run``).
 
 A ``detail:`` line holds the per-shape kernel results and the slices'
 numbers as JSON. The second-to-last line is a JSON object with one entry per
@@ -180,8 +196,10 @@ from pangu_tpu_torch.ops import fused_block_train as fbt
 from pangu_tpu_torch.ops import fused_epilogue as fep
 from pangu_tpu_torch.ops import fused_mlp as fmlp
 from pangu_tpu_torch.rollout import make_forecast_step
+from pangu_tpu_torch import serving
 from pangu_tpu_torch.scripts import (bench_attn_bwd_ab, bench_attn_fwd_ab, bench_mxu_micro,
-                                     bench_train_ab, profile_bwd_split, profile_train_step)
+                                     bench_train_ab, parity_bf16_bound, profile_bwd_split,
+                                     profile_train_step)
 from pangu_tpu_torch.scripts import rollout as rollout_script
 from pangu_tpu_torch.scripts import test as test_script
 from pangu_tpu_torch.scripts.ab_common import (KERNEL_RMS_TOL, KERNEL_TOL, PEAK_BF16, PEAK_BYTES,
@@ -233,6 +251,56 @@ FINETUNE_DATA = dict(store="synthetic", train_start="20240101", train_end="20240
                      train_freq="24h", val_start="20240105", val_end="20240107",
                      val_freq="24h")
 FINETUNE_EPOCHS, LORA_RANK, LORA_ALPHA = 2, 16, 16.0
+#: phase 18: the process that serves the exported step. It imports the serving module
+#: and the profiling tools, never the model; argv: artifact, input fields, output path,
+#: trace directory, steps, device. Prints one JSON line.
+SERVE = r"""
+import json, sys, time
+import torch
+from pangu_tpu_torch import serving
+from pangu_tpu_torch.ops import fused_block_attention as fba
+from pangu_tpu_torch.utils import profiling
+
+path, inputs, outputs, trace_dir, steps, dev = sys.argv[1:]
+dev = torch.device(dev)
+cuda = dev.type == "cuda"
+sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+t0 = time.perf_counter()
+step = serving.load_forecast_step(path)
+sync()
+load_s = time.perf_counter() - t0
+fields = torch.load(inputs)
+u, s = fields["upper"].to(dev), fields["surface"].to(dev)
+if cuda:
+    torch.cuda.reset_peak_memory_stats(dev)
+times, launches = [], []
+for i in range(int(steps)):
+    fba.LAUNCHES = 0
+    t0 = time.perf_counter()
+    u, s = step(u, s)
+    sync()
+    times.append(time.perf_counter() - t0)
+    launches.append(fba.LAUNCHES)
+    if i == 0:
+        torch.save({"upper": u.cpu(), "surface": s.cpu()}, outputs)
+peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+fba.LAUNCHES = 0
+with profiling.trace(trace_dir):
+    t0 = time.perf_counter()
+    step(u, s)
+    sync()
+    traced_ms = (time.perf_counter() - t0) * 1e3
+program = step.program
+print(json.dumps(dict(
+    load_s=load_s, step_times_s=times, launches=launches, traced_launches=fba.LAUNCHES,
+    peak_bytes=peak, traced_step_ms=traced_ms,
+    busy=profiling.trace_device_busy_split(trace_dir),
+    graph_ops=dict(serving.graph_ops(program)),
+    devices=sorted({str(t.device) for t in (*program.state_dict.values(),
+                                            *program.constants.values())}),
+    finite=bool(torch.isfinite(u).all() and torch.isfinite(s).all()),
+    model_modules=sorted(m for m in sys.modules if m.startswith("pangu_tpu_torch.model")))))
+"""
 
 #: (replaced TPU kernel, CUDA source) of every kernel, in table order
 KERNELS = {
@@ -1478,6 +1546,98 @@ def check_finetune(dev) -> dict:
     return res
 
 
+def check_serving(dev) -> dict:
+    """Phase 18: the flagship forecast step exported, then loaded and served
+    in a fresh process that imports no model code; its first step against
+    the eager step; then the bf16 route's deviation from the f32 path. (On
+    the CPU, as the tests run it at tiny geometry, K1's operator runs its
+    plain version: no launches and no device events.)"""
+    res = {}
+    cfg, model, aux = build_model(dev)
+    m = model.cfg
+    depth = sum(m.depths)
+    launches = depth if dev.type == "cuda" else 0
+    gen = torch.Generator(device=dev).manual_seed(2)
+    upper = aux.upper_mean + aux.upper_std * torch.randn(
+        (1, m.upper_vars, m.levels, m.lat, m.lon), generator=gen, device=dev)
+    surface = aux.surface_mean + aux.surface_std * torch.randn(
+        (1, m.surface_vars, m.lat, m.lon), generator=gen, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pangu24.pt2")
+        t0 = time.perf_counter()
+        program = serving.export_forecast_step(model, aux, path)
+        res["export_s"] = time.perf_counter() - t0
+        res["artifact_bytes"] = os.path.getsize(path)
+        ops = serving.graph_ops(program)
+        other = sorted(k for k in ops if k != serving.K1_OP and not k.startswith("aten::"))
+        log(f"export: {res['export_s']:.3f} s, {res['artifact_bytes']} bytes, "
+            f"{ops[serving.K1_OP]} calls of {serving.K1_OP} (want {depth}), "
+            f"{sum(ops.values())} op calls in all; {card_line()}")
+        if ops[serving.K1_OP] != depth or other:
+            raise AssertionError(f"the exported graph holds {ops[serving.K1_OP]} K1 calls "
+                                 f"(want {depth}) and the non-aten ops {other}")
+        res["graph_op_calls"] = sum(ops.values())
+        del program
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        eager = make_forecast_step(model, aux)(upper, surface)
+        torch.cuda.synchronize()
+        only_k1("eager step", launches)
+        inputs, outputs = os.path.join(tmp, "inputs.pt"), os.path.join(tmp, "served.pt")
+        torch.save({"upper": upper.cpu(), "surface": surface.cpu()}, inputs)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "PYTHONPATH": root}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", SERVE, path, inputs, outputs, os.path.join(tmp, "trace"),
+             str(STEPS), str(dev)], cwd=root, env=env, capture_output=True, text=True,
+            timeout=600)
+        res["serve_process_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the serving process failed: {proc.stderr[-4000:]}")
+        served = json.loads(proc.stdout.strip().splitlines()[-1])
+        if served["model_modules"]:
+            raise AssertionError(f"the serving process imported {served['model_modules']}")
+        if served["launches"] != [launches] * STEPS or served["traced_launches"] != launches:
+            raise AssertionError(f"served steps launched K1 {served['launches']} and "
+                                 f"{served['traced_launches']} times, want {launches} each")
+        if served["graph_ops"].get(serving.K1_OP) != depth:
+            raise AssertionError(f"the loaded graph holds {served['graph_ops']}")
+        if served["devices"] != [str(dev)] or not served["finite"]:
+            raise AssertionError(f"the artifact's tensors are on {served['devices']}; "
+                                 f"finite outputs: {served['finite']}")
+        if dev.type == "cuda" and served["busy"] is None:
+            raise AssertionError("the traced served step holds no device events")
+        got = torch.load(outputs)
+        got = (got["upper"].to(dev), got["surface"].to(dev))
+        res["same_bits"] = all(torch.equal(a, b) for a, b in zip(got, eager))
+        res["max_abs"], res["rms"] = deviation(got, eager, aux)
+        log(f"served step vs eager step: same bits {res['same_bits']}, "
+            f"max|d|={res['max_abs']:.6g} rms(d)={res['rms']:.6g} (normalized)")
+        if not (res["max_abs"] < STEP_MAX_TOL and res["rms"] < STEP_RMS_TOL):
+            raise AssertionError("the served step disagrees with the eager step")
+    busy = served["busy"]
+    res.update(load_s=served["load_s"], step_s=statistics.median(served["step_times_s"]),
+               step_times_s=served["step_times_s"], launches_per_step=served["launches"],
+               peak_bytes=served["peak_bytes"], traced_step_ms=served["traced_step_ms"],
+               busy=busy, card=card_line(),
+               idle_share=busy and 1.0 - busy["modules_ms"] / served["traced_step_ms"])
+    log("serving: " + json.dumps(
+        {k: res[k] for k in ("export_s", "artifact_bytes", "load_s", "step_s", "step_times_s",
+                             "launches_per_step", "peak_bytes", "traced_step_ms", "busy",
+                             "idle_share", "same_bits", "serve_process_s", "card")}))
+    del model, aux, eager, got, upper, surface
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res["bf16_bound"] = parity_bf16_bound.run(device=dev)
+    res["bf16_bound_s"] = time.perf_counter() - t0
+    log("bf16 bound: " + json.dumps(res["bf16_bound"]))
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     card()
     dev = torch.device("cuda:0")
@@ -1517,11 +1677,15 @@ def main() -> int:
     t0 = time.perf_counter()
     finetune = check_finetune(dev)
     log(f"phase 17 (finetune): {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    serve = check_serving(dev)
+    log(f"phase 18 (serving): {time.perf_counter() - t0:.3f} s")
 
     log("detail: " + json.dumps({"slice": sl, **shapes, "products": products, "train": tr,
                                  "ab": ab, "two_kernel_path": tail_path, "mxu_micro": micro,
                                  "attn_fwd_ab": fwd_ab, "attn_bwd_ab": bwd_ab,
-                                 "forecast_and_score": score, "finetune": finetune}))
+                                 "forecast_and_score": score, "finetune": finetune,
+                                 "serving": serve}))
     # launches over the run of each kernel's path
     launches = {"fused_earth_block": sl["launches"], **tr["launches"],
                 **{k: ab["unfused_tail"]["launches"][k] for k in ("fused_mlp", "fused_mlp_bwd")},

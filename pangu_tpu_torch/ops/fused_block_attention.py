@@ -20,7 +20,10 @@ On a CUDA tensor each launches the hand-written sm_90a kernels of
 ``csrc/fused_earth_block.cu`` or ``csrc/block_attention.cu`` (built with nvcc
 at first use) or raises; on a CPU tensor it runs its plain PyTorch version
 (``*_reference``) with the Pallas bodies' rounding points. There is no
-fallback from a kernel to its plain version.
+fallback from a kernel to its plain version. K1 goes through the operator
+``pangu_tpu_torch::fused_earth_block`` on both devices (CUDA: the kernel;
+CPU: the plain version; a fake implementation for ``torch.export``), so an
+exported forecast step calls it as the eager step does.
 
 Weights use nn.Linear's (out, in) layout, as the block's modules hold them:
 wqkv (3C, C), wproj (C, C), w1 (4C, C), w2 (C, 4C); bias (nT, heads, T, T)
@@ -286,6 +289,8 @@ def _check_kernel_args(name: str, tensors, x, window, heads) -> None:
     for i, t in enumerate(tensors):
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 32):
             raise ValueError(f"argument {i} of {name} is not contiguous and 32-byte aligned")
+        if t is not None and t.device != x.device:
+            raise ValueError(f"argument {i} of {name} is on {t.device}, x on {x.device}")
 
 
 def _library() -> ctypes.CDLL:
@@ -324,19 +329,42 @@ def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
     return out
 
 
+#: K1 as one operator of the port's namespace, so that ``torch.export`` traces
+#: the block as a single call (through the fake implementation) and the exported
+#: program runs the same kernel as the eager model: the CUDA implementation is the
+#: hand-written kernel (``_launch``, where the pointer, alignment and device checks run),
+#: the CPU implementation its plain version
+_LIB = torch.library.Library("pangu_tpu_torch", "DEF")
+_LIB.define(
+    "fused_earth_block(Tensor x, Tensor wqkv, Tensor bqkv, Tensor wproj, Tensor bproj, "
+    "Tensor bias, Tensor? mask, Tensor ln1_s, Tensor ln1_b, Tensor w1, Tensor b1, "
+    "Tensor w2, Tensor b2, Tensor ln2_s, Tensor ln2_b, int[] window, int heads, "
+    "float scale) -> Tensor")
+_LIB.impl("fused_earth_block", _launch, "CUDA")
+_LIB.impl("fused_earth_block", fused_earth_block_reference, "CPU")
+
+
+@torch.library.register_fake("pangu_tpu_torch::fused_earth_block")
+def _fused_earth_block_fake(x, *args) -> torch.Tensor:
+    return torch.empty_like(x)
+
+
+#: the operator (``torch.ops.pangu_tpu_torch.fused_earth_block.default``)
+FUSED_EARTH_BLOCK_OP = torch.ops.pangu_tpu_torch.fused_earth_block.default
+
+
 def fused_earth_block(x, wqkv, bqkv, wproj, bproj, bias, mask: Optional[torch.Tensor],
                       ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
                       window: Tuple[int, int, int], heads: int,
                       scale: float) -> torch.Tensor:
-    """One Earth-Specific block, fused (inference only). See the module
-    docstring for the layouts; raises ValueError on any argument the kernel
-    does not take."""
+    """One Earth-Specific block, fused (inference only): one call of the
+    operator ``pangu_tpu_torch::fused_earth_block`` on every device. See the
+    module docstring for the layouts; raises ValueError on any argument the
+    kernel does not take."""
     args = (x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
             w1, b1, w2, b2, ln2_s, ln2_b)
     _check(*args, window, heads)
-    if x.device.type == "cpu":
-        return fused_earth_block_reference(*args, window, heads, scale)
-    return _launch(*args, window, heads, scale)
+    return FUSED_EARTH_BLOCK_OP(*args, list(window), heads, float(scale))
 
 
 # ---- K2 / K3: the training attention and its flash backward --------------------

@@ -31,22 +31,12 @@ from pangu_tpu_torch.interop.from_jax import init_params
 from pangu_tpu_torch.model import PanguModel
 from pangu_tpu_torch.rollout import make_forecast_step
 from pangu_tpu_torch.scripts import bench_train_ab
+from pangu_tpu_torch.utils.profiling import busy_us
 
 #: K1's two kernels, by a part of their names: the window attention (mma.sync,
 #: scores and probabilities in registers) and the token tail (wgmma/TMA)
 K1_KERNELS = {"attention window_attention_kernel (mma.sync)": "window_attention_kernel",
               "tail mlp_tail_kernel (wgmma)": "mlp_tail_kernel"}
-
-
-def _busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b <= end:
-            continue
-        busy += b - max(a, end)
-        end = b
-    return busy
 
 
 def _profile(fn: Callable[[], object], dev: torch.device, top: int):
@@ -62,7 +52,7 @@ def _profile(fn: Callable[[], object], dev: torch.device, top: int):
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us()
         counts[e.name] += 1
-    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return ({"wall_ms": wall * 1e3, "device_busy_ms": busy,
              "idle_share": 1.0 - busy / (wall * 1e3), "kernels": len(kernels),

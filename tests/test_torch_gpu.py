@@ -13,7 +13,9 @@ bits of the tree before K8 and K12 moved to the Hopper engines, the inference
 MLP tail K10, K2's
 LN-epilogue mode (and the two-kernel block they make, against K1) and the
 A/B kernels of the three scripts S1-S3
-against their plain versions, the forecast step and flagship train steps on
+against their plain versions, K1's operator (the kernel, its checks inside the
+CUDA implementation) and an exported step at flagship widths (K1 launches and
+the eager bits), the forecast step and flagship train steps on
 the default route and the two A/B routes through the kernels, and the width
 check of the entry points on a model the kernels do not take.
 
@@ -143,6 +145,58 @@ def test_forecast_step_at_full_width_runs_the_kernel(cuda_device):
         assert bool(torch.isfinite(got).all())
         d = (got - ref).float()
         assert d.abs().max().item() < 0.1 and d.pow(2).mean().sqrt().item() < 0.01
+
+
+def test_cuda_operator_is_the_kernel_and_checks_its_arguments(cuda_device):
+    """K1's operator on CUDA tensors is the hand-written kernel (one launch,
+    the wrapper's bits) and refuses, inside its CUDA implementation, what the
+    kernel does not take: f32 activations and a tensor on another device."""
+    args, (window, heads, scale) = _inputs(9, cuda_device, 1, 2, 6, 24, 192, 6, True)
+    before = tfba.LAUNCHES
+    got = tfba.FUSED_EARTH_BLOCK_OP(*args, list(window), heads, scale)
+    torch.cuda.synchronize()
+    assert tfba.LAUNCHES == before + 1
+    assert torch.equal(got, tfba.fused_earth_block(*args, window, heads, scale))
+    bad = list(args)
+    bad[0] = bad[0].float()
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfba.FUSED_EARTH_BLOCK_OP(*bad, list(window), heads, scale)
+    bad = list(args)
+    bad[6] = bad[6].cpu()
+    with pytest.raises(ValueError, match="argument 6"):
+        tfba.FUSED_EARTH_BLOCK_OP(*bad, list(window), heads, scale)
+    assert tfba.LAUNCHES == before + 2
+
+
+def test_exported_step_at_full_width_launches_k1_with_the_eager_bits(cuda_device, tmp_path):
+    """Flagship widths on a small grid, depths (2, 2, 2, 2): the exported
+    step holds 8 K1 calls, its tensors sit on the card, and the loaded step
+    launches the kernel 8 times with the bits of the eager step."""
+    from pangu_tpu_torch import serving
+
+    cfg = pangu_tiny(dims=(192, 384, 384, 192), heads=(6, 12, 12, 6), depths=(2, 2, 2, 2),
+                     compute_dtype="bfloat16", use_pallas_attention=True)
+    m = cfg.model
+    aux = synthetic_aux_constants(m, cfg.train, device=cuda_device)
+    model = PanguModel(m).to(cuda_device)
+    init_params(model, seed=0)
+    path = str(tmp_path / "step.pt2")
+    program = serving.export_forecast_step(model, aux, path)
+    assert serving.graph_ops(program)[serving.K1_OP] == 8
+    step = serving.load_forecast_step(path)
+    tensors = (*step.program.state_dict.values(), *step.program.constants.values())
+    assert {t.device for t in tensors} == {torch.device(cuda_device)}
+    rng = np.random.default_rng(8)
+    upper = torch.from_numpy(rng.standard_normal(
+        (1, m.upper_vars, m.levels, m.lat, m.lon)).astype(np.float32)).to(cuda_device)
+    surface = torch.from_numpy(rng.standard_normal(
+        (1, m.surface_vars, m.lat, m.lon)).astype(np.float32)).to(cuda_device)
+    before = tfba.LAUNCHES
+    got = step(upper, surface)
+    torch.cuda.synchronize()
+    assert tfba.LAUNCHES - before == 8
+    eager = make_forecast_step(model, aux)(upper, surface)
+    assert all(torch.equal(g, e) for g, e in zip(got, eager))
 
 
 def _bounded(got, ref, tol=0.04, rms_tol=0.01):
@@ -896,7 +950,9 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     their path: the forecast (K1), the 3 timed default train steps (K2-K7),
     the 3 timed steps of ``unfused_tail`` (K8/K9) and of ``fused_block``
     (K11/K12), the two-kernel block at one forecast step's mix (K10, K2 LN),
-    and each script's timed run (2 warm-up + 10 or 12 timed calls)."""
+    and each script's timed run (2 warm-up + 10 or 12 timed calls). Phase
+    18's served steps launch K1 16 times each with the eager bits, and the
+    flagship bf16 bound is printed."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=repo, capture_output=True,
                           text=True, timeout=1200)
@@ -926,4 +982,9 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     assert len(finetune) == 1
     assert set(json.loads(finetune[0].split(": ", 1)[1])["fit_per_step_s"]) == {
         "load", "h2d", "step", "total"}
+    serving = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("serving: ")]
+    assert len(serving) == 1 and serving[0]["launches_per_step"] == [16, 16, 16]
+    assert serving[0]["same_bits"] and 0 < serving[0]["idle_share"] < 1
+    bound = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("bf16 bound: ")]
+    assert len(bound) == 1 and bound[0]["geometry"] == "full-721x1440x13" and bound[0]["pallas"]
     assert json.loads(lines[-1])["ok"] is True

@@ -3,13 +3,20 @@ tree launches each apply once, a tree without such a kernel is refused, the
 library swap of the cut builds restores the loader, and ``kernel_ms``
 and ``named_kernels_ms`` refuse a profile whose kernel events the calls do
 not divide (a named error, not an empty list the caller would index, nor a
-mean over a lost launch).
+mean over a lost launch). ``utils.profiling`` (the port of
+``pangu_tpu/utils/profiling.py``): the device-busy split of a synthetic
+Kineto trace, exact; None for a CPU-only trace and for no trace; a real
+``trace`` on the CPU; the memory counters without a card; the host
+snapshot and the monitor, as tests/test_utils.py holds the JAX ones.
 
 Imports torch only; the cut builds and the timings themselves need the card
 (``profile_bwd_split --cuts``)."""
 
 import contextlib
 import ctypes.util
+import gzip
+import json
+import logging
 import os
 from types import SimpleNamespace
 from unittest import mock
@@ -20,6 +27,8 @@ from torch.profiler import DeviceType
 
 from pangu_tpu_torch.ops import _build
 from pangu_tpu_torch.scripts import profile_bwd_split as pbs
+from pangu_tpu_torch.scripts import profile_train_step
+from pangu_tpu_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -107,3 +116,96 @@ def test_kernel_ms_averages_each_launch_over_the_calls():
     with mock.patch.object(pbs, "profile", _fake_profile(6)), \
             mock.patch.object(torch.cuda, "synchronize", lambda *a, **k: None):
         assert pbs.kernel_ms(lambda: None, n=3) == [("k0", 0.002), ("k1", 0.002)]
+
+
+def _write_trace(path, events):
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with gzip.open(path, "wt") as f:
+        json.dump({"traceEvents": events}, f)
+
+
+def test_trace_device_busy_split_of_a_kineto_trace(tmp_path):
+    """Two kernels on two streams that overlap by 50 us, a memcpy and a
+    memset on the card; a GPU annotation spanning them, host ops and runtime
+    calls, which must not count. Busy is the union (150 + 30 + 10 us), ops
+    the kernels' sum (200 us), copy the memcpy and memset (40 us)."""
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "k0", "pid": 0, "tid": 7, "ts": 1000.0, "dur": 100.0},
+        {"ph": "X", "cat": "kernel", "name": "k1", "pid": 0, "tid": 8, "ts": 1050.0, "dur": 100.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH", "pid": 0, "tid": 7,
+         "ts": 1200.0, "dur": 30.0},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset", "pid": 0, "tid": 7, "ts": 1240.0,
+         "dur": 10.0},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "step", "pid": 0, "tid": 9,
+         "ts": 900.0, "dur": 500.0},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "pid": 1, "tid": 1, "ts": 0.0,
+         "dur": 5000.0},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "pid": 1, "tid": 1,
+         "ts": 990.0, "dur": 5.0},
+        {"ph": "M", "name": "process_name", "pid": 0, "args": {"name": "GPU 0"}},
+    ]
+    _write_trace(tmp_path / "host.123.pt.trace.json.gz", events)
+    split = profiling.trace_device_busy_split(str(tmp_path))
+    assert split == {"modules_ms": 0.19, "ops_ms": 0.2, "copy_ms": 0.04}
+    assert profiling.trace_device_busy_ms(str(tmp_path)) == 0.19
+    assert profiling.trace_device_busy_ms(str(tmp_path), steps=2) == 0.095
+
+
+def test_trace_device_busy_split_reads_the_newest_trace(tmp_path):
+    old = [{"ph": "X", "cat": "kernel", "pid": 0, "tid": 7, "ts": 0.0, "dur": 400.0}]
+    new = [{"ph": "X", "cat": "kernel", "pid": 0, "tid": 7, "ts": 0.0, "dur": 100.0}]
+    _write_trace(tmp_path / "a" / "w.1.pt.trace.json.gz", old)
+    _write_trace(tmp_path / "b" / "w.2.pt.trace.json.gz", new)
+    os.utime(tmp_path / "a" / "w.1.pt.trace.json.gz", (1, 1))
+    assert profiling.trace_device_busy_split(str(tmp_path))["ops_ms"] == 0.1
+
+
+def test_trace_device_busy_split_is_none_without_device_events(tmp_path):
+    _write_trace(tmp_path / "w.1.pt.trace.json.gz", [
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "pid": 1, "tid": 1, "ts": 0.0,
+         "dur": 50.0}])
+    assert profiling.trace_device_busy_split(str(tmp_path)) is None
+    assert profiling.trace_device_busy_ms(str(tmp_path)) is None
+    assert profiling.trace_device_busy_split(str(tmp_path / "empty")) is None
+
+
+def test_trace_writes_a_gzipped_chrome_trace(tmp_path):
+    """On the CPU: a trace with the host's ops and no device events."""
+    if torch.cuda.is_available():
+        pytest.skip("the CPU-only trace; the card's is read by chip_smoke.py phase 18")
+    with profiling.trace(str(tmp_path)):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    paths = list(tmp_path.glob("**/*.trace.json.gz"))
+    assert len(paths) == 1
+    with gzip.open(paths[0], "rt") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::mm" in names
+    assert profiling.trace_device_busy_split(str(tmp_path)) is None
+
+
+@pytest.mark.parametrize("intervals,want", [
+    ([], 0.0), ([(0, 10)], 10.0), ([(0, 10), (5, 20)], 20.0), ([(5, 20), (0, 10)], 20.0),
+    ([(0, 10), (2, 3), (20, 25)], 15.0), ([(0, 10), (10, 12)], 12.0)])
+def test_busy_us_is_the_union_of_the_intervals(intervals, want):
+    assert profiling.busy_us(intervals) == want
+
+
+def test_profile_train_step_takes_the_union_from_the_profiling_tools():
+    assert profile_train_step.busy_us is profiling.busy_us
+
+
+def test_device_memory_stats_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("the CPU-only result")
+    assert profiling.device_memory_stats() == {}
+
+
+def test_system_snapshot_and_monitor(caplog):
+    snap = profiling.system_snapshot()
+    assert snap["disk_total_gb"] > 0
+    assert len(snap["loadavg"]) == 3
+    assert isinstance(snap["devices"], dict)
+    logger = logging.getLogger("test-torch-profiling-monitor")
+    with caplog.at_level(logging.INFO, logger="test-torch-profiling-monitor"):
+        profiling.monitor_system(interval=0.01, duration=0.02, logger=logger)
+    assert any("disk" in r.message for r in caplog.records)

@@ -151,12 +151,22 @@ FINETUNE = [
 ]
 
 
+#: the serving path: the exported step, the profiling tools, the export, bound and
+#: timing scripts, and the demo (which imports matplotlib only where it renders)
+SERVING = [
+    "pangu_tpu_torch.serving", "pangu_tpu_torch.utils.profiling",
+    "pangu_tpu_torch.scripts.export_model", "pangu_tpu_torch.scripts.parity_bf16_bound",
+    "pangu_tpu_torch.scripts.time_forecast_step", "pangu_tpu_torch.demo",
+    "pangu_tpu_torch.demo.app",
+]
+
+
 def test_importing_the_port_does_not_import_jax():
     """A fresh process that imports every module of the port (the
-    forecast-and-score and finetuning modules and scripts among them) and
-    chip_smoke.py (its imports; main() is not run) holds no jax, jaxlib or
-    flax and no module of the JAX package."""
-    assert set(FORECAST_AND_SCORE + FINETUNE) <= set(_port_modules())
+    forecast-and-score, finetuning and serving modules and scripts among
+    them) and chip_smoke.py (its imports; main() is not run) holds no jax,
+    jaxlib or flax and no module of the JAX package."""
+    assert set(FORECAST_AND_SCORE + FINETUNE + SERVING) <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
