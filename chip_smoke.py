@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one CUDA card: build, kernel checks, the
 24 h forecast step, the train step and its two A/B routes at full geometry,
 the two-kernel inference block, the three kernel A/B scripts, forecast and
-score, finetuning (full and LoRA), and serving an exported forecast step.
+score, finetuning (full and LoRA), serving an exported forecast step, and
+the data pipeline over an npy store.
 
     python3 chip_smoke.py
 
@@ -142,7 +143,25 @@ Phases (any failure exits non-zero before the last line is printed):
    peak memory, the traced step's device busy time and idle share
    (``trace_device_busy_split``) and the card; and, on another, the bf16
    route's deviation from the f32 path at flagship geometry
-   (``scripts.parity_bf16_bound.run``).
+   (``scripts.parity_bf16_bound.run``);
+19. data: the native C++ batch reader (``data/native_loader.py``, g++ of
+   ``csrc/fastloader.cpp`` into build/native/) must build. The synthetic
+   store's 2024-01-01..07 at 24 h (7 flagship frames, ~2.0 GB; the free disk
+   checked first with ``utils.profiling.system_snapshot``) written through
+   ``data.convert.convert_range`` into an npy store in a temporary
+   directory; ``load_batch`` there equal to the synthetic store's arrays bit
+   for bit; the ``test`` script over it (phase 16's seeded weights, range,
+   targets and kernel route): exactly 16 K1 launches a step and the score
+   tables equal to phase 16's; one ``Trainer.fit`` epoch over its train
+   range (phase 17's config, weights and data): phase 17's launches a step
+   and phase 17's first-epoch losses, to the bit; the native reader, not
+   the per-sample path, assembling every batch of all three
+   (``data.dataset.BATCH_READS``); the ``stats`` script on the store
+   (``--limit 2``); ``read_batch`` of the 7 upper frames from the page cache
+   at 1 and 8 threads (median of 3). Then, on a line of its own, the write
+   seconds and bytes, the read rates, evaluate's per-sample split and the
+   finetune step's split over the npy store beside phases 16's and 17's
+   over the synthetic store, the stats seconds, and the card.
 
 A ``detail:`` line holds the per-shape kernel results and the slices'
 numbers as JSON. The second-to-last line is a JSON object with one entry per
@@ -182,7 +201,10 @@ from pangu_tpu_torch import pangu_pretrain
 from pangu_tpu_torch.aux import load_aux_constants, synthetic_aux_constants
 from pangu_tpu_torch.cli import base_parser, build_config, load_model_and_params
 from pangu_tpu_torch.config import DataConfig, ERA5_SURFACE_VARIABLES, ERA5_UPPER_LEVELS
-from pangu_tpu_torch.data import make_loader
+from pangu_tpu_torch.data import make_loader, native_loader
+from pangu_tpu_torch.data.convert import convert_range
+from pangu_tpu_torch.data.dataset import (BATCH_READS, Era5Dataset, NpyStore, SyntheticStore,
+                                          date_range)
 from pangu_tpu_torch.eval.csv_io import load_error_scores
 from pangu_tpu_torch.eval.evaluate import (ACC_FAMILIES, RMSE_FAMILIES, make_field_scorer,
                                            make_score_step, to_device)
@@ -201,6 +223,7 @@ from pangu_tpu_torch.scripts import (bench_attn_bwd_ab, bench_attn_fwd_ab, bench
                                      bench_train_ab, parity_bf16_bound, profile_bwd_split,
                                      profile_train_step)
 from pangu_tpu_torch.scripts import rollout as rollout_script
+from pangu_tpu_torch.scripts import stats as stats_script
 from pangu_tpu_torch.scripts import test as test_script
 from pangu_tpu_torch.scripts.ab_common import (KERNEL_RMS_TOL, KERNEL_TOL, PEAK_BF16, PEAK_BYTES,
                                                compare, cuda_times_ms)
@@ -212,6 +235,7 @@ from pangu_tpu_torch.train.lora import (LoraConfig, attach_lora, changed_param_r
                                         make_lora_train_step, merge_params, set_lora_form)
 from pangu_tpu_torch.train.step import loss_fn
 from pangu_tpu_torch.train.trainer import Trainer
+from pangu_tpu_torch.utils import profiling
 from pangu_tpu_torch.utils.flops import train_matmul_flops
 
 STEPS = 3
@@ -251,6 +275,13 @@ FINETUNE_DATA = dict(store="synthetic", train_start="20240101", train_end="20240
                      train_freq="24h", val_start="20240105", val_end="20240107",
                      val_freq="24h")
 FINETUNE_EPOCHS, LORA_RANK, LORA_ALPHA = 2, 16, 16.0
+#: phase 19: the synthetic store's frames written to an npy store (phase 16's scored range
+#: and phase 17's train and val ranges: 7 frames at 24 h, ~2.0 GB at flagship), the free
+#: disk it asks for over the bytes it writes, the frames the stats script reads, the
+#: read_batch thread counts timed from the page cache and the timed reads at each
+DATA_RANGE = ("20240101", "20240107", "24h")
+DISK_MARGIN, STATS_LIMIT = 2.0, 2
+READ_THREADS, READ_REPEATS = (1, 8), 3
 #: phase 18: the process that serves the exported step. It imports the serving module
 #: and the profiling tools, never the model; argv: artifact, input fields, output path,
 #: trace directory, steps, device. Prints one JSON line.
@@ -1224,24 +1255,33 @@ def only_k1(label: str, want: int) -> None:
         raise AssertionError(f"{label}: launches {counts}, want fused_earth_block {want}")
 
 
+def write_weights(cfg, dev, path: str) -> float:
+    """Seeded weights of ``cfg.model`` (seed 0, drawn on the host, so the
+    same on every call) saved through ``save_params_npz``; returns the
+    save's seconds."""
+    with dev:
+        model = PanguModel(cfg.model)
+    init_params(model, seed=0)
+    t0 = time.perf_counter()
+    save_params_npz(path, model)
+    seconds = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    return seconds
+
+
 def check_forecast_and_score(dev) -> dict:
     """Phase 16: the test and rollout scripts on the kernel route, their
     launches and score tables, the tables against the score step's scores,
-    and the kernel route against the plain bf16 route on the first sample."""
+    and the kernel route against the plain bf16 route on the first sample.
+    ``res["tables"]`` keeps the test script's tables for phase 19."""
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         weights = os.path.join(tmp, "weights.npz")
         argv = ["--weights", weights, "--out", tmp, *KERNEL_ROUTE, *SCORE_RANGE]
         cfg = build_config(base_parser("").parse_args(argv))
         depth = sum(cfg.model.depths)
-        with dev:
-            model = PanguModel(cfg.model)
-        init_params(model, seed=0)
-        t0 = time.perf_counter()
-        save_params_npz(weights, model)
-        res["save_weights_s"] = time.perf_counter() - t0
-        del model
-        torch.cuda.empty_cache()
+        res["save_weights_s"] = write_weights(cfg, dev, weights)
 
         t0 = time.perf_counter()
         aux = load_aux_constants(cfg.model, cfg.train, None, cfg.horizon, device=dev)
@@ -1256,7 +1296,8 @@ def check_forecast_and_score(dev) -> dict:
         res["test_loss"] = test_script.main(argv, device=dev, spans=spans)
         res["test_main_s"] = time.perf_counter() - t0
         only_k1("test script", depth * len(SCORE_TARGETS))
-        tables = score_tables(os.path.join(tmp, "test", "24", "csv"), SCORE_TARGETS)
+        tables = res["tables"] = score_tables(os.path.join(tmp, "test", "24", "csv"),
+                                              SCORE_TARGETS)
         n = len(SCORE_TARGETS)
         res["eval_per_sample_s"] = {k: v / n for k, v in spans.items()}
         res["eval_per_sample_s"]["total"] = sum(spans.values()) / n
@@ -1394,17 +1435,38 @@ def per_step(spans: dict, steps: int) -> dict:
     return {**loop, "total": sum(loop.values())}
 
 
+def finetune_config(data: dict):
+    """Phase 17's run: flagship bf16 on the kernel route, batch 1, 2 epochs,
+    a train-state checkpoint each epoch, validation at the last; ``data``
+    the DataConfig's fields."""
+    cfg = pangu_pretrain(24, compute_dtype="bfloat16", use_pallas_attention=True)
+    return cfg.replace(data=DataConfig(**data), train=dataclasses.replace(
+        cfg.train, epochs=FINETUNE_EPOCHS, batch_size=1, save_interval=1,
+        val_interval=FINETUNE_EPOCHS))
+
+
+def record_losses(trainer: Trainer) -> list:
+    """Each train step's loss, in order, as the trainer runs its steps."""
+    losses, step = [], trainer.train_step
+
+    def recorded(batch, aux, gen):
+        loss = step(batch, aux, gen)
+        losses.append(loss.detach().clone())
+        return loss
+
+    trainer.train_step = recorded
+    return losses
+
+
 def check_finetune(dev) -> dict:
     """Phase 17: full finetuning through ``Trainer.fit`` (2 epochs of 2
     steps, a checkpoint each epoch, one validation pass, the best params),
     its resume from ``train_1`` against the uninterrupted run, then merged
     LoRA through the same Trainer and the LoRA gradients against the plain
-    bf16 route and the unmerged form."""
+    bf16 route and the unmerged form. ``res["step_losses"]`` keeps the fit's
+    losses by step for phase 19."""
     res = {}
-    cfg = pangu_pretrain(24, compute_dtype="bfloat16", use_pallas_attention=True)
-    cfg = cfg.replace(data=DataConfig(**FINETUNE_DATA), train=dataclasses.replace(
-        cfg.train, epochs=FINETUNE_EPOCHS, batch_size=1, save_interval=1,
-        val_interval=FINETUNE_EPOCHS))
+    cfg = finetune_config(FINETUNE_DATA)
     m = cfg.model
     aux = synthetic_aux_constants(m, cfg.train, seed=0, device=dev)
     with dev:  # parameters allocated there; .to moves the shift masks built from numpy
@@ -1418,11 +1480,13 @@ def check_finetune(dev) -> dict:
         # -- full finetuning, uninterrupted
         writer, spans = Scalars(), {}
         trainer = Trainer(cfg, model, aux, tmp, writer=writer, steps_per_epoch=steps)
+        step_losses = record_losses(trainer)
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         t0 = time.perf_counter()
         best, state = trainer.fit(train, val, spans=spans)
         res["fit_s"] = time.perf_counter() - t0
+        res["step_losses"] = [float(x) for x in step_losses]
         res["fit_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         n = FINETUNE_EPOCHS * steps
         res["fit_launches"] = check_launches(f"finetune fit ({n} steps, 1 val sample)",
@@ -1638,6 +1702,156 @@ def check_serving(dev) -> dict:
     return res
 
 
+def batch_reads(label: str, want: int, before: dict) -> None:
+    """Raise unless the native reader assembled ``want`` batches since
+    ``before`` (a copy of ``BATCH_READS``) and the per-sample path none."""
+    got = {k: BATCH_READS[k] - before[k] for k in BATCH_READS}
+    log(f"{label}: batches by reader {got} (want native {want})")
+    if got != {"native": want, "per_sample": 0}:
+        raise AssertionError(f"{label}: batches by reader {got}, want native {want} and "
+                             "per_sample 0")
+
+
+def read_rate(paths: list, out: np.ndarray, threads: int) -> float:
+    """GB/s of ``read_batch`` of ``paths`` into ``out`` at ``threads``: the
+    median of READ_REPEATS timed reads after one untimed (page cache, the
+    buffer's pages)."""
+    native_loader.read_batch(paths, out, threads=threads)
+    times = []
+    for _ in range(READ_REPEATS):
+        t0 = time.perf_counter()
+        native_loader.read_batch(paths, out, threads=threads)
+        times.append(time.perf_counter() - t0)
+    return out.nbytes / statistics.median(times) / 1e9
+
+
+def check_data(dev, score: dict, finetune: dict) -> dict:
+    """Phase 19: the synthetic store's frames written through
+    ``convert_range`` into an npy store; ``load_batch`` there against the
+    synthetic store's arrays; the test script over it against phase 16's
+    tables (``score``) and one ``Trainer.fit`` epoch over it against phase
+    17's first-epoch losses (``finetune``), each batch read by the native
+    reader; the stats script; ``read_batch`` rates at 1 and 8 threads."""
+    res = {}
+    t0 = time.perf_counter()
+    if not native_loader.native_available():
+        raise AssertionError("the native batch reader did not build (g++ -O3 of "
+                             "pangu_tpu_torch/csrc/fastloader.cpp)")
+    res["native_build_s"] = time.perf_counter() - t0
+    cfg = build_config(base_parser("").parse_args([*KERNEL_ROUTE, *SCORE_RANGE]))
+    m = cfg.model
+    frames = date_range(*DATA_RANGE)
+    frame_bytes = 4 * (m.upper_vars * m.levels + m.surface_vars) * m.lat * m.lon
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = profiling.system_snapshot(tmp)
+        res["disk_free_gb"] = snap["disk_free_gb"]
+        if snap["disk_free_gb"] * 2**30 < DISK_MARGIN * len(frames) * frame_bytes:
+            raise AssertionError(f"{snap['disk_free_gb']} GiB free under {tmp}: the npy store "
+                                 f"needs {len(frames) * frame_bytes} B, {DISK_MARGIN}x that free")
+        root = os.path.join(tmp, "npy")
+        synthetic = SyntheticStore(m, cfg.data.seed)
+        t0 = time.perf_counter()
+        written = convert_range(synthetic, root, *DATA_RANGE, log=None)
+        res["write_s"] = time.perf_counter() - t0
+        files = [os.path.join(d, f) for d, _, names in os.walk(root) for f in names]
+        res["write_bytes"] = sum(os.path.getsize(f) for f in files)
+        log(f"npy store: {written} frames, {res['write_bytes']} B in {res['write_s']:.3f} s "
+            f"({snap['disk_free_gb']} GiB were free)")
+        if written != len(frames) or len(files) != 2 * len(frames):
+            raise AssertionError(f"wrote {written} frames in {len(files)} files, want "
+                                 f"{len(frames)} frames")
+
+        # load_batch through the native reader: the synthetic store's arrays, bit for bit
+        ds = Era5Dataset(NpyStore(root), *DATA_RANGE, cfg.horizon)
+        before = dict(BATCH_READS)
+        indices = [len(ds) - 1, 0]
+        arrs, periods = ds.load_batch(indices)
+        batch_reads("load_batch", 1, before)
+        ref, ref_periods = Era5Dataset(synthetic, *DATA_RANGE, cfg.horizon).load_batch(indices)
+        if periods != ref_periods or not all(np.array_equal(a, b) for a, b in zip(arrs, ref)):
+            raise AssertionError("load_batch over the npy store differs from the synthetic store")
+        del arrs, ref
+
+        # read_batch from the page cache at 1 and 8 threads (the upper frames)
+        uppers = sorted(f for f in files if os.sep + "upper" + os.sep in f)
+        out = np.empty((len(uppers), m.upper_vars, m.levels, m.lat, m.lon), np.float32)
+        res["read_batch_gbps"] = {str(n): read_rate(uppers, out, n) for n in READ_THREADS}
+        res["read_batch_bytes"] = out.nbytes
+        del out
+        log(f"read_batch of {len(uppers)} upper frames ({res['read_batch_bytes']} B): "
+            f"GB/s by thread count {res['read_batch_gbps']}")
+
+        # evaluate over the npy store: phase 16's weights, range, launches and tables
+        weights = os.path.join(tmp, "weights.npz")
+        npy_range = [*SCORE_RANGE, "--set", "data.store=npy", "--set", f"data.root={root}"]
+        argv = ["--weights", weights, "--out", tmp, *KERNEL_ROUTE, *npy_range]
+        cfg = build_config(base_parser("").parse_args(argv))
+        write_weights(cfg, dev, weights)
+        spans, before = {}, dict(BATCH_READS)
+        reset_counts()
+        t0 = time.perf_counter()
+        test_script.main(argv, device=dev, spans=spans)
+        res["test_main_s"] = time.perf_counter() - t0
+        only_k1("test script over the npy store", sum(m.depths) * len(SCORE_TARGETS))
+        batch_reads("test script", -(-len(SCORE_TARGETS) // cfg.eval.batch_size), before)
+        tables = score_tables(os.path.join(tmp, "test", "24", "csv"), SCORE_TARGETS)
+        differ = [k for k in tables if not np.array_equal(tables[k], score["tables"][k])]
+        if differ:
+            raise AssertionError(f"the npy store's score tables {differ} differ from phase 16's")
+        n = len(SCORE_TARGETS)
+        res["eval_per_sample_s"] = {k: v / n for k, v in spans.items()}
+        res["eval_per_sample_s"]["total"] = sum(spans.values()) / n
+        log(f"test script over the npy store: the {len(tables)} tables equal phase 16's")
+
+        # one finetune epoch over the npy store: phase 17's launches and first-epoch losses
+        ft = finetune_config({**FINETUNE_DATA, "store": "npy", "root": root})
+        ft = ft.replace(train=dataclasses.replace(ft.train, epochs=1,
+                                                  save_interval=FINETUNE_EPOCHS))
+        aux = synthetic_aux_constants(ft.model, ft.train, seed=0, device=dev)
+        with dev:
+            model = PanguModel(ft.model).to(dev)
+        init_params(model, seed=0)
+        train = make_loader(ft.data, ft.model, "train", ft.horizon, 1)
+        steps = len(train)
+        trainer = Trainer(ft, model, aux, os.path.join(tmp, "fit"), steps_per_epoch=steps)
+        losses = record_losses(trainer)
+        spans, before = {}, dict(BATCH_READS)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.fit(train, spans=spans)
+        res["fit_s"] = time.perf_counter() - t0
+        check_launches(f"finetune epoch over the npy store ({steps} steps)",
+                       want_launches(steps))
+        batch_reads("finetune epoch", steps, before)
+        res["step_losses"] = [float(x) for x in losses]
+        if res["step_losses"] != finetune["step_losses"][:steps]:
+            raise AssertionError(f"losses {res['step_losses']} over the npy store, "
+                                 f"{finetune['step_losses'][:steps]} in phase 17")
+        res["fit_per_step_s"] = per_step(spans, steps)
+        log(f"finetune epoch over the npy store: losses {res['step_losses']} equal phase 17's")
+        del trainer, model, aux, train
+        torch.cuda.empty_cache()
+
+        # the stats script on the store
+        t0 = time.perf_counter()
+        report = stats_script.main([*npy_range, "--out", os.path.join(tmp, "stats"),
+                                    "--limit", str(STATS_LIMIT)])
+        res["stats_s"] = time.perf_counter() - t0
+        with open(report) as f:
+            head = f.readline()
+        if f"{STATS_LIMIT} samples" not in head:
+            raise AssertionError(f"the stats report opens with {head!r}")
+    res["synthetic"] = {"eval_per_sample_s": score["eval_per_sample_s"],
+                        "fit_per_step_s": finetune["fit_per_step_s"]}
+    res["card"] = card_line()
+    log("data: " + json.dumps(
+        {k: res[k] for k in ("write_s", "write_bytes", "read_batch_gbps", "read_batch_bytes",
+                             "eval_per_sample_s", "fit_per_step_s", "synthetic", "stats_s",
+                             "test_main_s", "fit_s", "native_build_s", "disk_free_gb",
+                             "card")}))
+    return res
+
+
 def main() -> int:
     card()
     dev = torch.device("cuda:0")
@@ -1680,12 +1894,16 @@ def main() -> int:
     t0 = time.perf_counter()
     serve = check_serving(dev)
     log(f"phase 18 (serving): {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    data = check_data(dev, score, finetune)
+    log(f"phase 19 (data): {time.perf_counter() - t0:.3f} s")
+    del score["tables"]
 
     log("detail: " + json.dumps({"slice": sl, **shapes, "products": products, "train": tr,
                                  "ab": ab, "two_kernel_path": tail_path, "mxu_micro": micro,
                                  "attn_fwd_ab": fwd_ab, "attn_bwd_ab": bwd_ab,
                                  "forecast_and_score": score, "finetune": finetune,
-                                 "serving": serve}))
+                                 "serving": serve, "data": data}))
     # launches over the run of each kernel's path
     launches = {"fused_earth_block": sl["launches"], **tr["launches"],
                 **{k: ab["unfused_tail"]["launches"][k] for k in ("fused_mlp", "fused_mlp_bwd")},

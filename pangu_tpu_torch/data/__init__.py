@@ -3,6 +3,7 @@
 from pangu_tpu_torch.data.dataset import (  # noqa: F401
     BatchLoader,
     Era5Dataset,
+    NetCDFStore,
     NpyStore,
     PtStore,
     SyntheticStore,

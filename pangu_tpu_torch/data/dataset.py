@@ -3,13 +3,17 @@
 
   * A *store* maps a timestamp to the (upper, surface) field pair. Backends:
     per-hour ``.npy`` pairs (the native store), the reference's per-hour
-    ``.pt`` tensors (PTDataset parity) and a deterministic synthetic
-    generator (numpy only: the JAX package's arrays for the same seed). The
-    NetCDF store is not ported yet (ROADMAP queue 1, item 5).
+    ``.pt`` tensors (PTDataset parity), monthly/daily NetCDF (NetCDFDataset
+    parity, gated on xarray; its open handles are pinned while a load reads
+    them) and a deterministic synthetic generator (numpy only: the JAX
+    package's arrays for the same seed).
   * ``Era5Dataset`` pairs input time t with target time t+horizon over a
     date range (both ends inclusive; ``datetime`` arithmetic in place of
     ``pd.date_range``), with the reference's length rule
     ``len(keys) - horizon // freq_hours - 1`` (era5_data/utils_data.py:106).
+  * ``Era5Dataset.load_batch`` reads an ``NpyStore`` batch with the native
+    C++ reader (``data/native_loader.py``: one thread-pooled call per
+    array), else sample by sample; ``BATCH_READS`` counts which ran.
   * ``BatchLoader`` shards the key space across data-parallel processes,
     shuffles per epoch, and prefetches batches on a background thread that
     touches numpy only, never CUDA: the consumer moves a batch to the card.
@@ -29,6 +33,7 @@ from typing import Iterator, List, Sequence, Tuple
 import numpy as np
 
 from pangu_tpu_torch.config import DataConfig, ModelConfig
+from pangu_tpu_torch.data import native_loader
 from pangu_tpu_torch.train.step import Batch
 
 Periods = Tuple[str, ...]
@@ -37,6 +42,11 @@ _TIME_FMT = "%Y%m%d%H"
 #: the date formats of the config and its tests
 _DATE_FORMATS = ("%Y%m%d", "%Y%m%d %H:%M:%S")
 _FREQ = re.compile(r"(\d+)h", re.IGNORECASE)
+
+#: batches assembled by ``Era5Dataset.load_batch`` in this process, by reader:
+#: "native" (the C++ reader, one call per array) or "per_sample" (``store.load``)
+BATCH_READS = {"native": 0, "per_sample": 0}
+_READS_LOCK = threading.Lock()
 
 
 def time_str(t: datetime) -> str:
@@ -105,6 +115,107 @@ class PtStore:
         )
 
 
+class NetCDFStore:
+    """Monthly ``surface_YYYYMM.nc`` + daily ``upper_YYYYMMDD.nc`` reader
+    (reference NetCDFDataset, era5_data/utils_data.py:113-229): variables
+    [z,q,t,u,v] with the level axis flipped to data order, [msl,u10,v10,t2m]
+    surface, finite-slice expver resolution (see _sel_time). Gated on
+    xarray.
+
+    Open dataset handles are kept in a bounded LRU (``cache_size`` files,
+    thread-safe): a monthly surface file covers up to 744 hourly timestamps
+    and a rollout eval walks them back to back — the reference reopens both
+    files on every sample (utils_data.py:146-149); here each file is opened
+    once per residency. A load reads its arrays while it holds the lock, so
+    another thread's open cannot evict and close a handle in mid-read."""
+
+    def __init__(self, root: str, cache_size: int = 8):
+        import importlib.util
+
+        if importlib.util.find_spec("xarray") is None:
+            raise ImportError("NetCDFStore requires xarray")
+        self._init_state(root, cache_size)
+
+    def _init_state(self, root: str, cache_size: int) -> None:
+        """Cache plumbing, split from __init__ so tests can exercise the LRU
+        with a fake opener on hosts without xarray."""
+        from collections import OrderedDict
+
+        self.root = root
+        self.cache_size = max(1, cache_size)
+        self._cache: "OrderedDict[str, object]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def _open_dataset(self, path: str):
+        import xarray as xr
+
+        return xr.open_dataset(path)
+
+    def _open(self, path: str):
+        """LRU-cached open, called with the lock held: a hit refreshes
+        recency; a miss opens and evicts + closes the stalest handle past
+        ``cache_size``."""
+        ds = self._cache.pop(path, None)
+        if ds is None:
+            ds = self._open_dataset(path)
+        self._cache[path] = ds
+        while len(self._cache) > self.cache_size:
+            _, old = self._cache.popitem(last=False)
+            close = getattr(old, "close", None)
+            if close is not None:
+                close()
+        return ds
+
+    def close(self) -> None:
+        """Close every cached handle (idempotent)."""
+        with self._lock:
+            while self._cache:
+                _, old = self._cache.popitem(last=False)
+                close = getattr(old, "close", None)
+                if close is not None:
+                    close()
+
+    @staticmethod
+    def _sel_time(ds, t: datetime):
+        """Time-select with expver resolution for merged ERA5/ERA5T files:
+        each timestamp's data lives in exactly ONE expver slice (1=final,
+        5=preliminary) and the other slice is all-NaN. The reference
+        hardcodes expver=5 (utils_data.py:176-187), silently returning NaN
+        fields for finalized timestamps; here the slice with finite data
+        wins (final preferred), NaNs only if every slice is NaN."""
+        has_expver = ("expver" in getattr(ds, "dims", ())
+                      or "expver" in getattr(ds, "coords", ())
+                      or "expver" in ds)
+        if not has_expver:
+            return ds.sel(time=t)
+        chosen = None
+        for ev in sorted(np.atleast_1d(np.asarray(ds["expver"].values))):
+            sub = ds.sel(time=t, expver=ev)
+            probe = next(iter(sub.data_vars.values()))
+            if np.isfinite(np.asarray(probe.values).ravel()[:64]).any():
+                return sub
+            chosen = sub
+        return chosen
+
+    def _read(self, path: str, t: datetime, variables) -> np.ndarray:
+        """The variables of ``path`` at ``t``, stacked as float32. The open,
+        the selection and the read all hold the lock (loads come from one
+        prefetch thread, so serializing them costs little), so no other
+        load's open closes the handle before its arrays are numpy."""
+        with self._lock:
+            sel = self._sel_time(self._open(path), t)
+            return np.stack([sel[v].values.astype(np.float32) for v in variables])
+
+    def load(self, t: datetime) -> Tuple[np.ndarray, np.ndarray]:
+        s = time_str(t)
+        surface = self._read(os.path.join(self.root, "surface", f"surface_{s[:6]}.nc"), t,
+                             ("msl", "u10", "v10", "t2m"))
+        upper = self._read(os.path.join(self.root, "upper", f"upper_{s[:8]}.nc"), t,
+                           ("z", "q", "t", "u", "v"))
+        upper = upper[:, ::-1].copy()  # level order flip (utils_data.py:132)
+        return upper, surface
+
+
 class SyntheticStore:
     """Deterministic pseudo-weather keyed by timestamp: smooth fields with a
     time-dependent phase so consecutive hours correlate (enables meaningful
@@ -157,9 +268,7 @@ def make_store(cfg: DataConfig, model_cfg: ModelConfig):
     if kind == "pt":
         return PtStore(cfg.root)
     if kind == "netcdf":
-        raise NotImplementedError(
-            "the NetCDF store is not ported yet (ROADMAP queue 1, item 5): convert the "
-            "files to the npy store with the JAX package's scripts/convert_data.py")
+        return NetCDFStore(cfg.root)
     raise ValueError(f"unknown store kind {kind!r}")
 
 
@@ -216,12 +325,50 @@ class Era5Dataset:
         return upper, surface, tgt_upper, tgt_surface, (time_str(t), time_str(t_end))
 
     def load_batch(self, indices):
-        """Assemble a batch sample by sample (the JAX package's fallback; its
-        native C++ batch reader is not ported yet, ROADMAP queue 1, item 5)."""
-        samples = [self[int(i)] for i in indices]
-        arrs = tuple(np.stack([s[j] for s in samples]) for j in range(4))
-        periods = tuple(s[4] for s in samples)
-        return arrs, periods
+        """Assemble a batch. For NpyStore-backed datasets with the native
+        C++ loader available, each of the four arrays is read and packed by
+        one thread-pooled call (csrc/fastloader.cpp); otherwise falls back
+        to per-sample __getitem__. Both give the same arrays, bit for bit;
+        ``BATCH_READS`` counts which ran."""
+        if not (isinstance(self.store, NpyStore) and native_loader.native_available()):
+            samples = [self[int(i)] for i in indices]
+            arrs = tuple(np.stack([s[j] for s in samples]) for j in range(4))
+            periods = tuple(s[4] for s in samples)
+            _count_read("per_sample")
+            return arrs, periods
+
+        if not hasattr(self, "_shapes"):
+            u0, s0 = self.store.load(self.keys[0])
+            self._shapes = (u0.shape, s0.shape)
+        ushape, sshape = self._shapes
+        n = len(indices)
+        starts = [self.keys[int(i)] for i in indices]
+        ends = [t + timedelta(hours=self.horizon) for t in starts]
+
+        def paths(times, kind):
+            return [
+                os.path.join(self.store.root, kind, f"{kind}_{time_str(t)}.npy")
+                for t in times
+            ]
+
+        upper = np.empty((n,) + ushape, np.float32)
+        surface = np.empty((n,) + sshape, np.float32)
+        tgt_upper = np.empty((n,) + ushape, np.float32)
+        tgt_surface = np.empty((n,) + sshape, np.float32)
+        native_loader.read_batch(paths(starts, "upper"), upper)
+        native_loader.read_batch(paths(starts, "surface"), surface)
+        native_loader.read_batch(paths(ends, "upper"), tgt_upper)
+        native_loader.read_batch(paths(ends, "surface"), tgt_surface)
+        periods = tuple(
+            (time_str(t0), time_str(t1)) for t0, t1 in zip(starts, ends)
+        )
+        _count_read("native")
+        return (upper, surface, tgt_upper, tgt_surface), periods
+
+
+def _count_read(reader: str) -> None:
+    with _READS_LOCK:
+        BATCH_READS[reader] += 1
 
 
 class BatchLoader:

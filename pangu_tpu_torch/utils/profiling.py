@@ -120,13 +120,14 @@ def device_memory_stats() -> Dict[str, Dict[str, int]]:
 
 def system_snapshot(path: str = ".") -> Dict[str, object]:
     """Host-side disk/load snapshot (role of df -h polling): the disk that
-    holds ``path`` (default: the working directory), the load average and
-    :func:`device_memory_stats`."""
+    holds ``path`` (default: the working directory; total, used and free to
+    this process), the load average and :func:`device_memory_stats`."""
     du = shutil.disk_usage(path)
     return {
         "time": time.strftime("%Y-%m-%d %H:%M:%S"),
         "disk_total_gb": round(du.total / 2**30, 1),
         "disk_used_gb": round(du.used / 2**30, 1),
+        "disk_free_gb": round(du.free / 2**30, 1),
         "loadavg": os.getloadavg(),
         "devices": device_memory_stats(),
     }

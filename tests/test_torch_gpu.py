@@ -951,8 +951,9 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     the 3 timed steps of ``unfused_tail`` (K8/K9) and of ``fused_block``
     (K11/K12), the two-kernel block at one forecast step's mix (K10, K2 LN),
     and each script's timed run (2 warm-up + 10 or 12 timed calls). Phase
-    18's served steps launch K1 16 times each with the eager bits, and the
-    flagship bf16 bound is printed."""
+    18's served steps launch K1 16 times each with the eager bits, the
+    flagship bf16 bound is printed, and phase 19 prints its ``data:`` line
+    (the npy store's write, read rates and evaluate / finetune splits)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=repo, capture_output=True,
                           text=True, timeout=1200)
@@ -985,6 +986,12 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     serving = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("serving: ")]
     assert len(serving) == 1 and serving[0]["launches_per_step"] == [16, 16, 16]
     assert serving[0]["same_bits"] and 0 < serving[0]["idle_share"] < 1
+    data = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("data: ")]
+    assert len(data) == 1 and data[0]["write_bytes"] > 2e9
+    assert sorted(data[0]["read_batch_gbps"]) == ["1", "8"]
+    assert set(data[0]["eval_per_sample_s"]) == set(
+        data[0]["synthetic"]["eval_per_sample_s"]) == {"load", "h2d", "forecast", "score", "total"}
+    assert set(data[0]["fit_per_step_s"]) == {"load", "h2d", "step", "total"}
     bound = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("bf16 bound: ")]
     assert len(bound) == 1 and bound[0]["geometry"] == "full-721x1440x13" and bound[0]["pallas"]
     assert json.loads(lines[-1])["ok"] is True

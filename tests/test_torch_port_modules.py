@@ -2,10 +2,11 @@
 originals: ``pangu_tpu_torch.config``, ``geometry``, ``utils.flops`` and
 ``interop.torch_import`` must give what ``pangu_tpu``'s give, and the verbatim
 copies (``utils.logger``, ``interop.npz_io``, ``interop.onnx_wire``,
-``interop.onnx_import``, ``rollout.aggregate``, ``eval.visualize``) must hold
-the original's code (the port imports nothing of the JAX package, so it keeps
-copies; these tests keep them in step). Exact equality throughout: the modules
-are pure Python and numpy.
+``interop.onnx_import``, ``rollout.aggregate``, ``eval.visualize``,
+``data.stats``) must hold the original's code, and ``data.native_loader``
+too but for its three path constants (the port imports nothing of the JAX
+package, so it keeps copies; these tests keep them in step). Exact equality
+throughout: the modules are pure Python and numpy.
 """
 
 import ast
@@ -114,15 +115,21 @@ COPIES = {
     "interop/onnx_import.py": "interop/onnx_import.py",
     "rollout/aggregate.py": "rollout/aggregate.py",
     "eval/visualize.py": "eval/visualize.py",
+    "data/stats.py": "data/stats.py",
 }
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _code_of(path: str, package: str) -> str:
+def _code_of(path: str, package: str, blank=()) -> str:
     """The module's syntax tree without its module docstring, with imports
-    of ``package`` renamed to ``pangu_tpu``: what a copy must keep."""
+    of ``package`` renamed to ``pangu_tpu`` and the values assigned to the
+    module-level names ``blank`` dropped: what a copy must keep."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and [ast.unparse(t) for t in node.targets] in (
+                [[name] for name in blank]):
+            node.value = ast.Constant(None)
     body = tree.body
     if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
         tree.body = body[1:]
@@ -140,6 +147,34 @@ def test_copied_module_is_its_original(port, original):
     got = _code_of(os.path.join(REPO, "pangu_tpu_torch", port), "pangu_tpu_torch")
     ref = _code_of(os.path.join(REPO, "pangu_tpu", original), "pangu_tpu")
     assert got == ref, port
+
+
+#: the native loader's path constants: the port's source and library
+NATIVE_PATHS = ("_SRC", "_LIB_DIR", "_LIB")
+
+
+def test_native_loader_is_its_original_but_for_the_paths():
+    """``data/native_loader.py`` is the JAX package's module with only its
+    three path constants changed: the source is the port's
+    ``csrc/fastloader.cpp``, the library goes under the checkout's
+    ``build/native/``, so neither package builds or loads the other's."""
+    rel = os.path.join("data", "native_loader.py")
+    port = os.path.join(REPO, "pangu_tpu_torch", rel)
+    original = os.path.join(REPO, "pangu_tpu", rel)
+    assert _code_of(port, "pangu_tpu_torch", NATIVE_PATHS) == _code_of(
+        original, "pangu_tpu", NATIVE_PATHS)
+    assert _code_of(port, "pangu_tpu_torch") != _code_of(original, "pangu_tpu")
+
+    from pangu_tpu.data import native_loader as jnl
+    from pangu_tpu_torch.data import native_loader as tnl
+
+    for name in NATIVE_PATHS:
+        assert getattr(tnl, name) != getattr(jnl, name), name
+    assert tnl._REPO_ROOT == jnl._REPO_ROOT == REPO
+    assert (tnl._SRC, tnl._LIB_DIR) == (
+        os.path.join(REPO, "pangu_tpu_torch", "csrc", "fastloader.cpp"),
+        os.path.join(REPO, "build", "native"))
+    assert tnl._LIB == os.path.join(tnl._LIB_DIR, "libfastloader.so")
 
 
 def test_logger_copy_writes_the_same_lines(tmp_path):

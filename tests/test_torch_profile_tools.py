@@ -203,6 +203,7 @@ def test_device_memory_stats_without_a_card():
 def test_system_snapshot_and_monitor(caplog):
     snap = profiling.system_snapshot()
     assert snap["disk_total_gb"] > 0
+    assert 0 <= snap["disk_free_gb"] <= snap["disk_total_gb"] - snap["disk_used_gb"] + 0.1
     assert len(snap["loadavg"]) == 3
     assert isinstance(snap["devices"], dict)
     logger = logging.getLogger("test-torch-profiling-monitor")

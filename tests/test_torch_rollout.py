@@ -161,12 +161,20 @@ SERVING = [
 ]
 
 
+#: the data layer: the native batch reader, statistics, the ETL and their scripts
+DATA = [
+    "pangu_tpu_torch.data.native_loader", "pangu_tpu_torch.data.stats",
+    "pangu_tpu_torch.data.convert", "pangu_tpu_torch.scripts.convert_data",
+    "pangu_tpu_torch.scripts.stats",
+]
+
+
 def test_importing_the_port_does_not_import_jax():
     """A fresh process that imports every module of the port (the
-    forecast-and-score, finetuning and serving modules and scripts among
-    them) and chip_smoke.py (its imports; main() is not run) holds no jax,
-    jaxlib or flax and no module of the JAX package."""
-    assert set(FORECAST_AND_SCORE + FINETUNE + SERVING) <= set(_port_modules())
+    forecast-and-score, finetuning, serving and data modules and scripts
+    among them) and chip_smoke.py (its imports; main() is not run) holds no
+    jax, jaxlib or flax and no module of the JAX package."""
+    assert set(FORECAST_AND_SCORE + FINETUNE + SERVING + DATA) <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
@@ -202,6 +210,26 @@ def test_no_port_source_imports_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "pangu_tpu"), (path, name)
+
+
+def test_the_data_layer_and_chip_smoke_import_no_pandas():
+    """The data modules, their scripts and chip_smoke.py import in a process
+    where pandas cannot be imported (the ETL's timestamps come from the
+    port's ``date_range``), and pull in no module of pandas, jax or the JAX
+    package."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['pandas'] = None\n"
+        f"for name in {DATA!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None\n"
+        "             and m.split('.')[0] in ('pandas', 'jax', 'flax', 'pangu_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
 
 
 def test_evaluate_and_rollout_run_without_pandas_or_matplotlib(tmp_path):
