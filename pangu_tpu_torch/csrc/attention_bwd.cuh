@@ -5,7 +5,7 @@
 // registers, dbias accumulates on chip across the CTA's windows and is
 // written once, and the column sums of g (dbproj) are folded in. K12
 // (fused_block_train.cu) runs it too, from its LayerNorm-1 gradient; S2's
-// `local_accum` (bench_attn_bwd_ab.cu) keeps K3's earlier wmma schedule.
+// `local_accum` (bench_attn_bwd_ab.cu) runs a copy with on-chip weight sums.
 
 #pragma once
 

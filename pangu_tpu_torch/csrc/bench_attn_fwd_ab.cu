@@ -15,34 +15,58 @@
 // with bias the (n_types, 6, TN, TN) f32 table that holds the earth bias on
 // pairs of one window and -1e9 on cross-window pairs, so their probabilities
 // are exactly 0: the result is K2's, at NW x the score work (the cost the TPU
-// A/B weighed against fatter matrix-unit tiles).
+// A/B weighed against fatter matrix-unit tiles). Every key tile is scored,
+// the all -1e9 ones too.
 //
-// Design. fat_attention_kernel<NW>: one CTA per fat window, 9 warps, looping
-// over the heads. At NW = 1 (`batched`, the JAX question of one operation over
-// all heads) the window's x rows are staged in shared memory once and read by
-// every head, where K2 runs one CTA per (window, head) and stages x per head.
-// At NW = 2, 4 x no longer fits beside the head's q|k|v (TN x 96 bf16, 120 KB
-// at NW = 4), so it is streamed per head in 144-row blocks from L2. A (TN, TN)
-// f32 score tile cannot fit either (1.3 MB at NW = 4), so each warp streams its
-// 16-row query tiles over 16-key tiles in two passes: pass 1 keeps the row max
-// and sum online (a tile whose keys are all cross-window sets a running max
-// near -1e9, and the next real tile rescales that sum by exp(-1e9 - m) = 0 in
-// f32); pass 2 recomputes the scores and forms p = exp(s - m) / sum, rounded to
-// bf16 before the p v product -- the Pallas rounding point of p, at twice the
-// score products. The attention output goes to a (rows, C) bf16 buffer and
-// the projection is K2's (gemm.cuh's wgmma product with its bias), so the
-// variants differ from `shipped` in the attention schedule only.
+// Design: fat_attention_kernel<NW>, on the engine of K2's window attention
+// (window_attention.cuh). One CTA per fat window, 9 warps, looping over the
+// six heads; the CTAs of one window type are adjacent in the grid, so its
+// fat windows share the type's bias tiles in the L2 (one type's six heads
+// are 8 MB at NW = 4).
+//
+//  * q|k|v on mma.sync m16n8k16 from ldmatrix fragments: the head's 96 Wqkv
+//    rows are staged once per head (38,400 B, cp.async, loaded during the
+//    previous head's attention) and serve all TN rows; warp (rg, seg) forms
+//    rows 48 rg.. of each 144-row block and the 32 columns of q, k or v,
+//    adds bqkv to the C fragments and writes bf16 q|k|v to the (TN, 96) tile.
+//    At NW = 1 (`batched`) and NW = 2 the fat window's x rows stay in shared
+//    memory for all six heads (57,600 / 115,200 B); at NW = 4 they do not
+//    fit beside the head's q|k|v (119,808 B) and stream per head from the L2
+//    in (144 rows, 64 channels) chunks through a three-stage ring.
+//  * The scores as in K2: each warp keeps 16 query rows at a time in
+//    registers, S of a 144-key block as 18 n8 tiles (72 f32 a thread), each
+//    tile scaled and given its bias from 8-byte loads right after its MMAs,
+//    row max and sum through quad shuffles, P packed to bf16 A fragments, v
+//    by ldmatrix.trans. No score or probability goes to shared memory.
+//  * Register budget: at NW = 1 the 144 keys fit and one softmax pass forms
+//    p. At NW >= 2 a row's TN scores do not (144 or 288 f32 a thread against
+//    the 168 registers of a 9-warp CTA), so a first pass over the NW key
+//    blocks keeps the row max and sum online (a block's max rescales the
+//    running sum; a block of cross-window keys alone would set a max near
+//    -1e9 that the next real block rescales away exactly), and a second pass
+//    recomputes the scores and forms p = exp(s - max) (1 / sum), rounded to
+//    bf16 before p v: the Pallas rounding point of p (the product by the
+//    reciprocal differs from the quotient by at most an f32 ulp before that
+//    rounding), at twice the q k^T products.
+//
+// The attention output goes to a (rows, C) bf16 buffer and the projection is
+// K2's (gemm.cuh's wgmma product with its bias), so the variants differ from
+// `shipped` in the attention schedule only.
+//
+// Shared memory: x (resident, or the ring), the head's Wqkv rows and the q|k|v
+// tile: 125,952 / 213,504 / 220,416 B at NW = 1 / 2 / 4, one CTA per SM.
 //
 // What bounds it on an H100: the products, 8 rows C^2 + 4 rows TN C FLOP (the
-// score work grows with NW), against x in and out and the bias table (0.99 GB
-// at NW = 4, more than x).
+// score work grows with NW; the second pass adds 2 rows TN C), against x in
+// and out and the bias table (0.99 GB at NW = 4, more than x, read twice from
+// the L2 at NW >= 2); the exp of every score (NW x K2's, twice at NW >= 2)
+// on the SFU.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // pangu_tpu_torch/scripts/bench_attn_fwd_ab.py; the plain PyTorch version is
 // fat_attention_reference there.
 
 #include "gemm.cuh"
-#include "window_attention.cuh"
 
 namespace {
 
@@ -50,27 +74,26 @@ constexpr int FC = 192;                  // channels (the outer stage)
 constexpr int FH = FC / D;               // heads
 constexpr int F_WARPS = T / 16;
 constexpr int F_THREADS = F_WARPS * 32;  // 288
-constexpr int XR_LD = FC + 8;            // resident x rows (NW = 1)
-constexpr int F_WARP_BYTES = 16 * 3 * D * 4;  // per warp: its f32 q|k|v rows, then S, P, O
-constexpr int FP_LD = 24;                // bf16 16 x 16 probability tile
-constexpr int F_P_OFF = 1024, F_O_OFF = 2048;
-
-constexpr int imax(int a, int b) { return a > b ? a : b; }
+constexpr int FX_LD = FC + 8;            // resident x rows and the head's Wqkv rows
+constexpr int FQ_LD = 3 * D + 8;         // q|k|v tile rows
+constexpr int FKC = 64;                  // channels of a streamed x chunk (NW = 4)
+constexpr int FXS_LD = FKC + 8;
+constexpr int F_STAGES = 3;
+constexpr int FW_BYTES = 3 * D * FX_LD * 2;  // 38,400 B
 
 template <int NW>
 struct FatLayout {
   static constexpr int TN = NW * T;
-  static constexpr int XR_BYTES = NW == 1 ? T * XR_LD * 2 : 0;
-  static constexpr int QKV_B = TN * QKV_LD * 2;
-  static constexpr int X_ELEMS = NW == 1 ? 0 : T * XS_LD;       // streamed x chunk
-  static constexpr int STAGE_ELEMS = X_ELEMS + 3 * D * WT_LD;    // + the Wqkv chunk
-  static constexpr int WORK = imax(2 * STAGE_ELEMS * 2, F_WARPS * F_WARP_BYTES);
-  static constexpr int SMEM = XR_BYTES + QKV_B + WORK;
+  static constexpr bool RESIDENT = NW <= 2;  // x stays for all six heads
+  static constexpr int X_BYTES = RESIDENT ? TN * FX_LD * 2 : F_STAGES * T * FXS_LD * 2;
+  static constexpr int W_OFF = X_BYTES;
+  static constexpr int QKV_OFF = W_OFF + FW_BYTES;
+  static constexpr int SMEM = QKV_OFF + TN * FQ_LD * 2;
+  static constexpr int CHUNKS = NW * (FC / FKC);  // streamed chunks per head
   static_assert(SMEM <= 232448, "fits one CTA's shared memory");
-  static_assert(XR_BYTES % 32 == 0 && QKV_B % 32 == 0 && (STAGE_ELEMS * 2) % 32 == 0 &&
-                    (X_ELEMS * 2) % 32 == 0,
-                "wmma needs 256-bit aligned tiles");
+  static_assert(X_BYTES % 128 == 0 && FW_BYTES % 128 == 0, "aligned tiles");
 };
+static_assert(F_WARPS == 9 && T == 3 * 48, "3 x 3 warps tile a 144-row block of q|k|v");
 
 // Grid row of token i of fat window (b, zi, hi, wf) of NW lon windows: the
 // contiguous (wz, wh, NW ww) slice in (z, h, w) order.
@@ -82,163 +105,241 @@ __device__ __forceinline__ long long fat_row(const Geom& g, int b, int zi, int h
   return ((long long)(b * g.Z + zi * g.wz + dz) * g.Hp + hi * g.wh + dh) * g.W + wf * wwn + r;
 }
 
+// s = (q k^T) scale + bias for the warp's 16 query rows (qa) and the 144 keys
+// of block kb (18 n8 tiles), the bias from the rows' entries of the table.
+template <int TN>
+__device__ __forceinline__ void fat_scores(float (&s)[T / 8][4], const uint32_t (&qa)[2][4],
+                                           const bf16* qkv, const float* brow, int kb,
+                                           float scale, int lane) {
+#pragma unroll
+  for (int nb = 0; nb < T / 16; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[2 * nb][e] = s[2 * nb + 1][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t kf[4];
+      ldsm_x4(kf, bfrag_nk(qkv, FQ_LD, kb * T + 16 * nb, D + 16 * kk, lane));
+      mma_bf16(s[2 * nb], qa[kk], kf[0], kf[1]);
+      mma_bf16(s[2 * nb + 1], qa[kk], kf[2], kf[3]);
+    }
+#pragma unroll
+    for (int j = 2 * nb; j < 2 * nb + 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 bv =
+            __ldg(reinterpret_cast<const float2*>(brow + h * 8 * TN + kb * T + 8 * j));
+        s[j][2 * h] = s[j][2 * h] * scale + bv.x;
+        s[j][2 * h + 1] = s[j][2 * h + 1] * scale + bv.y;
+      }
+  }
+}
+
 template <int NW>
 __global__ void __launch_bounds__(F_THREADS, 1)
 fat_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                      const bf16* __restrict__ bqkv, const float* __restrict__ bias,
                      bf16* __restrict__ attn_out, Geom g, float scale) {
   using L = FatLayout<NW>;
+  constexpr int TN = L::TN, C = FC;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xr = reinterpret_cast<bf16*>(smem);
-  bf16* qkv = reinterpret_cast<bf16*>(smem + L::XR_BYTES);
-  unsigned char* work = smem + L::XR_BYTES + L::QKV_B;
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* ws = reinterpret_cast<bf16*>(smem + L::W_OFF);
+  bf16* qkv = reinterpret_cast<bf16*>(smem + L::QKV_OFF);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int zn = g.Z / g.wz, hn = g.Hp / g.wh, wfn = g.W / (g.ww * NW);
-  int idx = blockIdx.x;
-  const int wf = idx % wfn;
-  idx /= wfn;
-  const int hi = idx % hn;
-  idx /= hn;
-  const int zi = idx % zn;
-  const int b = idx / zn;
-  const int type = zi * hn + hi;
-  constexpr int C = FC;
+  const int gq = lane >> 2, tq = lane & 3;  // fragment row and column pair
+  const int hn = g.Hp / g.wh, wfn = g.W / (g.ww * NW);
+  const int wf = blockIdx.x % wfn;  // type-major: ((type B + b) wfn + wf)
+  const int b = blockIdx.x / wfn % g.B, type = blockIdx.x / wfn / g.B;
+  const int zi = type / hn, hi = type - zi * hn;
 
-  if (NW == 1) {  // the window's x rows, once for all heads (completed by the first wait)
-    for (int v = threadIdx.x; v < T * (C / 8); v += F_THREADS) {
-      const int t = v / (C / 8), cv = v - t * (C / 8);
-      cp_async16(xr + t * XR_LD + cv * 8, x + fat_row(g, b, zi, hi, wf, NW, t) * C + cv * 8);
+  auto load_w = [&](int head) {  // the head's q, k and v rows of Wqkv, all C channels
+    for (int v = threadIdx.x; v < 3 * D * (C / 8); v += F_THREADS) {
+      const int r = v / (C / 8), cv = (v - r * (C / 8)) * 8, seg = r / D;
+      cp_async16(ws + r * FX_LD + cv,
+                 wqkv + (long long)(seg * C + head * D + r - seg * D) * C + cv);
+    }
+  };
+  auto load_chunk = [&](int c) {  // NW = 4: x rows 144 blk.., channels 64 kc.. -> stage c % 3
+    const int blk = c / (C / FKC), k0 = (c - blk * (C / FKC)) * FKC;
+    bf16* st = xs + (c % F_STAGES) * T * FXS_LD;
+    for (int v = threadIdx.x; v < T * (FKC / 8); v += F_THREADS) {
+      const int t = v / (FKC / 8), cv = (v - t * (FKC / 8)) * 8;
+      cp_async16(st + t * FXS_LD + cv,
+                 x + fat_row(g, b, zi, hi, wf, NW, blk * T + t) * C + k0 + cv);
+    }
+  };
+  // one commit group per ring chunk; the head's Wqkv rows ride with its first
+  auto start_head = [&](int head) {
+    load_w(head);
+    if (!L::RESIDENT) {
+      load_chunk(0);
+      cp_async_commit();
+      load_chunk(1);
     }
     cp_async_commit();
-  }
+  };
 
+  if (L::RESIDENT)  // the fat window's x rows, once for all heads (with head 0's group)
+    for (int v = threadIdx.x; v < TN * (C / 8); v += F_THREADS) {
+      const int t = v / (C / 8), cv = (v - t * (C / 8)) * 8;
+      cp_async16(xs + t * FX_LD + cv, x + fat_row(g, b, zi, hi, wf, NW, t) * C + cv);
+    }
+  start_head(0);
+
+  const int rg = warp / 3, seg = warp - 3 * rg;  // q|k|v: rows 48 rg.., columns of q, k or v
   for (int head = 0; head < FH; ++head) {
-    // ---- this head's q|k|v for the TN tokens, 144 rows at a time
+    if (L::RESIDENT) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    // ---- q|k|v of the TN rows, one 144-row block at a time
     for (int blk = 0; blk < NW; ++blk) {
-      FragC acc[6];
-      for (int n = 0; n < 6; ++n) wmma::fill_fragment(acc[n], 0.f);
-      bf16* st0 = reinterpret_cast<bf16*>(work);
-      pipelined(
-          C / KC, st0, st0 + L::STAGE_ELEMS,
-          [&](int i, bf16* st) {
-            const int k0 = i * KC;
-            if (NW > 1)
-              for (int v = threadIdx.x; v < T * (KC / 8); v += F_THREADS) {
-                const int t = v / (KC / 8), cv = v - t * (KC / 8);
-                cp_async16(st + t * XS_LD + cv * 8,
-                           x + fat_row(g, b, zi, hi, wf, NW, blk * T + t) * C + k0 + cv * 8);
-              }
-            for (int v = threadIdx.x; v < 3 * D * (KC / 8); v += F_THREADS) {
-              const int r = v / (KC / 8), cv = v - r * (KC / 8);
-              const int seg = r / D, j = r - seg * D;
-              cp_async16(st + L::X_ELEMS + r * WT_LD + cv * 8,
-                         wqkv + (long long)(seg * C + head * D + j) * C + k0 + cv * 8);
-            }
-          },
-          [&](int i, bf16* st) {
-            for (int kk = 0; kk < KC; kk += 16) {
-              FragA a;
-              if (NW == 1)
-                wmma::load_matrix_sync(a, xr + warp * 16 * XR_LD + i * KC + kk, XR_LD);
-              else
-                wmma::load_matrix_sync(a, st + warp * 16 * XS_LD + kk, XS_LD);
-              for (int n = 0; n < 6; ++n) {
-                FragBt w;
-                wmma::load_matrix_sync(w, st + L::X_ELEMS + n * 16 * WT_LD + kk, WT_LD);
-                wmma::mma_sync(acc[n], a, w, acc[n]);
-              }
-            }
-          });
-      // the stages are dead: each warp adds the bias to its rows in its region
-      float* ws = reinterpret_cast<float*>(work + warp * F_WARP_BYTES);
-      for (int n = 0; n < 6; ++n)
-        wmma::store_matrix_sync(ws + n * 16, acc[n], 3 * D, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 16 * 3 * D; e += 32) {
-        const int r = e / (3 * D), cidx = e - r * (3 * D);
-        const int seg = cidx / D, j = cidx - seg * D;
-        const float v = ws[e] + __bfloat162float(bqkv[seg * C + head * D + j]);
-        qkv[(blk * T + warp * 16 + r) * QKV_LD + cidx] = __float2bfloat16(v);
+      float acc[3][4][4] = {};
+      for (int kc = 0; kc < C / FKC; ++kc) {
+        const bf16* xa;
+        int xld, xc;
+        if (L::RESIDENT) {
+          xa = xs + blk * T * FX_LD;
+          xld = FX_LD;
+          xc = kc * FKC;
+        } else {
+          const int c = blk * (C / FKC) + kc;
+          if (c + 2 < L::CHUNKS) load_chunk(c + 2);
+          cp_async_commit();
+          cp_async_wait<2>();
+          __syncthreads();
+          xa = xs + (c % F_STAGES) * T * FXS_LD;
+          xld = FXS_LD;
+          xc = 0;
+        }
+#pragma unroll
+        for (int kk = 0; kk < FKC / 16; ++kk) {
+          uint32_t a[3][4], w[2][4];
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+            ldsm_x4(a[i], afrag_at(xa, xld, 48 * rg + 16 * i, xc + 16 * kk, lane));
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb)
+            ldsm_x4(w[nb], bfrag_nk(ws, FX_LD, D * seg + 16 * nb, kc * FKC + 16 * kk, lane));
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+#pragma unroll
+            for (int f = 0; f < 4; ++f)
+              mma_bf16(acc[i][f], a[i], w[f >> 1][2 * (f & 1)], w[f >> 1][2 * (f & 1) + 1]);
+        }
+        if (!L::RESIDENT) __syncthreads();  // the stage is read: a later chunk may overwrite it
       }
-      __syncthreads();  // qkv rows visible; the regions are stages again
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int col = D * seg + 8 * f + 2 * tq;
+        const float2 bb = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(bqkv + seg * C + head * D + 8 * f + 2 * tq));
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<__nv_bfloat162*>(
+                qkv + (blk * T + 48 * rg + 16 * i + gq + 8 * h) * FQ_LD + col) =
+                __floats2bfloat162_rn(acc[i][f][2 * h] + bb.x, acc[i][f][2 * h + 1] + bb.y);
+      }
     }
+    __syncthreads();  // q|k|v of every row in place; the Wqkv rows (and the ring) are free
+    if (head + 1 < FH) start_head(head + 1);  // lands during this head's attention
 
-    // ---- the warp's 16-row query tiles against all TN keys, 16 keys at a time
-    const float* bias_h = bias + (long long)(type * FH + head) * L::TN * L::TN;
-    float* S = reinterpret_cast<float*>(work + warp * F_WARP_BYTES);
-    bf16* P = reinterpret_cast<bf16*>(work + warp * F_WARP_BYTES + F_P_OFF);
-    float* O = reinterpret_cast<float*>(work + warp * F_WARP_BYTES + F_O_OFF);
-    const int r = lane >> 1, c0 = (lane & 1) * 8;  // the lane's row and 8 columns of a tile
-    for (int qt = warp; qt < L::TN / 16; qt += F_WARPS) {
+    // ---- the warp's 16-row query tiles against all TN keys
+    const float* bias_h = bias + (long long)(type * FH + head) * TN * TN;
+    for (int qt = warp; qt < TN / 16; qt += F_WARPS) {
       const int q0 = qt * 16;
-      FragA qa[2];
-      wmma::load_matrix_sync(qa[0], qkv + q0 * QKV_LD, QKV_LD);
-      wmma::load_matrix_sync(qa[1], qkv + q0 * QKV_LD + 16, QKV_LD);
-      auto scores = [&](int kt) {  // S = the (16, 16) tile q k^T of key tile kt
-        FragC s;
-        wmma::fill_fragment(s, 0.f);
-        for (int kk = 0; kk < 2; ++kk) {
-          FragBt kb;
-          wmma::load_matrix_sync(kb, qkv + kt * 16 * QKV_LD + D + kk * 16, QKV_LD);
-          wmma::mma_sync(s, qa[kk], kb, s);
+      uint32_t qa[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) ldsm_x4(qa[kk], afrag_at(qkv, FQ_LD, q0, 16 * kk, lane));
+      const float* brow = bias_h + (long long)(q0 + gq) * TN + 2 * tq;
+      float s[T / 8][4], m[2], l[2];
+      if constexpr (NW == 1) {  // one pass: p = exp(s - max) / sum over the 144 keys
+        fat_scores<TN>(s, qa, qkv, brow, 0, scale, lane);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < T / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < T / 8; ++j) {
+            s[j][2 * h] = expf(s[j][2 * h] - mx);
+            s[j][2 * h + 1] = expf(s[j][2 * h + 1] - mx);
+            sum += s[j][2 * h] + s[j][2 * h + 1];
+          }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+          for (int j = 0; j < T / 8; ++j) {
+            s[j][2 * h] /= sum;
+            s[j][2 * h + 1] /= sum;
+          }
         }
-        wmma::store_matrix_sync(S, s, 16, wmma::mem_row_major);
-        __syncwarp();
-      };
-      const float* brow = bias_h + (long long)(q0 + r) * L::TN + c0;
-      // pass 1: the row max m and sum l of exp(s - m), online over the key tiles
-      float m = -INFINITY, l = 0.f;
-      for (int kt = 0; kt < L::TN / 16; ++kt) {
-        scores(kt);
-        float v[8], tm = -INFINITY;
-        for (int e = 0; e < 8; ++e) {
-          v[e] = S[r * 16 + c0 + e] * scale + brow[kt * 16 + e];
-          tm = fmaxf(tm, v[e]);
+      } else {  // pass 1: the row max m and sum l of exp(s - m), online over the key blocks
+#pragma unroll
+        for (int h = 0; h < 2; ++h) m[h] = -INFINITY, l[h] = 0.f;
+#pragma unroll 1
+        for (int kb = 0; kb < NW; ++kb) {
+          fat_scores<TN>(s, qa, qkv, brow, kb, scale, lane);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float mx = m[h];
+#pragma unroll
+            for (int j = 0; j < T / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < T / 8; ++j)
+              sum += expf(s[j][2 * h] - mx) + expf(s[j][2 * h + 1] - mx);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            l[h] = l[h] * expf(m[h] - mx) + sum;
+            m[h] = mx;
+          }
         }
-        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
-        const float mn = fmaxf(m, tm);
-        float ps = 0.f;
-        for (int e = 0; e < 8; ++e) ps += expf(v[e] - mn);
-        ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-        l = l * expf(m - mn) + ps;
-        m = mn;
-        __syncwarp();  // S is read before the next tile overwrites it
       }
-      // pass 2: p = bf16(exp(s - m) / l), o += p v
-      FragC o[2];
-      wmma::fill_fragment(o[0], 0.f);
-      wmma::fill_fragment(o[1], 0.f);
-      for (int kt = 0; kt < L::TN / 16; ++kt) {
-        scores(kt);
-        __align__(16) bf16 pv[8];
-        for (int e = 0; e < 8; ++e)
-          pv[e] = __float2bfloat16(expf(S[r * 16 + c0 + e] * scale + brow[kt * 16 + e] - m) / l);
-        *reinterpret_cast<uint4*>(P + r * FP_LD + c0) = *reinterpret_cast<const uint4*>(pv);
-        __syncwarp();
-        FragA pa;
-        wmma::load_matrix_sync(pa, P, FP_LD);
-        for (int n = 0; n < 2; ++n) {
-          FragB vb;
-          wmma::load_matrix_sync(vb, qkv + kt * 16 * QKV_LD + 2 * D + n * 16, QKV_LD);
-          wmma::mma_sync(o[n], pa, vb, o[n]);
+      // ---- O = bf16(p) v; at NW >= 2 pass 2 recomputes each block's p
+      float o[4][4] = {};
+      if constexpr (NW > 1) l[0] = 1.f / l[0], l[1] = 1.f / l[1];
+#pragma unroll 1
+      for (int kb = 0; kb < NW; ++kb) {
+        if constexpr (NW > 1) {
+          fat_scores<TN>(s, qa, qkv, brow, kb, scale, lane);
+#pragma unroll
+          for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]) * l[e >> 1];
         }
-        __syncwarp();  // S and P are read before the next tile
+#pragma unroll
+        for (int kt = 0; kt < T / 16; ++kt) {
+          const uint32_t pa[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]),
+                                  pack_bf16(s[2 * kt][2], s[2 * kt][3]),
+                                  pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
+                                  pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
+#pragma unroll
+          for (int dn = 0; dn < 2; ++dn) {
+            uint32_t vb[4];
+            ldsm_x4_t(vb, bfrag_kn(qkv, FQ_LD, kb * T + 16 * kt, 2 * D + 16 * dn, lane));
+            mma_bf16(o[2 * dn], pa, vb[0], vb[1]);
+            mma_bf16(o[2 * dn + 1], pa, vb[2], vb[3]);
+          }
+        }
       }
-      wmma::store_matrix_sync(O, o[0], D, wmma::mem_row_major);
-      wmma::store_matrix_sync(O + 16, o[1], D, wmma::mem_row_major);
-      __syncwarp();
-      {
-        const int rr = lane >> 1, cc = (lane & 1) * 16;
-        const long long row = fat_row(g, b, zi, hi, wf, NW, q0 + rr);
-        __align__(16) bf16 tmp[16];
-        for (int j = 0; j < 16; ++j) tmp[j] = __float2bfloat16(O[rr * D + cc + j]);
-        uint4* dst = reinterpret_cast<uint4*>(attn_out + row * C + head * D + cc);
-        dst[0] = reinterpret_cast<const uint4*>(tmp)[0];
-        dst[1] = reinterpret_cast<const uint4*>(tmp)[1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bf16* row = attn_out + fat_row(g, b, zi, hi, wf, NW, q0 + gq + 8 * h) * C + head * D +
+                    2 * tq;
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn)
+          *reinterpret_cast<uint32_t*>(row + 8 * nn) = pack_bf16(o[nn][2 * h], o[nn][2 * h + 1]);
       }
-      __syncwarp();
     }
-    __syncthreads();  // this head's qkv is read: the next head overwrites it
+    __syncthreads();  // this head's q|k|v is read: the next head overwrites it
   }
 }
 

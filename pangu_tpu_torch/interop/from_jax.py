@@ -135,8 +135,9 @@ def save_lora_npz(path: str, cfg: ModelConfig, trainable: Mapping) -> None:
     np.savez(path, **npz_io.flatten_tree(lora_tree_to_jax(cfg, trainable)))
 
 
-def load_lora_npz(path: str, cfg: ModelConfig, device="cpu") -> Dict:
-    """A LoRA tree ``.npz`` written by either package, as the port's tree."""
+def load_lora_npz(path: str, cfg: ModelConfig, device="cuda") -> Dict:
+    """A LoRA tree ``.npz`` written by either package, as the port's tree, on
+    ``device`` (the card unless the caller asks for the CPU)."""
     return lora_tree_from_jax(cfg, npz_io.load_params_npz(path), device)
 
 

@@ -11,8 +11,8 @@ weights in nn.Linear's (out, in) layout:
 * ``shipped``: the port's K3, ``ops.fused_block_attention.fused_block_attention_bwd``:
   the acc and dqkv slabs, then the weight grads as row-split products over
   all rows, rounded to bf16 (as the JAX ``_shipped_call`` returns them);
-* ``local_accum``: the same kernel with the weight grads accumulated in f32
-  on chip, per (window type, head) across its windows, one partial per
+* ``local_accum``: K3's attention kernel with the weight grads accumulated
+  in f32 on chip, per (window type, head) across its windows, one partial per
   (type, head) summed in a fixed order (``csrc/bench_attn_bwd_ab.cu``); the
   weight and bias grads f32, as the JAX variants return them.
 
@@ -116,7 +116,7 @@ def _library() -> ctypes.CDLL:
     if lib.pangu_attn_bwd_local.argtypes is None:
         lib.pangu_attn_bwd_local_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.pangu_attn_bwd_local_scratch.restype = ctypes.c_longlong
-        lib.pangu_attn_bwd_local.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
+        lib.pangu_attn_bwd_local.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
                                              + [ctypes.c_float, ctypes.c_void_p])
         lib.pangu_attn_bwd_local.restype = ctypes.c_int
     return lib
@@ -143,13 +143,15 @@ def local_accum(x, g, wqkv, bqkv, wproj, bias, heads: int = HEADS):
     dev = x.device
     f32 = torch.float32
     dqkv = torch.empty(rows, 3 * c, dtype=x.dtype, device=dev)
+    acc = torch.empty(rows, c, dtype=x.dtype, device=dev)
     scratch = torch.empty(lib.pangu_attn_bwd_local_scratch(c, n_types), dtype=f32, device=dev)
     grads = (torch.empty_like(x), torch.empty(3 * c, c, dtype=f32, device=dev),
              torch.empty(3 * c, dtype=f32, device=dev), torch.empty(c, c, dtype=f32, device=dev),
              torch.empty(c, dtype=f32, device=dev), torch.empty_like(bias))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pangu_attn_bwd_local(*[t.data_ptr() for t in tensors + (dqkv, scratch) + grads],
+        rc = lib.pangu_attn_bwd_local(*[t.data_ptr() for t in tensors + (dqkv, acc, scratch)
+                                        + grads],
                                       b, z, hp, w, c, heads, *WINDOW,
                                       ctypes.c_float(scale(c, heads)), stream)
     if rc != 0:

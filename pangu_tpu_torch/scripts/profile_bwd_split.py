@@ -21,7 +21,8 @@ a file (``PYTHONPATH=TREE python pangu_tpu_torch/scripts/profile_bwd_split.py
 ``--cuts TREE``: also time kernels of TREE whole and with their phases cut
 out, one phase at a time and all at once (``all``), at every stage and shift:
 K3's attention kernel through K3, the window-attention kernel through K1,
-K12's row pass through K12.
+K12's row pass through K12, and S2's ``local_accum_kernel`` through
+``bench_attn_bwd_ab.local_accum`` (outer stage, unshifted only).
 The cuts (``PHASE_CUTS``) are text edits of the kernel as TREE has it, found
 by a text of its schedule; each is a throwaway build of
 ``TREE/pangu_tpu_torch/csrc`` under ``build/variants/`` (the outputs are
@@ -72,10 +73,11 @@ def _bound(text: str, old: str, k: int) -> Tuple[str, str]:
 
 #: kernel -> how to find it in a tree (a file of csrc/ and a text in it), the
 #: header its phase cuts edit, the source built with them, the wrapper call
-#: that times it (``k1``: K1; ``k3``: K3; ``k12``: K12), the prefix of its
-#: kernel name, and its phases: phase -> edits (text of the kernel, its
-#: replacement, which cuts the phase under CUT_k, k the phase's place, from
-#: 1). ``all`` cuts every phase at once.
+#: that times it (``k1``: K1; ``k3``: K3; ``k12``: K12; ``s2``: S2's
+#: ``local_accum``), the prefix of its kernel name, the one (stage, shifted)
+#: it runs at where it does not take them all (``at``), and its phases:
+#: phase -> edits (text of the kernel, its replacement, which cuts the phase
+#: under CUT_k, k the phase's place, from 1). ``all`` cuts every phase at once.
 PHASE_CUTS: Dict[str, dict] = {
     # K3, the register-resident schedule, mma.sync
     "attention_bwd_regs_kernel": dict(
@@ -117,6 +119,23 @@ PHASE_CUTS: Dict[str, dict] = {
                                "2", 3)],
             "P v": [_bound("  for (int kb = 0; kb < T / 16; ++kb) {\n    const uint32_t pa[4]",
                            "T / 16", 4)],
+        }),
+    # S2's local_accum: K3's attention kernel with the weight grads summed on
+    # chip per window and dbias in device memory (outer stage, mask-free)
+    "local_accum_kernel": dict(
+        find=("bench_attn_bwd_ab.cu", "local_accum_kernel<<<"),
+        header="bench_attn_bwd_ab.cu", source="bench_attn_bwd_ab.cu", call="s2",
+        prefix="local_accum_kernel", at=("outer", False), phases={
+            "the weight sums (x, g and acc again, their products)": [
+                _guard("      for (int v = threadIdx.x; v < T * (D / 8); v += BWD_THREADS) {\n"
+                       "        const int t = v / (D / 8)", 1),
+                _guard("      load_chunk(0);\n", 1), _guard("      load_chunk(1);\n", 1),
+                _bound("      for (int i = 0; i < LC / LKC; ++i) {", "LC / LKC", 1)],
+            "the dbias tile's read and write in device memory": [
+                _guard("          if (!first)\n#pragma unroll", 2),
+                _guard("            __stcg(reinterpret_cast<float2*>(dbias_rows + 8 * j), lo);", 2),
+                _guard("            __stcg(reinterpret_cast<float2*>(dbias_rows + 8 * T + 8 * j), "
+                       "hi2);", 2)],
         }),
     # K12's row pass: the row kernel with PROJ and BWD (the projection, LN1, a
     # and x1 written, the MLP, the LN2 backward), through K12
@@ -198,6 +217,14 @@ def k3_call(inp: dict) -> Callable[[], object]:
     wqkv, bqkv, wproj, bias, mask = inp["attn"]
     return lambda: fba.fused_block_attention_bwd(inp["x"], wqkv, bqkv, wproj, bias, mask,
                                                  inp["gy"], *inp["statics"])
+
+
+def s2_call(inp: dict) -> Callable[[], object]:
+    """S2's ``local_accum`` on ``stage_inputs`` (the outer stage, unshifted)."""
+    from pangu_tpu_torch.scripts import bench_attn_bwd_ab
+
+    wqkv, bqkv, wproj, bias, _ = inp["attn"]
+    return lambda: bench_attn_bwd_ab.local_accum(inp["x"], inp["gy"], wqkv, bqkv, wproj, bias)
 
 
 def k12_call(inp: dict) -> Callable[[], object]:
@@ -364,7 +391,7 @@ def phase_cuts(kernel: str, libs: Dict[str, str], stage, c: int, heads: int, dev
     cut, at one stage, shifted or not."""
     spec = PHASE_CUTS[kernel]
     inp = stage_inputs(stage, c, heads, shifted, dev, seed=45)
-    call = {"k1": k1_call, "k3": k3_call, "k12": k12_call}[spec["call"]](inp)
+    call = {"k1": k1_call, "k3": k3_call, "k12": k12_call, "s2": s2_call}[spec["call"]](inp)
     res = {}
     for phase, path in libs.items():
         with with_library(spec["source"], path):
@@ -396,6 +423,8 @@ def main(argv) -> int:
             if args.k12:
                 res.update(block_bwd_split(stage, c, heads, dev, shifted))
             for kernel, kl in libs.items():
+                if PHASE_CUTS[kernel].get("at", (name, shifted)) != (name, shifted):
+                    continue
                 res.setdefault("phase_cuts_ms", {})[kernel] = phase_cuts(
                     kernel, kl, stage, c, heads, dev, shifted)
             print(json.dumps({"stage": name, "shifted": shifted, **res}), flush=True)

@@ -944,6 +944,33 @@ def test_cuda_local_accum_matches_plain_and_shipped_with_the_same_bits(cuda_devi
     assert res["same_bits"] and res["vs_shipped"] <= bw.PARITY_TOL and res["ok"], res
 
 
+@pytest.mark.parametrize("variant", ["batched", "dbl", "quad"])
+def test_cuda_attn_fwd_ab_variant_over_batches_and_types(cuda_device, variant):
+    """Two batch entries and four window types: the fat-window CTAs run
+    type-major, each reads its type's bias rows, and quad streams x through
+    its ring for every head."""
+    from pangu_tpu_torch.scripts import bench_attn_fwd_ab as f
+
+    base, bias = f.make_args(cuda_device, (2, 4, 12, 48, 192, 6), seed=1)
+    before = f.LAUNCHES[variant]
+    res = f.compare_variant(variant, f.variant_args(variant, base, bias, {}), bias, {})
+    assert res["ok"], res
+    assert f.LAUNCHES[variant] == before + 1
+
+
+def test_cuda_local_accum_over_batches_with_the_same_bits(cuda_device):
+    """Two batch entries: each CTA's dbias tile in device memory and its
+    on-chip weight sums carry across the batch as across the lon windows,
+    with the same bits on a second run."""
+    from pangu_tpu_torch.scripts import bench_attn_bwd_ab as bw
+
+    args = bw.make_args(cuda_device, (2, 4, 12, 24, 192, 6), seed=1)
+    before = bw.LAUNCHES
+    res = bw.compare_variant("local_accum", args, {})
+    assert res["same_bits"] and res["vs_shipped"] <= bw.PARITY_TOL and res["ok"], res
+    assert bw.LAUNCHES == before + 2  # the checked call and the second run
+
+
 def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     """``python3 chip_smoke.py`` exits 0; the line before the last lists K1-K12,
     K2's LN mode and the script kernels with their launches over the run of

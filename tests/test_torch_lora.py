@@ -209,9 +209,23 @@ def test_tree_conversion_round_trips(run, tmp_path):
     jax_save_npz(str(tmp_path / "jax.npz"), run.trainable)
     save_lora_npz(str(tmp_path / "port.npz"), run.m, tree)
     for name in ("jax.npz", "port.npz"):
-        got = flatten_trainable(load_lora_npz(str(tmp_path / name), run.m))
+        got = flatten_trainable(load_lora_npz(str(tmp_path / name), run.m, device="cpu"))
         for k, t in flatten_trainable(tree).items():
             assert torch.equal(got[k], t.detach()), (name, k)
+
+
+def test_load_lora_npz_defaults_to_the_card(run, tmp_path):
+    """Without a device the tree goes to the card, as the aux constants do:
+    on a host without one the load raises instead of quietly returning host
+    tensors."""
+    path = str(tmp_path / "port.npz")
+    save_lora_npz(path, run.m, lora_tree_from_jax(run.m, run.trainable))
+    if torch.cuda.is_available():
+        got = flatten_trainable(load_lora_npz(path, run.m))
+        assert all(t.is_cuda for t in got.values())
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            load_lora_npz(path, run.m)
 
 
 def test_jax_adam_state_resumes_in_the_port(run):

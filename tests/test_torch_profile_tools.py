@@ -26,6 +26,7 @@ import torch
 from torch.profiler import DeviceType
 
 from pangu_tpu_torch.ops import _build
+from pangu_tpu_torch.scripts import profile_attn_ab
 from pangu_tpu_torch.scripts import profile_bwd_split as pbs
 from pangu_tpu_torch.scripts import profile_train_step
 from pangu_tpu_torch.utils import profiling
@@ -46,7 +47,7 @@ def test_every_phase_cut_entry_finds_its_kernel_in_this_tree():
 def test_phase_cuts_of_this_tree_apply_once_each():
     found = pbs.cut_kernels(REPO)
     assert set(found) == {"attention_bwd_regs_kernel", "window_attention_kernel (mma.sync)",
-                          "mlp_tail_kernel (K12 row pass)"}
+                          "mlp_tail_kernel (K12 row pass)", "local_accum_kernel"}
     for kernel, spec in found.items():
         with open(os.path.join(REPO, "pangu_tpu_torch", "csrc", spec["header"])) as f:
             text = f.read()
@@ -116,6 +117,22 @@ def test_kernel_ms_averages_each_launch_over_the_calls():
     with mock.patch.object(pbs, "profile", _fake_profile(6)), \
             mock.patch.object(torch.cuda, "synchronize", lambda *a, **k: None):
         assert pbs.kernel_ms(lambda: None, n=3) == [("k0", 0.002), ("k1", 0.002)]
+
+
+def test_profile_attn_ab_sums_the_kernels_of_a_call_beside_the_wrapper_ms():
+    with mock.patch.object(pbs, "profile", _fake_profile(10)), \
+            mock.patch.object(torch.cuda, "synchronize", lambda *a, **k: None), \
+            mock.patch.object(profile_attn_ab, "cuda_times_ms", lambda fn: 0.5):
+        got = profile_attn_ab.timed(lambda: None)
+    assert got["kernels"] == [("k0", 0.002), ("k1", 0.002)]  # 5 calls of 2 launches
+    assert got["device_ms"] == pytest.approx(0.004) and got["wrapper_ms"] == 0.5
+
+
+def test_profile_attn_ab_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        profile_attn_ab.main([])
 
 
 def _write_trace(path, events):
