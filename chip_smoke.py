@@ -81,8 +81,9 @@ Phases (any failure exits non-zero before the last line is printed):
    whose sums are exact there), and the timed call (256 sweeps, its split and
    repeat) against 256 x the plain version (< 1e-4 for all four: there the f32
    sums pass 2^24), then the script's run: per sweep ms,
-   microseconds per window, TFLOP/s (TOP/s) and ``library_ms`` of
-   ``torch.einsum`` for ``loop``;
+   microseconds per window, TFLOP/s (TOP/s) and ``library_ms`` of each
+   variant's one PyTorch call (``torch.einsum`` over its heads; ``torch._int_mm``
+   for ``loop_int8``);
 14. the attention-forward A/B ``bench_attn_fwd_ab``: ``shipped`` (K2),
    ``batched``, ``dbl`` at W = 360 and ``quad`` at W = 336 (and ``quad`` at
    360 raises) against their plain versions (phase 3's bounds) and against
@@ -175,9 +176,9 @@ at their one shape; the micro-bench: per sweep). ``bound_ms`` is the larger
 of the bytes the function must move over 3.35 TB/s and its operations over
 the card's peak for their type (989 TFLOP/s for the bf16 products, 1,979
 TOP/s for int8; 67 TFLOP/s for the f32 elementwise work of K4/K5), computed
-from the shapes; ``library_ms`` is the time of ``torch.einsum`` for the
-micro-bench's ``loop`` and null elsewhere: no single PyTorch call computes
-the other functions. The last line is ``{"ok": true, "device": {...}}``.
+from the shapes; ``library_ms`` is the time of the micro-bench variants'
+one PyTorch call (``torch.einsum``, ``torch._int_mm``) and null elsewhere: no
+single PyTorch call computes the other functions. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 // Tensor-core micro-benchmark of head-dim-32 score products -- CUDA for Hopper
-// (sm_90a).
+// (sm_90a), on warpgroup matrix multiplies (wgmma).
 //
 // Replaces scripts/bench_mxu_micro.py (S3, the Pallas bodies _loop_kernel,
 // _blockdiag_kernel, _qblockdiag_kernel and _loop_int8_kernel run by timeit).
@@ -13,204 +13,304 @@
 //               block-diagonal K' (128, 4 x 144), the four (144, 144) blocks summed
 //   qblockdiag  the same packs with the block-diagonal operand on the q side:
 //               Q' (4 x 144, 128) against the packed k lanes (144, 128)
-//   loop_int8   loop on int8 q, k: each window-head product exact in int32,
-//               converted to f32, then summed (the Pallas body's formula)
+//   loop_int8   loop on int8 q, k, each head's product exact in int32
 //
 // Design. The TPU question was whether a 32-deep contraction costs a full
-// 128-deep pass of the matrix unit. Hopper's mma.sync takes a depth of 16 (bf16,
-// m16n8k16) or 32 (int8, m16n8k32), so a head-dim-32 product is two bf16
-// k-steps or one int8 k-step with nothing padded, and the packed variants issue
-// their zero blocks as real products: 5.33x loop's issued FLOP. A CTA of 9
-// warps stages one window's q|k columns (144 x 384) in shared memory once,
-// then repeats the window `reps` times; warp w owns rows 16w..16w+15 of the
-// tile, 18 n8 accumulators (72 f32 registers). The zero operand blocks are
-// read from a zeroed shared tile (the Pallas body concatenates zero arrays).
-// Grid: windows x split CTAs; each writes its (144, 144) f32 partial and
-// reduce_partials sums them in a fixed order (no atomics: the same bits on
-// every run).
+// 128-deep pass of the matrix unit; on Hopper it is whether wgmma, the only
+// instruction that reaches the tensor cores' full rate, runs near it at depth
+// 32. A CTA (window, split) of three consumer warpgroups loads the window's q
+// and k lanes once by TMA, as 12 head slabs of (rows x 32): bf16 rows of 64
+// bytes with the 64-byte swizzle, int8 rows of 32 bytes with the 32-byte one.
+// Each head's two slabs land on their own mbarrier (loop's first repeat starts
+// on head 0 while the others arrive); then the CTA repeats the window `reps`
+// times with nothing but products. Both operands are K-major and read through
+// matrix descriptors: no thread loads a B fragment.
 //
-// What bounds it on an H100: the issued products (bf16 at 989 TFLOP/s, int8 at
-// 1,979 TOP/s dense); the window data (166 KB bf16) is read once per CTA.
+//   loop        warpgroup g owns rows 64g..64g+63 of the tile, one m64n144 f32
+//               accumulator (72 registers); per repeat and head two
+//               m64n144k16, one commit per repeat (one group kept in flight)
+//   blockdiag   the same rows; per repeat 2 packs x 4 column blocks x 8 k16
+//               steps, B either head (base + i)'s k slab or a zeroed slab
+//   qblockdiag  Q' has 576 = 9 x 64 rows: warpgroup g takes m-tiles g, g+3,
+//               g+6 in turn, A from registers (wgmma's register-A form): a
+//               warp's 16 rows lie in one head's block, so its fragment of a
+//               k16 step is that head's q or zero; the m-tiles straddle the
+//               blocks (144 = 2.25 x 64), so each one's (64, 144) sum is added
+//               into an f32 tile in shared memory, warpgroup by warpgroup in a
+//               fixed order; each repeat's 16 products are waited for before
+//               the next (kept in flight, ptxas serializes them for want of
+//               registers)
+//   loop_int8   one m64n144k32 s8 per head, the window's six heads chained in
+//               one s32 accumulator (a 192-deep product), then converted and
+//               added into the f32 tile once per window-repeat. The Pallas body
+//               converts each head's dot, the TPU matrix unit's own result;
+//               here the conversion follows the accumulator chain, 6x fewer
+//               conversions. Exact: |six heads' sum| <= 6 x 128^2 x 32 =
+//               3,145,728 < 2^22, so the sum converts by integer add and one
+//               f32 subtract (no I2F), and at one sweep every f32 partial is an
+//               exact integer: the plain version's result.
+//
+// M layout. 144 rows are 2.25 m64 tiles; the q slabs have 192 rows, 144-191
+// zero, and the third warpgroup's rows 144-191 are thrown away. A two
+// warpgroups + one mma.sync warp layout would leave the sub-partition that
+// holds the extra warp as loaded as the padded one (48 rows of each k16 step on
+// its tensor core against 32 on the others), so padding costs no more tensor
+// time and is one code path.
+//
+// What bounds it on an H100: the issued products, bf16 at 989 TFLOP/s and int8
+// at 1,979 TOP/s dense (the window's data, 166 KB in bf16, is read once per
+// CTA). Ceilings against the bound, which counts only the products the result
+// needs: loop and loop_int8 issue 4/3 of them (the padded rows), at most 75%;
+// the packs also issue their zero blocks as real products (4x the needed depth;
+// blockdiag with the padded rows too), at most ~19% (blockdiag) and 25%
+// (qblockdiag).
+//
+// Grid: windows x split CTAs, one per SM (three warpgroups, up to 207 KB of
+// shared memory); each writes its (144, 144) f32 partial and reduce_partials
+// sums them in a fixed order (no atomics: the same bits on every run).
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // pangu_tpu_torch/scripts/bench_mxu_micro.py; the plain PyTorch version is
 // mxu_micro_reference there.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int MC = 192;                    // channels: 6 heads x 32
-constexpr int MH = MC / D;                 // heads
-constexpr int QK = 2 * MC;                 // the q|k columns of a qkv row
-constexpr int LD16 = (QK + 8) * 2;         // bf16 row stride in bytes: 196 words, 4 mod 32
-constexpr int LD8 = QK + 16;               // int8 row stride in bytes: 100 words, 4 mod 32
-constexpr int ZLD = 80;                    // zero tile: 8 rows of 80 bytes
-constexpr int M_WARPS = T / 16;
-constexpr int M_THREADS = M_WARPS * 32;    // 288
-constexpr int NT8 = T / 8;                 // n8 column tiles of the (144, 144) output
+constexpr int MC = 192;                 // channels: 6 heads x 32
+constexpr int MH = MC / D;              // heads
+constexpr int MWG = 3;                  // consumer warpgroups
+constexpr int M_THREADS = MWG * 128;    // 384
+constexpr int MPAD = 64 * MWG;          // q rows of a slab: 144 + 48 zero
+constexpr int NACC = T / 2;             // f32 of a thread's m64n144 accumulator
 
 template <int V>
 struct MicroLayout {
   static constexpr bool INT8 = V == 3;
-  static constexpr int ESZ = INT8 ? 1 : 2;   // bytes per element
-  static constexpr int LD = INT8 ? LD8 : LD16;
-  static constexpr int SMEM = T * LD + 8 * ZLD;
+  static constexpr int ROW = INT8 ? D : 2 * D;  // bytes of a head's 32 lanes
+  static constexpr uint32_t SW = INT8 ? SW32 : SW64;
+  static constexpr int SBO = 8 * ROW;            // 8 rows of the swizzled slab
+  static constexpr int QSLAB = MPAD * ROW;       // 12,288 / 6,144 bytes
+  static constexpr int KSLAB = T * ROW;          // 9,216 / 4,608
+  static constexpr int Q = 0;
+  static constexpr int K = Q + MH * QSLAB;
+  static constexpr int ZERO = K + MH * KSLAB;                   // blockdiag's zero B
+  static constexpr int OUT = ZERO + (V == 1 ? KSLAB : 0);       // qblockdiag's f32 tile
+  static constexpr int BAR = OUT + (V == 2 ? T * T * 4 : 0);
+  static constexpr int SMEM = BAR + MH * 8;
 };
 
 __device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// x as f32, exact for |x| < 2^22: 1.5 x 2^23 + x has an ulp of 1
+__device__ __forceinline__ float exact_f32(int x) {
+  return __int_as_float(0x4B400000 + x) - 12582912.f;
 }
 
-// V: 0 loop, 1 blockdiag, 2 qblockdiag, 3 loop_int8. CTA b works on window b / split.
+template <int V>
+__device__ __forceinline__ uint64_t slab_desc(const unsigned char* p) {
+  using L = MicroLayout<V>;
+  return gmma_desc(p, 16, L::SBO, L::SW);
+}
+
+// qblockdiag: one m-tile's products over all repeats. a[p][c] is the warp's
+// A fragment of pack p's k16 step 2 I0 + c (its head's q or zero); the steps
+// outside 2 I0 .. 2 I0 + 3 are zero for every warp of the tile.
+template <int I0>
+__device__ __forceinline__ void qblockdiag_tile(float (&acc)[NACC], const uint32_t (&a)[2][4][4],
+                                                const unsigned char* k, int reps) {
+  using L = MicroLayout<2>;
+  const uint32_t z[4] = {0u, 0u, 0u, 0u};
+  for (int rep = 0; rep < reps; ++rep) {
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        const uint64_t db = slab_desc<2>(k + (2 * p + ks / 2) * L::KSLAB + (ks % 2) * 32);
+        if (ks >= 2 * I0 && ks < 2 * I0 + 4)
+          wgmma_m64n144_rs(acc, a[p][(ks - 2 * I0) & 3], db);
+        else
+          wgmma_m64n144_rs(acc, z, db);
+      }
+    wgmma_commit();
+    reg_fence(acc);
+    wgmma_wait<0>();  // with a group kept in flight, ptxas serializes the products (registers)
+  }
+}
+
+// V: 0 loop, 1 blockdiag, 2 qblockdiag, 3 loop_int8. CTA b works on window
+// b / split, reps times over.
 template <int V>
 __global__ void __launch_bounds__(M_THREADS, 1)
-mxu_micro_kernel(const unsigned char* __restrict__ qkv, int split, int reps,
+mxu_micro_kernel(const __grid_constant__ CUtensorMap map, int split, int reps,
                  float* __restrict__ part) {
   using L = MicroLayout<V>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* zero = smem + T * L::LD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long win = blockIdx.x / split;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int win = blockIdx.x / split;
+  const unsigned char* ks = smem + L::K;
 
-  // ---- the window's q|k columns, once
-  constexpr int VPR = QK * L::ESZ / 16;  // 16-byte vectors per row
-  const unsigned char* src = qkv + win * T * 3 * MC * L::ESZ;
-  for (int v = threadIdx.x; v < T * VPR; v += M_THREADS) {
-    const int row = v / VPR, cv = v - row * VPR;
-    cp_async16(smem + row * L::LD + cv * 16, src + (long long)row * 3 * MC * L::ESZ + cv * 16);
+  // ---- the window's 12 head slabs, once; the zero regions
+  if (threadIdx.x == 0) {
+    if (smem_u32(smem) & 1023) __trap();  // the swizzled slabs need 1024-byte alignment
+    for (int h = 0; h < MH; ++h) mbar_init(&bar[h], 1);
+    mbar_fence_init();
+    for (int h = 0; h < MH; ++h) {
+      mbar_expect_tx(&bar[h], 2 * L::KSLAB);
+      tma_load(smem + L::Q + h * L::QSLAB, &map, &bar[h], h * D, win * T);
+      tma_load(smem + L::K + h * L::KSLAB, &map, &bar[h], MC + h * D, win * T);
+    }
   }
-  cp_async_commit();
-  for (int i = threadIdx.x; i < 8 * ZLD / 4; i += M_THREADS)
-    reinterpret_cast<uint32_t*>(zero)[i] = 0u;
-  cp_async_wait<0>();
+  auto zero = [&](unsigned char* p, int bytes) {
+    for (int i = threadIdx.x; i < bytes / 16; i += M_THREADS)
+      reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
+  };
+  for (int h = 0; h < MH; ++h) zero(smem + L::Q + h * L::QSLAB + T * L::ROW, (MPAD - T) * L::ROW);
+  if (V == 1) zero(smem + L::ZERO, L::KSLAB);
+  if (V == 2) zero(smem + L::OUT, T * T * 4);
+  fence_async_smem();
   __syncthreads();
 
-  // fragment loads: A rows m0.. (row-major), B key rows n0.. (k^T, col-major),
-  // column offset k0 in elements; see the PTX ISA fragment layouts of
-  // mma.m16n8k16 (bf16) and mma.m16n8k32 (s8)
-  auto a_frag = [&](uint32_t (&a)[4], int m0, int k0) {
-    const unsigned char* p = smem + (m0 + g) * L::LD + (k0 + (L::INT8 ? 4 : 2) * t) * L::ESZ;
-    a[0] = ld32(p);
-    a[1] = ld32(p + 8 * L::LD);
-    a[2] = ld32(p + 16);
-    a[3] = ld32(p + 8 * L::LD + 16);
-  };
-  auto a_zero = [&](uint32_t (&a)[4]) {
-    const unsigned char* p = zero + g * ZLD + 4 * t;
-    a[0] = ld32(p);
-    a[1] = ld32(p + 16);
-    a[2] = ld32(p + 32);
-    a[3] = ld32(p + 48);
-  };
-  auto b_frag = [&](uint32_t (&b)[2], int n0, int k0) {
-    const unsigned char* p = smem + (n0 + g) * L::LD + (k0 + (L::INT8 ? 4 : 2) * t) * L::ESZ;
-    b[0] = ld32(p);
-    b[1] = ld32(p + 16);
-  };
-  auto b_zero = [&](uint32_t (&b)[2]) {
-    const unsigned char* p = zero + g * ZLD + 4 * t;
-    b[0] = ld32(p);
-    b[1] = ld32(p + 16);
-  };
-
-  float acc[NT8][4];
+  float acc[NACC];
 #pragma unroll
-  for (int n = 0; n < NT8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const int m0 = warp * 16;
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  const int rw = 16 * (warp & 3) + (lane >> 2);  // the thread's first row of an m-tile (+ 8)
+  const int cq = 2 * (lane & 3);                  // its first column (+ 8 n, + 1)
+  const unsigned char* qa = smem + L::Q + wg * 64 * L::ROW;  // A: this warpgroup's rows
 
-  for (int rep = 0; rep < reps; ++rep) {
-    if constexpr (V == 0) {
-      for (int h = 0; h < MH; ++h) {
-        uint32_t a0[4], a1[4];
-        a_frag(a0, m0, h * D);
-        a_frag(a1, m0, h * D + 16);
+  if constexpr (V == 0) {
+    auto head = [&](int h) {
 #pragma unroll
-        for (int n = 0; n < NT8; ++n) {
-          uint32_t b[2];
-          b_frag(b, n * 8, MC + h * D);
-          mma_bf16(acc[n], a0, b[0], b[1]);
-          b_frag(b, n * 8, MC + h * D + 16);
-          mma_bf16(acc[n], a1, b[0], b[1]);
+      for (int kk = 0; kk < 2; ++kk)
+        wgmma_m64n144<0, 0>(acc, slab_desc<V>(qa + h * L::QSLAB + kk * 32),
+                            slab_desc<V>(ks + h * L::KSLAB + kk * 32));
+    };
+    wgmma_fence();
+    for (int h = 0; h < MH; ++h) {  // the first repeat: head h as soon as its slabs land
+      mbar_wait(&bar[h], 0);
+      head(h);
+    }
+    wgmma_commit();
+    for (int rep = 1; rep < reps; ++rep) {
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < MH; ++h) head(h);
+      wgmma_commit();
+      reg_fence(acc);
+      wgmma_wait<1>();
+    }
+  } else if constexpr (V == 1) {
+    for (int h = 0; h < MH; ++h) mbar_wait(&bar[h], 0);
+    const uint64_t dz = slab_desc<V>(smem + L::ZERO);
+    for (int rep = 0; rep < reps; ++rep) {
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 2; ++p)      // pack: heads 2p .. 2p + 3
+#pragma unroll
+        for (int i = 0; i < 4; ++i)    // K' column block i: head 2p + i in depth 32i..
+#pragma unroll
+          for (int s = 0; s < 8; ++s)  // k16 step s of Q' = head 2p + s / 2
+            wgmma_m64n144<0, 0>(
+                acc, slab_desc<V>(qa + (2 * p + s / 2) * L::QSLAB + (s % 2) * 32),
+                s / 2 == i ? slab_desc<V>(ks + (2 * p + i) * L::KSLAB + (s % 2) * 32) : dz);
+      wgmma_commit();
+      reg_fence(acc);
+      wgmma_wait<1>();
+    }
+  } else if constexpr (V == 2) {
+    for (int h = 0; h < MH; ++h) mbar_wait(&bar[h], 0);
+    float* o = reinterpret_cast<float*>(smem + L::OUT);
+    for (int round = 0; round < 3; ++round) {
+      const int j = 3 * round + wg;              // m-tile: Q' rows 64 j ..
+      const int r = 64 * j + 16 * (warp & 3);    // the warp's first Q' row
+      const int blk = r / T, r0 = r - blk * T;   // its head block, its first tile row
+      const int i0 = 64 * j / T;                 // the m-tile's first block
+      uint32_t a[2][4][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const unsigned char* s = smem + L::Q + (2 * p + blk) * L::QSLAB;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          // the SW64 slab: 16-byte chunk ch of row y at y * 64 + (ch ^ (y / 2 % 4)) * 16
+          const bool mine = (c >> 1) == blk - i0;
+          const int ya = r0 + (lane >> 2), yb = ya + 8, ch = 2 * (c & 1), t4 = 4 * (lane & 3);
+          a[p][c][0] = mine ? ld32(s + ya * 64 + ((ch ^ ((ya >> 1) & 3)) << 4) + t4) : 0u;
+          a[p][c][1] = mine ? ld32(s + yb * 64 + ((ch ^ ((yb >> 1) & 3)) << 4) + t4) : 0u;
+          a[p][c][2] = mine ? ld32(s + ya * 64 + (((ch + 1) ^ ((ya >> 1) & 3)) << 4) + t4) : 0u;
+          a[p][c][3] = mine ? ld32(s + yb * 64 + (((ch + 1) ^ ((yb >> 1) & 3)) << 4) + t4) : 0u;
         }
       }
-    } else if constexpr (V == 1) {
-      for (int base = 0; base <= 2; base += 2) {
-        uint32_t a[8][4];  // Q' = q lanes of heads base..base+3, 8 k-steps of 16
 #pragma unroll
-        for (int ks = 0; ks < 8; ++ks) a_frag(a[ks], m0, base * D + ks * 16);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)  // K' column block i: head base + i in rows 32i..
-#pragma unroll
-          for (int n = 0; n < NT8; ++n)
-#pragma unroll
-            for (int ks = 0; ks < 8; ++ks) {
-              uint32_t b[2];
-              if (ks / 2 == i)
-                b_frag(b, n * 8, MC + (base + i) * D + (ks % 2) * 16);
-              else
-                b_zero(b);
-              mma_bf16(acc[n], a[ks], b[0], b[1]);
-            }
+      for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+      switch (i0) {  // uniform in the warpgroup
+        case 0: qblockdiag_tile<0>(acc, a, ks, reps); break;
+        case 1: qblockdiag_tile<1>(acc, a, ks, reps); break;
+        case 2: qblockdiag_tile<2>(acc, a, ks, reps); break;
+        default: qblockdiag_tile<3>(acc, a, ks, reps); break;
       }
-    } else if constexpr (V == 2) {
-      for (int base = 0; base <= 2; base += 2) {
+      wgmma_wait<0>();
+      reg_fence(acc);
+      for (int g = 0; g < MWG; ++g) {  // the fixed order: warpgroup 0, 1, 2
+        __syncthreads();
+        if (wg != g) continue;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {  // Q' row block i: head base + i in columns 32i..
-          uint32_t a[8][4];
+        for (int n = 0; n < T / 8; ++n)
 #pragma unroll
-          for (int ks = 0; ks < 8; ++ks) {
-            if (ks / 2 == i)
-              a_frag(a[ks], m0, (base + i) * D + (ks % 2) * 16);
-            else
-              a_zero(a[ks]);
+          for (int hh = 0; hh < 2; ++hh) {
+            float2* d = reinterpret_cast<float2*>(o + (r0 + (lane >> 2) + 8 * hh) * T + 8 * n + cq);
+            const float2 v = *d;
+            *d = make_float2(v.x + acc[4 * n + 2 * hh], v.y + acc[4 * n + 2 * hh + 1]);
           }
-#pragma unroll
-          for (int n = 0; n < NT8; ++n)
-#pragma unroll
-            for (int ks = 0; ks < 8; ++ks) {
-              uint32_t b[2];
-              b_frag(b, n * 8, MC + base * D + ks * 16);
-              mma_bf16(acc[n], a[ks], b[0], b[1]);
-            }
-        }
       }
-    } else {
-      for (int h = 0; h < MH; ++h) {
-        uint32_t a[4];
-        a_frag(a, m0, h * D);
+    }
+    __syncthreads();
+    float4* out = reinterpret_cast<float4*>(part + (long long)blockIdx.x * T * T);
+    for (int i = threadIdx.x; i < T * T / 4; i += M_THREADS)
+      out[i] = reinterpret_cast<const float4*>(o)[i];
+    return;
+  } else {
+    int iacc[NACC];
 #pragma unroll
-        for (int n = 0; n < NT8; ++n) {
-          uint32_t b[2];
-          b_frag(b, n * 8, MC + h * D);
-          int d[4] = {0, 0, 0, 0};
-          mma_s8(d, a, b[0], b[1]);
+    for (int i = 0; i < NACC; ++i) iacc[i] = 0;
+    const bool live = 64 * wg + 16 * (warp & 3) < T;  // the warp holds rows of the tile
+    // all slabs first: waited for inside the loop, ptxas fences around each wait (16% slower)
+    for (int h = 0; h < MH; ++h) mbar_wait(&bar[h], 0);
+    for (int rep = 0; rep < reps; ++rep) {
+      reg_fence(iacc);
+      wgmma_fence();
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] += (float)d[e];
-        }
+      for (int h = 0; h < MH; ++h)
+        wgmma_m64n144_s8(iacc, slab_desc<V>(qa + h * L::QSLAB), slab_desc<V>(ks + h * L::KSLAB),
+                         h > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(iacc);
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc[i] += exact_f32(iacc[i]);
       }
     }
   }
 
-  // ---- this CTA's (144, 144) f32 partial
+  // ---- loop, blockdiag, loop_int8: this warpgroup's rows of the (144, 144) partial
+  wgmma_wait<0>();
+  reg_fence(acc);
   float* out = part + (long long)blockIdx.x * T * T;
 #pragma unroll
-  for (int n = 0; n < NT8; ++n) {
-    const int row = m0 + g, col = n * 8 + 2 * t;
-    out[row * T + col] = acc[n][0];
-    out[row * T + col + 1] = acc[n][1];
-    out[(row + 8) * T + col] = acc[n][2];
-    out[(row + 8) * T + col + 1] = acc[n][3];
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = 64 * wg + rw + 8 * hh;
+    if (row >= T) continue;
+#pragma unroll
+    for (int n = 0; n < T / 8; ++n)
+      *reinterpret_cast<float2*>(out + row * T + 8 * n + cq) =
+          make_float2(acc[4 * n + 2 * hh], acc[4 * n + 2 * hh + 1]);
   }
 }
 
@@ -218,11 +318,19 @@ template <int V>
 cudaError_t launch_micro(const void* qkv, int windows, int split, int reps, float* part,
                          float* out, cudaStream_t s) {
   using L = MicroLayout<V>;
+  CUtensorMap map;
+  // qkv as (windows x 144 rows, 576), read in (32 lanes, 144 rows) boxes: one head slab each
+  const bool ok = L::INT8 ? tensor_map_i8(&map, qkv, 3 * MC, (long long)windows * T, 3 * MC, D,
+                                          T, CU_TENSOR_MAP_SWIZZLE_32B)
+                          : tensor_map(&map, static_cast<const bf16*>(qkv), 3 * MC,
+                                       (long long)windows * T, 3 * MC, D, T,
+                                       CU_TENSOR_MAP_SWIZZLE_64B);
+  if (!ok) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(mxu_micro_kernel<V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
-  mxu_micro_kernel<V><<<(unsigned)(windows * split), M_THREADS, L::SMEM, s>>>(
-      static_cast<const unsigned char*>(qkv), split, reps, part);
+  mxu_micro_kernel<V><<<(unsigned)(windows * split), M_THREADS, L::SMEM, s>>>(map, split, reps,
+                                                                               part);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return reduce_partials(part, windows * split, (long long)T * T, nullptr, out, s);
 }
@@ -233,8 +341,9 @@ extern "C" {
 
 // Variant `variant` (0 loop, 1 blockdiag, 2 qblockdiag, 3 loop_int8) on `stream`:
 // out (144, 144) f32 = split x reps sweeps over the `windows` windows of qkv
-// (windows, 144, 576), bf16 (int8 for loop_int8). part holds windows x split x
-// 144 x 144 floats.
+// (windows, 144, 576), bf16 (int8 for loop_int8), 16-byte aligned. part holds
+// windows x split x 144 x 144 floats. A nonzero return is a cudaError_t: the
+// tensor map refused (cudaErrorInvalidValue) or the launch failed.
 int pangu_mxu_micro(const void* qkv, int variant, int windows, int split, int reps, void* part,
                     void* out, void* stream) {
   if (windows < 1 || split < 1 || reps < 1) return (int)cudaErrorInvalidValue;

@@ -24,16 +24,19 @@ kernel's ms (a call of ``SWEEPS`` sweeps over their count), microseconds per
 window, TFLOP/s (TOP/s for int8) of the issued products (the packed variants
 issue their zero blocks: 5.33x ``loop``), the plain version's ms at one
 sweep, the call's bound over its sweeps (from the products the result needs:
-one 32-deep product per summed head, 6 for ``loop``, 8 for the packs), and for
-``loop`` the time of one ``torch.einsum`` that computes one sweep's sum (a
-yardstick, never the path). The timed call itself (its split and repeat) is
-held against ``sweeps`` x the plain version too.
+one 32-deep product per summed head, 6 for ``loop``, 8 for the packs), and
+``library_ms``, the time of the one PyTorch call that computes one sweep's sum
+(:func:`library_call`: ``torch.einsum`` over the variant's heads, or
+``torch._int_mm`` for ``loop_int8``; a yardstick, never the path). The timed
+call itself (its split and repeat) is held against ``sweeps`` x the plain
+version too.
 One JSON line per variant, then ``{"mxu_micro": {...}, "device_kind": ...}``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import sys
 from typing import Dict, Sequence
 
@@ -128,6 +131,29 @@ def mxu_micro_reference(variant: str, qkv: torch.Tensor, sweeps: int = 1) -> tor
     return s.sum(dim=(0, 1)) * sweeps
 
 
+def library_call(variant: str, qkv: torch.Tensor) -> functools.partial:
+    """The one PyTorch call that computes one sweep of ``variant`` on qkv, with
+    its operands gathered here, outside the call that is timed (a yardstick;
+    the port never calls it on a path). bf16 variants: ``torch.einsum`` over
+    the variant's heads (the packs: 0, 1, 2, 3, 2, 3, 4, 5), (T, T) bf16.
+    ``loop_int8``: ``torch._int_mm`` of the q lanes (T, windows x C), row-major,
+    against the k lanes (windows x C, T), column-major (the transpose of a
+    contiguous (T, windows x C)): both with the contraction contiguous, the
+    layout cuBLAS's int8 product takes. (T, T) int32, exact: 127^2 x 32 x 6 x
+    64 windows < 2^31."""
+    _check(variant, qkv, 1)
+    n = qkv.shape[0]
+    q = qkv[..., :C].reshape(n, T, H, D)
+    k = qkv[..., C:2 * C].reshape(n, T, H, D)
+    if variant == "loop_int8":
+        lanes = [x.permute(1, 0, 2, 3).reshape(T, n * C).contiguous() for x in (q, k)]
+        return functools.partial(torch._int_mm, lanes[0], lanes[1].t())
+    if variant != "loop":
+        heads = list(HEADS[variant])
+        q, k = q[:, :, heads].contiguous(), k[:, :, heads].contiguous()
+    return functools.partial(torch.einsum, "rthd,rshd->ts", q, k)
+
+
 def _library() -> ctypes.CDLL:
     from pangu_tpu_torch.ops._build import load_library
 
@@ -194,12 +220,8 @@ def run(variants: Sequence[str] = VARIANTS, sweeps: int = SWEEPS, checked: bool 
         res.update(ms=ms, sweeps=sweeps, us_per_window=ms * 1e3 / REPS,
                    tflops=issued_ops(v, REPS, sweeps) / (call_ms * 1e-3) / 1e12,
                    plain_ms=cuda_times_ms(lambda: mxu_micro_reference(v, x), n=6),
-                   library_ms=None, bound_ms=call_bound["bound_ms"] / sweeps,
-                   bound_by=call_bound["bound_by"])
-        if v == "loop":
-            q = x[..., :C].reshape(REPS, T, H, D)
-            k = x[..., C:2 * C].reshape(REPS, T, H, D)
-            res["library_ms"] = cuda_times_ms(lambda: torch.einsum("rthd,rshd->ts", q, k), n=10)
+                   library_ms=cuda_times_ms(library_call(v, x), n=10),
+                   bound_ms=call_bound["bound_ms"] / sweeps, bound_by=call_bound["bound_by"])
         out[v] = res
     return out
 

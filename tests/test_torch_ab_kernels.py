@@ -417,3 +417,28 @@ def test_mxu_micro_rejects_bad_arguments():
                                  ("loop", q[:, :, :300], 1)):
         with pytest.raises(ValueError):
             tmicro.mxu_micro(variant, arg, sweeps)
+
+
+@pytest.mark.parametrize("variant", tmicro.VARIANTS)
+def test_mxu_micro_library_call_computes_one_sweep(variant):
+    """Each variant's yardstick (``library_call``: the operands it gathers and
+    the call's formula) gives the plain version's one sweep. The formula runs
+    here in f32 (``torch.einsum``) or int64 (``torch._int_mm``'s operands:
+    the int8 product need not run on the CPU), its sums exact or in another
+    order; ``_int_mm`` gets q row-major and k column-major, the contraction
+    contiguous in both."""
+    qkv, qkv8 = tmicro.make_inputs("cpu")
+    x = (qkv8 if variant == "loop_int8" else qkv)[:3]
+    call = tmicro.library_call(variant, x)
+    ref = tmicro.mxu_micro_reference(variant, x)
+    if variant == "loop_int8":
+        a, b = call.args
+        assert call.func is torch._int_mm
+        assert a.shape == (144, 3 * 192) and a.is_contiguous() and b.t().is_contiguous()
+        got = (a.long() @ b.long()).float()
+    else:
+        eq, q, k = call.args
+        assert call.func is torch.einsum and q.shape == k.shape == (
+            3, 144, len(tmicro.HEADS[variant]), 32)
+        got = torch.einsum(eq, q.float(), k.float())
+    assert _rel(got, ref) < tmicro.TOL[variant]

@@ -913,18 +913,24 @@ def test_cuda_inference_tail_kernels_match_plain_versions(cuda_device, c, heads)
 
 @pytest.mark.parametrize("variant", ["loop", "blockdiag", "qblockdiag", "loop_int8"])
 def test_cuda_mxu_micro_matches_plain_version(cuda_device, variant):
+    """At 3 (odd) and 4 windows and 1, 8 and 256 sweeps (split 1, then 4
+    CTAs a window with 2 and 64 repeats): the plain version's sum, and the
+    same bits on a second run (fixed-order partials, no atomics)."""
     from pangu_tpu_torch.scripts import bench_mxu_micro as m
 
     qkv, qkv8 = m.make_inputs(cuda_device)
-    x = (qkv8 if variant == "loop_int8" else qkv)[:4].contiguous()
-    for sweeps in (1, 8):
-        before = m.LAUNCHES[variant]
-        got = m.mxu_micro(variant, x, sweeps)
-        torch.cuda.synchronize()
-        assert m.LAUNCHES[variant] == before + 1
-        ref = m.mxu_micro_reference(variant, x, sweeps)
-        tol = m.TOL[variant] if sweeps == 1 else 1e-4  # int8: exact only below 2^24
-        assert ((got - ref).abs().max() / ref.abs().max()).item() < tol
+    for windows in (3, 4):
+        x = (qkv8 if variant == "loop_int8" else qkv)[:windows].contiguous()
+        for sweeps in (1, 8, m.SWEEPS):
+            before = m.LAUNCHES[variant]
+            got = m.mxu_micro(variant, x, sweeps)
+            again = m.mxu_micro(variant, x, sweeps)
+            torch.cuda.synchronize()
+            assert m.LAUNCHES[variant] == before + 2
+            assert torch.equal(got, again)
+            ref = m.mxu_micro_reference(variant, x, sweeps)
+            tol = m.TOL[variant] if sweeps == 1 else m.SWEEPS_TOL  # int8: exact below 2^24
+            assert ((got - ref).abs().max() / ref.abs().max()).item() < tol
 
 
 @pytest.mark.parametrize("variant", ["batched", "dbl", "quad"])
@@ -1001,7 +1007,8 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     assert all(k["route"] == "cuda" and k["ms"] > 0 and k["plain_ms"] > 0
                and 0 < k["bound_ms"] < k["ms"] and k["bound_by"] in ("bytes", "operations")
                and "library_ms" in k for k in kernels.values())
-    assert kernels["bench_mxu_micro:loop"]["library_ms"] > 0
+    assert all(kernels[f"bench_mxu_micro:{v}"]["library_ms"] > 0
+               for v in ("loop", "blockdiag", "qblockdiag", "loop_int8"))
     score = [ln for ln in lines if ln.startswith("forecast and score: ")]
     assert len(score) == 1
     assert set(json.loads(score[0].split(": ", 1)[1])["eval_per_sample_s"]) == {

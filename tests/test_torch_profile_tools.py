@@ -128,11 +128,35 @@ def test_profile_attn_ab_sums_the_kernels_of_a_call_beside_the_wrapper_ms():
     assert got["device_ms"] == pytest.approx(0.004) and got["wrapper_ms"] == 0.5
 
 
+def test_profile_attn_ab_times_each_mxu_variant_per_call_and_per_sweep():
+    """The S3 part times each variant's call of ``SWEEPS`` sweeps (here on
+    the CPU, where the wrapper runs the plain version, through a stand-in
+    timer that runs the call once) and divides by the sweeps."""
+    from pangu_tpu_torch.scripts import bench_mxu_micro as micro
+
+    shapes = []
+
+    def timer(fn):
+        shapes.append(tuple(fn().shape))
+        return {"kernels": [("k", 2.56)], "device_ms": 2.56, "wrapper_ms": 5.12}
+
+    before = dict(micro.LAUNCHES)
+    got = profile_attn_ab.mxu_part(torch.device("cpu"), timer=timer)
+    assert list(got) == list(micro.VARIANTS) and shapes == [(144, 144)] * 4
+    assert micro.LAUNCHES == before  # CPU tensors: the plain version, no launch
+    for r in got.values():
+        assert r["sweeps"] == micro.SWEEPS == 256
+        assert r["device_ms_per_sweep"] == pytest.approx(0.01)
+        assert r["wrapper_ms_per_sweep"] == pytest.approx(0.02)
+
+
 def test_profile_attn_ab_refuses_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         profile_attn_ab.main([])
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        profile_attn_ab.main([".", "--parts", "mxu"])
 
 
 def _write_trace(path, events):
