@@ -1,8 +1,9 @@
-"""Smoke run of the PyTorch port on one CUDA card: build, kernel checks, the
-24 h forecast step, the train step and its two A/B routes at full geometry,
-the two-kernel inference block, the three kernel A/B scripts, forecast and
-score, finetuning (full and LoRA), serving an exported forecast step, and
-the data pipeline over an npy store.
+"""Smoke run of the PyTorch port on the CUDA cards of one host: build, kernel
+checks, the 24 h forecast step, the train step and its three A/B routes at
+full geometry, the two-kernel inference block, the three kernel A/B scripts,
+forecast and score, finetuning (full and LoRA), serving an exported forecast
+step, the data pipeline over an npy store, and data-parallel finetuning with
+one process per card.
 
     python3 chip_smoke.py
 
@@ -61,8 +62,10 @@ Phases (any failure exits non-zero before the last line is printed):
    same bits on two runs and its peak memory; and K11 at unit scales against
    K1, the same bounds (they differ only in rounding a and x1 to bf16);
 11. the A/B routes of ``pangu_tpu_torch.scripts.bench_train_ab``:
-   ``fused_block`` (K11/K12, exactly 16 launches of each per step) and
-   ``unfused_tail`` (K2 16 / K3 16, K4 32 / K5 16, K8 16 / K9 16): one step
+   ``fused_block`` (K11/K12, exactly 16 launches of each per step),
+   ``unfused_tail`` (K2 16 / K3 16, K4 32 / K5 16, K8 16 / K9 16) and
+   ``bf16_grads`` (phase 8's route and launches, the gradients taken with
+   respect to a bf16 copy of the f32 parameters and cast up once): one step
    from phase 8's weights, batch and drop-path draws, finite loss and
    gradients and the bounds of phase 8 against the plain bf16 step; then 3
    timed steps through the script's helper, step time and peak memory, on one
@@ -162,7 +165,28 @@ Phases (any failure exits non-zero before the last line is printed):
    at 1 and 8 threads (median of 3). Then, on a line of its own, the write
    seconds and bytes, the read rates, evaluate's per-sample split and the
    finetune step's split over the npy store beside phases 16's and 17's
-   over the synthetic store, the stats seconds, and the card.
+   over the synthetic store, the stats seconds, and the card;
+20. multi-GPU finetune: one rank per card (``torch.cuda.device_count()``),
+   each a fresh process (this one has CUDA up, so never a fork) joined over
+   NCCL through a ``file://`` store in a temporary directory, on phase 17's
+   config, seeded weights and store at batch 1 per rank: under a
+   data-parallel mesh with ZeRO-2 (``pangu_tpu_torch.parallel``), 2 epochs
+   of one step through ``Trainer.fit`` with a train-state save after each
+   and a validation pass, then the resume from ``train_1``. Per rank and
+   step phase 8's launches; the same loss and parameter bits on every rank;
+   the resumed step the uninterrupted step's bits; in a world of one, the
+   one-process step's bits (the reduce-scatter and all-gather are copies
+   there and Adam is elementwise). A rank that fails or runs past the time
+   limit fails the phase with its stderr, the other ranks killed. Then, on a
+   line of its own, the world size, the NCCL version, a step split into
+   forward+backward, reduce-scatter, update and all-gather (each ended by a
+   synchronize; the mean of steps 2 and 3, the first step apart, and each
+   step's), on the card one more step of every rank under torch.profiler
+   (rank 0's busy time, idle share, NCCL kernels' time and launches, top
+   kernels), each
+   rank's peak memory, ``zero_bytes_per_device`` of the
+   parameters sharded and replicated at this world, 4 and 8, the save and
+   load times and the card.
 
 A ``detail:`` line holds the per-shape kernel results and the slices'
 numbers as JSON. The second-to-last line is a JSON object with one entry per
@@ -198,10 +222,11 @@ from datetime import datetime, timedelta
 import numpy as np
 import torch
 
-from pangu_tpu_torch import pangu_pretrain
+from pangu_tpu_torch import pangu_pretrain, pangu_tiny
 from pangu_tpu_torch.aux import load_aux_constants, synthetic_aux_constants
 from pangu_tpu_torch.cli import base_parser, build_config, load_model_and_params
-from pangu_tpu_torch.config import DataConfig, ERA5_SURFACE_VARIABLES, ERA5_UPPER_LEVELS
+from pangu_tpu_torch.config import (DataConfig, ERA5_SURFACE_VARIABLES, ERA5_UPPER_LEVELS,
+                                    ParallelConfig)
 from pangu_tpu_torch.data import make_loader, native_loader
 from pangu_tpu_torch.data.convert import convert_range
 from pangu_tpu_torch.data.dataset import (BATCH_READS, Era5Dataset, NpyStore, SyntheticStore,
@@ -235,7 +260,10 @@ from pangu_tpu_torch.train.lora import (LoraConfig, attach_lora, changed_param_r
                                         lora_target_paths, make_lora_eval_step,
                                         make_lora_train_step, merge_params, set_lora_form)
 from pangu_tpu_torch.train.step import loss_fn
-from pangu_tpu_torch.train.trainer import Trainer
+from pangu_tpu_torch.train.trainer import Trainer, epoch_generator
+from pangu_tpu_torch.parallel import activate_mesh, distributed_init, make_mesh
+from pangu_tpu_torch.parallel.mesh import Mesh
+from pangu_tpu_torch.parallel.sharding import ShardedOptimizer, zero_bytes_per_device
 from pangu_tpu_torch.utils import profiling
 from pangu_tpu_torch.utils.flops import train_matmul_flops
 
@@ -251,12 +279,14 @@ TRAIN_BIAS_LEAF_TOL, TRAIN_LEAF_TOL = 0.1, 0.02
 TRAIN_LAUNCHES = {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
                   "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
                   "fused_mlp_postnorm": 16, "fused_mlp_postnorm_bwd": 16}
-#: per flagship train step on the A/B routes (the K11 route is not checkpointed)
+#: per flagship train step on the A/B routes (the K11 route is not checkpointed;
+#: bf16_grads runs the default route with grads_dtype="bfloat16")
 AB_LAUNCHES = {
     "fused_block": {"fused_earth_block_train": 16, "fused_earth_block_train_bwd": 16},
     "unfused_tail": {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
                      "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
                      "fused_mlp": 16, "fused_mlp_bwd": 16},
+    "bf16_grads": TRAIN_LAUNCHES,
 }
 #: launches of each block shape per step: (stage, shifted) -> blocks
 PER_STEP = {("outer", False): 2, ("outer", True): 2, ("inner", False): 6, ("inner", True): 6}
@@ -332,6 +362,16 @@ print(json.dumps(dict(
                                             *program.constants.values())}),
     finite=bool(torch.isfinite(u).all() and torch.isfinite(s).all()),
     model_modules=sorted(m for m in sys.modules if m.startswith("pangu_tpu_torch.model")))))
+"""
+
+#: phase 20: the seconds the ranks may take together, and a rank of the multi-GPU
+#: finetune: a fresh process (never a fork of this CUDA process) that imports this
+#: file; argv: the rank's spec as JSON. Prints one JSON line last.
+MULTI_GPU_TIMEOUT_S = 600
+RANK = r"""
+import json, sys
+import chip_smoke
+print(json.dumps(chip_smoke.multi_gpu_rank(json.loads(sys.argv[1]))), flush=True)
 """
 
 #: (replaced TPU kernel, CUDA source) of every kernel, in table order
@@ -1026,9 +1066,11 @@ def check_ab(cfg, aux, ref, dev) -> dict:
     for name, per_step in AB_LAUNCHES.items():
         want = {k: per_step.get(k, 0) for k in launch_counts()}
         with bench_train_ab.variant_flags(name):
-            model = PanguModel(cfg.model).to(dev)
+            vcfg = cfg.replace(model=dataclasses.replace(
+                cfg.model, grads_dtype=bench_train_ab.variant_config(name).model.grads_dtype))
+            model = PanguModel(vcfg.model).to(dev)
             model.load_state_dict(ref["w0"])
-            step = make_train_step(model, cfg, make_optimizer(model, cfg))
+            step = make_train_step(model, vcfg, make_optimizer(model, vcfg))
             torch.cuda.reset_peak_memory_stats(dev)
             loss0, t_first, counts = timed_train_step(
                 step, ref["batch"], aux, torch.Generator(device=dev).manual_seed(3))
@@ -1436,11 +1478,13 @@ def per_step(spans: dict, steps: int) -> dict:
     return {**loop, "total": sum(loop.values())}
 
 
-def finetune_config(data: dict):
+def finetune_config(data: dict, tiny: bool = False):
     """Phase 17's run: flagship bf16 on the kernel route, batch 1, 2 epochs,
     a train-state checkpoint each epoch, validation at the last; ``data``
-    the DataConfig's fields."""
-    cfg = pangu_pretrain(24, compute_dtype="bfloat16", use_pallas_attention=True)
+    the DataConfig's fields; ``tiny``: the tiny preset instead (the CPU
+    tests' geometry)."""
+    kw = dict(compute_dtype="bfloat16", use_pallas_attention=True)
+    cfg = pangu_tiny(**kw) if tiny else pangu_pretrain(24, **kw)
     return cfg.replace(data=DataConfig(**data), train=dataclasses.replace(
         cfg.train, epochs=FINETUNE_EPOCHS, batch_size=1, save_interval=1,
         val_interval=FINETUNE_EPOCHS))
@@ -1853,6 +1897,224 @@ def check_data(dev, score: dict, finetune: dict) -> dict:
     return res
 
 
+def param_digest(model) -> list:
+    """A digest of every parameter's bits, in name order, computed where the
+    parameters lie: each tensor's 32-bit words times odd per-position
+    multipliers, summed modulo 2**64 (one flipped bit changes it)."""
+    out = []
+    for _, p in model.named_parameters():
+        words = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        mult = torch.arange(words.numel(), device=words.device, dtype=torch.int64)
+        out.append(int((words * (mult * _DIGEST_MULT + 1)).sum()))
+    return out
+
+
+#: the odd constant of ``param_digest``'s multipliers (2**64 / golden ratio, as int64)
+_DIGEST_MULT = 0x9E3779B97F4A7C15 - 2**64
+
+
+def multi_gpu_data(world: int) -> dict:
+    """Phase 17's store and val range, with ``world`` train samples: one DP
+    step an epoch at batch 1 per rank."""
+    start = datetime.strptime(FINETUNE_DATA["train_start"], "%Y%m%d")
+    return dict(FINETUNE_DATA, train_end=(start + timedelta(days=world + 1)).strftime("%Y%m%d"))
+
+
+def multi_gpu_rank(spec: dict) -> dict:
+    """One rank of phase 20 (its own process): join the group (NCCL on the
+    card, gloo on the CPU), then phase 17's config, seeded weights and store
+    at batch 1 per rank through ``Trainer.fit`` under a data-parallel mesh
+    with ZeRO-2: 2 epochs of one step, a train-state save after each, one
+    validation pass; then the resume from ``train_1`` (epoch 2 again). Each
+    step's loss, launches and parameter digest are recorded. In a world of
+    one, the one-process step (no mesh) on the same weights, batch and
+    generator follows. Returns the records, this rank's step split, peak
+    memory and, on rank 0, the ZeRO bytes and checkpoint times."""
+    world, rank = spec["world"], spec["rank"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = distributed_init(spec["init"], world, rank, rank, spec["device"])
+    cuda = dev.type == "cuda"
+    try:
+        mesh = make_mesh(ParallelConfig(data=world))
+        cfg = finetune_config(multi_gpu_data(world), spec["tiny"])
+        m = cfg.model
+        aux = synthetic_aux_constants(m, cfg.train, seed=0, device=dev)
+        with dev:
+            model = PanguModel(m).to(dev)
+        init_params(model, seed=0)
+        w0 = {k: v.clone() for k, v in model.state_dict().items()} if world == 1 else None
+        train = make_loader(cfg.data, m, "train", cfg.horizon, 1, num_shards=world, shard=rank)
+        val = make_loader(cfg.data, m, "val", cfg.horizon, 1, num_shards=world, shard=rank)
+        steps, split, runs, batches = len(train), {}, [], []
+
+        def counted(opt):
+            step = make_train_step(model, cfg, opt, steps, spans=split)
+
+            def run(batch, aux_, gen):
+                batches.append(batch)  # steps 1 and 2 again below, without loading them
+                reset_counts()
+                before = dict(split)
+                loss = step(batch, aux_, gen)
+                runs.append(dict(loss=loss.item(), params=param_digest(model),
+                                 launches={k: v for k, v in launch_counts().items() if v},
+                                 split={k: v - before.get(k, 0.0) for k, v in split.items()}))
+                return loss
+            return run
+
+        out = os.path.join(spec["dir"], "finetune")
+        res = dict(rank=rank, world=world)
+        with activate_mesh(mesh):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            trainer = Trainer(cfg, model, aux, out, steps_per_epoch=steps, train_step_fn=counted)
+            if not isinstance(trainer.optimizer, ShardedOptimizer):
+                raise AssertionError("the Trainer's optimizer is not sharded (ZeRO)")
+            spans = {}
+            _, state = trainer.fit(train, val, spans=spans)
+            res.update(updates=state.step, save_s=spans["save"] / FINETUNE_EPOCHS,
+                       checkpoints=sorted(os.listdir(os.path.join(out, "models"))),
+                       state_bytes=os.path.getsize(os.path.join(out, "models", "train_1",
+                                                                ckpt.STATE_FILE)))
+            del trainer, state
+            # the resume from train_1: epoch 2 again, saving no train state
+            no_saves = cfg.replace(train=dataclasses.replace(
+                cfg.train, save_interval=FINETUNE_EPOCHS + 1))
+            trainer = Trainer(no_saves, model, aux, out, steps_per_epoch=steps,
+                              train_step_fn=counted)
+            t0 = time.perf_counter()
+            state, start = trainer.resume(epoch=1)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            res["load_s"] = time.perf_counter() - t0
+            trainer.fit(train, val, start_epoch=start, state=state)
+            res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            if cuda:  # one more step under torch.profiler, on every rank (it is collective)
+                step = make_train_step(model, cfg, state.opt_state, steps)
+                summary, by_name = profile_train_step._profile(
+                    lambda: step(batches[1], aux, epoch_generator(cfg.train.seed, 2, dev)), dev, 8)
+                summary["nccl_ms"] = sum(ms for k, (ms, _) in by_name.items()
+                                         if "nccl" in k.lower())
+                summary["nccl_launches"] = sum(n for k, (_, n) in by_name.items()
+                                               if "nccl" in k.lower())
+                res["profile"] = summary
+            del trainer, state
+        res.update(runs=runs, nccl=".".join(map(str, torch.cuda.nccl.version())) if cuda else None)
+        if rank == 0:
+            named = dict(model.named_parameters())
+            res["zero_bytes"] = {n: dict(sharded=zero_bytes_per_device(named, Mesh(None, n, 0)),
+                                         replicated=zero_bytes_per_device(
+                                             named, Mesh(None, n, 0), enable=False))
+                                 for n in sorted({world, 4, 8})}
+        if world == 1:  # the one-process step on the same weights, batch and generator
+            model.load_state_dict(w0)
+            step = make_train_step(model, cfg, make_optimizer(model, cfg), steps)
+            loss = step(batches[0], aux, epoch_generator(cfg.train.seed, 1, dev))
+            res["one_process"] = dict(loss=loss.item(), params=param_digest(model))
+        return res
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def hold_rank_launches(label: str, got: dict, want: dict) -> None:
+    """A rank's launches in one DP step against phase 8's."""
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def check_multi_gpu(dev, world: int = 0, tiny: bool = False) -> dict:
+    """Phase 20: the multi-GPU finetune, ``world`` ranks (default: one per
+    card) spawned as fresh processes, joined through a ``file://`` store in a
+    temporary directory (``multi_gpu_rank``). The parent waits with a
+    timeout and kills the others when one fails or the time runs out; the
+    phase then fails with that rank's stderr. It requires phase 8's
+    launches per rank and step, the same loss and parameter bits on every
+    rank, the resumed step's bits equal to the uninterrupted step's, and in
+    a world of one the one-process step's bits; then prints the
+    ``multi-gpu:`` line."""
+    world = world or torch.cuda.device_count()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dict(world=world, init="file://" + os.path.join(tmp, "store"), dir=tmp,
+                    device=dev.type, tiny=tiny)
+        procs, files = [], []
+        try:
+            for r in range(world):
+                files.append((open(os.path.join(tmp, f"rank{r}.out"), "w"),
+                              open(os.path.join(tmp, f"rank{r}.err"), "w")))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", RANK, json.dumps({**spec, "rank": r})],
+                    stdout=files[r][0], stderr=files[r][1], cwd=repo, env=env))
+            deadline = time.monotonic() + MULTI_GPU_TIMEOUT_S
+            while True:
+                codes = [p.poll() for p in procs]
+                bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                late = time.monotonic() > deadline
+                if bad or late:
+                    r = bad[0] if bad else codes.index(None)
+                    with open(os.path.join(tmp, f"rank{r}.err")) as f:
+                        err = f.read()[-4000:]
+                    raise AssertionError(
+                        f"phase 20: rank {r} " + (f"exited {codes[r]}" if bad else
+                                                  f"ran past {MULTI_GPU_TIMEOUT_S} s") +
+                        f"; its stderr:\n{err}")
+                if all(c == 0 for c in codes):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for out, err in files:
+                out.close()
+                err.close()
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.out")) as f:
+                ranks.append(json.loads([ln for ln in f if ln.startswith("{")][-1]))
+    first = ranks[0]
+    want = dict(TRAIN_LAUNCHES)
+    for res in ranks:
+        if len(res["runs"]) != 3 or res["updates"] != 2:
+            raise AssertionError(f"rank {res['rank']}: {len(res['runs'])} steps, "
+                                 f"{res['updates']} updates in the fit")
+        for i, run in enumerate(res["runs"]):
+            hold_rank_launches(f"multi-gpu rank {res['rank']} step {i + 1}", run["launches"], want)
+        for i, (run, run0) in enumerate(zip(res["runs"], first["runs"])):
+            if (run["loss"], run["params"]) != (run0["loss"], run0["params"]):
+                raise AssertionError(f"step {i + 1}: rank {res['rank']} differs from rank 0")
+    resumed, uninterrupted = first["runs"][2], first["runs"][1]
+    if (resumed["loss"], resumed["params"]) != (uninterrupted["loss"], uninterrupted["params"]):
+        raise AssertionError("the resumed step differs from the uninterrupted step")
+    if first["checkpoints"] != ["best", "train_1", "train_2"]:
+        raise AssertionError(f"checkpoints {first['checkpoints']}")
+    if world == 1:
+        one = first["one_process"]
+        if (one["loss"], one["params"]) != (first["runs"][0]["loss"], first["runs"][0]["params"]):
+            raise AssertionError(f"world 1: the mesh step (loss {first['runs'][0]['loss']!r}) "
+                                 f"differs from the one-process step (loss {one['loss']!r})")
+    # the first step pays the first collective's communicator set-up: steps 2 and 3 apart
+    later = [r["split"] for r in first["runs"][1:]]
+    split = {k: statistics.mean(s[k] for s in later) for k in later[0]}
+    split["total"] = sum(split.values())
+    line = dict(world=world, nccl=first["nccl"], step_split_s=split,
+                step_splits_s=[r["split"] for r in first["runs"]], profile=first.get("profile"),
+                losses=[r["loss"] for r in first["runs"]],
+                peak_bytes=[r["peak_bytes"] for r in ranks], zero_bytes=first["zero_bytes"],
+                save_s=first["save_s"], load_s=first["load_s"],
+                state_bytes=first["state_bytes"], card=card_line())
+    log(f"multi-gpu: world {world}: every rank the same loss and parameter bits in each of "
+        "3 steps, the resume the uninterrupted step's bits" +
+        (", the one-process step's bits" if world == 1 else ""))
+    log("multi-gpu: " + json.dumps(line))
+    return line
+
+
 def main() -> int:
     card()
     dev = torch.device("cuda:0")
@@ -1899,12 +2161,15 @@ def main() -> int:
     data = check_data(dev, score, finetune)
     log(f"phase 19 (data): {time.perf_counter() - t0:.3f} s")
     del score["tables"]
+    t0 = time.perf_counter()
+    multi = check_multi_gpu(dev)
+    log(f"phase 20 (multi-GPU finetune): {time.perf_counter() - t0:.3f} s")
 
     log("detail: " + json.dumps({"slice": sl, **shapes, "products": products, "train": tr,
                                  "ab": ab, "two_kernel_path": tail_path, "mxu_micro": micro,
                                  "attn_fwd_ab": fwd_ab, "attn_bwd_ab": bwd_ab,
                                  "forecast_and_score": score, "finetune": finetune,
-                                 "serving": serve, "data": data}))
+                                 "serving": serve, "data": data, "multi_gpu": multi}))
     # launches over the run of each kernel's path
     launches = {"fused_earth_block": sl["launches"], **tr["launches"],
                 **{k: ab["unfused_tail"]["launches"][k] for k in ("fused_mlp", "fused_mlp_bwd")},

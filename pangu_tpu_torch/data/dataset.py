@@ -417,14 +417,13 @@ class BatchLoader:
             rng = np.random.default_rng(self.seed + self.epoch)
             rng.shuffle(idx)
         if self.num_shards > 1:
-            # pad to a multiple of num_shards by wrapping (torch
-            # DistributedSampler semantics) so every process sees the same
-            # number of batches — unequal counts deadlock collectives at
-            # epoch end
+            # pad to a multiple of num_shards by wrapping, as often as it
+            # takes (torch DistributedSampler semantics), so every process
+            # sees the same number of batches — unequal counts deadlock
+            # collectives at epoch end. (The JAX loader wraps once: with
+            # more shards than twice the samples, shards come up short.)
             per = -(-len(idx) // self.num_shards)
-            pad = per * self.num_shards - len(idx)
-            if pad:
-                idx = np.concatenate([idx, idx[:pad]])
+            idx = np.resize(idx, per * self.num_shards)
         return idx[self.shard :: self.num_shards]
 
     def __len__(self) -> int:

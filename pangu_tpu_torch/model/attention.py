@@ -44,6 +44,7 @@ from torch import nn
 from pangu_tpu_torch.geometry import StageGeometry
 from pangu_tpu_torch.ops.fused_block_attention import dense, dot_f32, fused_block_attention
 from pangu_tpu_torch.ops.windows import window_partition, window_reverse
+from pangu_tpu_torch.parallel.mesh import active_mesh
 
 
 @dataclasses.dataclass
@@ -123,14 +124,24 @@ def train_seeds(module: nn.Module, generator: Optional[torch.Generator], sites: 
                 rate: float, *linears: nn.Linear) -> Optional[Dict[str, int]]:
     """One seed per site of ``sites``, drawn from ``generator``, for a call
     of ``module`` that draws masks (in training, ``draws(rate, *linears)``);
-    else None."""
+    else None. Under an active mesh the rank is folded into each seed (rank
+    0 keeps the drawn one): the generator is the same on every rank, so
+    unfolded seeds would drop the same elements of different samples. The
+    masks under data parallelism are per-rank draws (they differ from
+    flax's draws anyway)."""
     if not (module.training and draws(rate, *linears)):
         return None
     if generator is None:
         raise ValueError("dropout in training needs an explicit torch.Generator")
     # one draw for all sites; on a card's generator, one read back to the host
     seeds = torch.randint(2**62, (len(sites),), generator=generator, device=generator.device)
-    return dict(zip(sites, seeds.tolist()))
+    mesh = active_mesh()
+    rank = mesh.rank if mesh is not None else 0
+    return {site: (s + rank * _RANK_STRIDE) % 2**62 for site, s in zip(sites, seeds.tolist())}
+
+
+#: the odd constant that folds a rank into a dropout seed (2**64 / golden ratio)
+_RANK_STRIDE = 0x9E3779B97F4A7C15
 
 
 #: the random sites of one attention sublayer: its two dropouts and two adapters

@@ -59,6 +59,7 @@ from pangu_tpu_torch.model.attention import (ATTENTION_SITES, EarthAttention3D, 
 from pangu_tpu_torch.ops import fused_block_train, fused_mlp
 from pangu_tpu_torch.ops.fused_block_attention import dense, fused_earth_block, layer_norm_f32
 from pangu_tpu_torch.ops.fused_epilogue import fused_residual_postnorm
+from pangu_tpu_torch.parallel.mesh import active_mesh
 
 
 def apply_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -252,14 +253,16 @@ class EarthSpecificBlock(nn.Module):
         def residual(shortcut, y):
             y = self._roll_back(y)
             if residual_kernel:
-                return (fused_residual_postnorm(shortcut, y, norm1.weight, norm1.bias, s1),)
+                return (fused_residual_postnorm(shortcut, y, norm1.weight.float(),
+                                                norm1.bias.float(), s1),)
             return (postnorm_residual(shortcut, y, norm1, s1),)
 
         stages = [(attention, "attention", attn_kernel), (residual, None, residual_kernel)]
         if mlp_kernel and fused_mlp._POSTNORM_FUSION:
             def tail(x):
                 return (fused_mlp.fused_mlp_postnorm(x, *mlp.weights(torch.bfloat16),
-                                                     norm2.weight, norm2.bias, s2),)
+                                                     norm2.weight.float(), norm2.bias.float(),
+                                                     s2),)
 
             return stages + [(tail, "mlp", True)]
 
@@ -315,13 +318,20 @@ def run_stages(stages, x: torch.Tensor, kept: Optional[frozenset]) -> torch.Tens
 def drop_path_scale(batch: int, rate: float, generator: Optional[torch.Generator],
                     device) -> torch.Tensor:
     """Per-sample stochastic-depth branch scale (B, 1, 1, 1, 1) f32: 1/keep
-    with probability keep = 1 - rate, else 0 (ones at rate 0)."""
+    with probability keep = 1 - rate, else 0 (ones at rate 0). Under an
+    active mesh the generator (the same on every rank) draws the global
+    batch's B * data uniforms and the rank keeps its rows, so a world of N
+    ranks draws what one process draws for the whole batch, as the JAX
+    package's global key does."""
     if rate <= 0.0:
         return torch.ones((batch, 1, 1, 1, 1), device=device)
     if generator is None:
         raise ValueError("drop path in training needs an explicit torch.Generator")
     keep = 1.0 - rate
-    u = torch.rand((batch,), generator=generator, device=generator.device).to(device)
+    mesh = active_mesh()
+    world, rank = (mesh.data, mesh.rank) if mesh is not None else (1, 0)
+    u = torch.rand((batch * world,), generator=generator, device=generator.device)
+    u = u[rank * batch:(rank + 1) * batch].to(device)
     return torch.where(u < keep, 1.0 / keep, 0.0).reshape(batch, 1, 1, 1, 1).float()
 
 

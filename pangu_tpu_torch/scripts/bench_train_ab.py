@@ -15,13 +15,15 @@ Variants (default: base fused_block unfused_tail):
   the raw MLP K8 (backward K9) followed by the plain post-norm residual;
 * ``save_attn``, ``save_attn_mlp``: the remat policy's flags set as the JAX
   script sets them, ``remat_save_attention`` (and ``remat_save_mlp``) True;
-  the config's defaults already keep both outputs, as ``base`` does.
+  the config's defaults already keep both outputs, as ``base`` does;
+* ``bf16_grads``: ``grads_dtype="bfloat16"``, the gradients taken with
+  respect to a bf16 copy of the f32 parameters and cast up once (the f32
+  masters and moments unchanged), on ``base``'s route.
 
 The JAX script's ``xla_mlp``, ``xla_epilogue`` and ``xla_tails`` time the XLA
 formula in place of a kernel; on the card the port runs its kernels or
-raises, and a plain version is no yardstick, so they are refused.
-``bf16_grads`` waits for the feature it switches (ROADMAP.md, queue 1 item
-11). Both kinds raise ValueError before anything runs.
+raises, and a plain version is no yardstick, so they are refused: they raise
+ValueError before anything runs.
 
 Each variant runs in turn with every patched flag saved and restored in a
 ``finally``; the step time is the median of the timed steps after the
@@ -48,7 +50,7 @@ from pangu_tpu_torch.ops import fused_block_attention, fused_block_train, fused_
 from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
 
 VARIANTS = ("base", "noremat", "fused_block", "unfused_block", "unfused_tail", "save_attn",
-            "save_attn_mlp")
+            "save_attn_mlp", "bf16_grads")
 #: variants of the JAX script that the port does not run, with the reason
 REFUSED = {
     "xla_mlp": "times the XLA formula of the MLP; on the card the port runs its kernels or "
@@ -57,7 +59,6 @@ REFUSED = {
                     "its kernels or raises, and the plain version is no yardstick",
     "xla_tails": "times the XLA formulas of both epilogues; on the card the port runs its "
                  "kernels or raises, and the plain version is no yardstick",
-    "bf16_grads": "grads_dtype='bfloat16' is not ported yet (ROADMAP.md queue 1 item 11)",
 }
 DEFAULT = ("base", "fused_block", "unfused_tail")
 
@@ -97,6 +98,8 @@ def variant_config(name: str) -> PanguConfig:
         kw["remat_save_attention"] = True
     if name == "save_attn_mlp":
         kw["remat_save_mlp"] = True
+    if name == "bf16_grads":
+        kw["grads_dtype"] = "bfloat16"
     return pangu_pretrain(24, compute_dtype="bfloat16", matmul_precision="default",
                           use_pallas_attention=True, remat=name != "noremat", **kw)
 

@@ -14,6 +14,12 @@ merged weights; ``--unmerged`` takes peft's adapter-dropout form, whose
 adapted sites run the plain path. The best tree is written to
 ``<out>/lora/<horizon>/lora_best.npz`` in the JAX package's layout. Runs on
 the card; ``main(argv, device="cpu")`` runs on the CPU.
+
+Data parallel as the finetune script (``torchrun --nproc-per-node N -m
+pangu_tpu_torch.scripts.lora_tune ...``): replicated adapters whose
+gradients are averaged over the ranks, each rank on its shard of every
+global batch (the JAX script's "replicated adapters + data-sharded global
+batches"); rank 0 writes the files and scores the test range.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ from pangu_tpu_torch.cli import base_parser, build_config, load_model_and_params
 from pangu_tpu_torch.data import make_loader
 from pangu_tpu_torch.eval import evaluate
 from pangu_tpu_torch.interop.from_jax import load_lora_npz, save_lora_npz
-from pangu_tpu_torch.scripts.finetune import check_one_device, open_writer
+from pangu_tpu_torch.parallel import activate_mesh, distributed_init, is_main, resolve_mesh
+from pangu_tpu_torch.parallel.sharding import shard_params
+from pangu_tpu_torch.scripts.finetune import open_writer, rank_logger, shard_of_world
 from pangu_tpu_torch.train.lora import (
     LoraConfig,
     changed_param_report,
@@ -43,12 +51,12 @@ from pangu_tpu_torch.train.lora import (
 )
 from pangu_tpu_torch.train.step import TrainState, make_optimizer
 from pangu_tpu_torch.train.trainer import Trainer
-from pangu_tpu_torch.utils.logger import get_logger
 from pangu_tpu_torch.utils.summary import param_count
 
 
-def main(argv: Optional[Sequence[str]] = None, device="cuda") -> float:
-    """Returns the mean test loss of the merged best tree."""
+def main(argv: Optional[Sequence[str]] = None, device="cuda") -> Optional[float]:
+    """Returns the mean test loss of the merged best tree on rank 0, None on
+    the other ranks."""
     p = base_parser("LoRA-finetune the Pangu-Weather model")
     p.add_argument("--rank", type=int, default=16)
     p.add_argument("--alpha", type=float, default=16.0)
@@ -64,13 +72,14 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> float:
                         "instead of the merged weights (identical when --dropout 0; "
                         "train.lora docstring)")
     args = p.parse_args(argv)
-    device = require_device(device)
+    device = distributed_init(device=require_device(device))
 
     cfg = build_config(args)
-    check_one_device(cfg)
+    mesh = resolve_mesh(cfg.parallel, device)
+    world, rank = shard_of_world(mesh)
     out_dir = os.path.join(cfg.out_dir, "lora", str(cfg.horizon))
     os.makedirs(out_dir, exist_ok=True)
-    logger = get_logger("lora", os.path.join(out_dir, "lora.log"))
+    logger = rank_logger("lora", os.path.join(out_dir, "lora.log"))
 
     aux = load_aux_constants(cfg.model, cfg.train, args.aux_dir, cfg.horizon, device=device)
     model = load_model_and_params(cfg, args, aux, device=device)
@@ -93,28 +102,38 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> float:
 
     if not args.only_test:
         train_loader = make_loader(cfg.data, cfg.model, "train", cfg.horizon,
-                                   cfg.train.batch_size)
-        val_loader = make_loader(cfg.data, cfg.model, "val", cfg.horizon, 1)
+                                   max(1, cfg.train.batch_size // world),
+                                   num_shards=world, shard=rank)
+        val_loader = make_loader(cfg.data, cfg.model, "val", cfg.horizon, 1,
+                                 num_shards=world, shard=rank)
         steps = len(train_loader)
-        trainer = Trainer(
-            cfg, model, aux, out_dir, writer=open_writer(out_dir), logger=logger,
-            steps_per_epoch=steps,
-            optimizer=make_optimizer(flatten_trainable(trainable).values(), cfg),
-            train_step_fn=lambda opt: make_lora_train_step(
-                model, cfg, opt, base_params, lcfg, trainable, unmerged=args.unmerged,
-                steps_per_epoch=steps),
-            eval_step_fn=make_lora_eval_step(model, cfg, base_params, lcfg, trainable),
-        )
-        state = TrainState(flatten_trainable(trainable), trainer.optimizer)
-        start_epoch = 1
-        if args.resume:
-            state, start_epoch = trainer.resume(template=state)
-            logger.info("resumed at epoch %d", start_epoch)
+        with activate_mesh(mesh):
+            # a plain optimizer: the adapters and their moments stay replicated
+            trainer = Trainer(
+                cfg, model, aux, out_dir, writer=open_writer(out_dir) if is_main() else None,
+                logger=logger, steps_per_epoch=steps,
+                optimizer=make_optimizer(flatten_trainable(trainable).values(), cfg),
+                train_step_fn=lambda opt: make_lora_train_step(
+                    model, cfg, opt, base_params, lcfg, trainable, unmerged=args.unmerged,
+                    steps_per_epoch=steps),
+                eval_step_fn=make_lora_eval_step(model, cfg, base_params, lcfg, trainable),
+            )
+            state = TrainState(flatten_trainable(trainable), trainer.optimizer)
+            start_epoch = 1
+            if args.resume:
+                state, start_epoch = trainer.resume(template=state)
+                logger.info("resumed at epoch %d", start_epoch)
+            if mesh is not None:
+                shard_params(state.params, mesh)
 
-        best, state = trainer.fit(train_loader, val_loader, start_epoch=start_epoch,
-                                  state=state)
+            best, state = trainer.fit(train_loader, val_loader, start_epoch=start_epoch,
+                                      state=state)
         trainable = unflatten_trainable(best)
-        save_lora_npz(os.path.join(out_dir, "lora_best.npz"), cfg.model, trainable)
+        if is_main():
+            save_lora_npz(os.path.join(out_dir, "lora_best.npz"), cfg.model, trainable)
+
+    if not is_main():
+        return None
 
     merged = merge_params(base_params, trainable, lcfg)
     changed = changed_param_report(base_params, merged)

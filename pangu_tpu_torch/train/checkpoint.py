@@ -9,6 +9,13 @@ tensors by name, "optimizer": the optimizer's state_dict, "step", "epoch"}``;
 ``lr_scheduler`` entry: the LR schedule is a function of Adam's update
 count, which the optimizer state carries. Files are written uncompressed
 (plain ``torch.save``) and read with ``weights_only=True``.
+
+Under an active mesh every rank calls a save: a sharded optimizer gathers
+its moments into the one-device layout (a collective), rank 0 writes the
+file, and all ranks meet at a barrier after it. Every rank reads a load,
+and a sharded optimizer keeps its shards of the moments; so a checkpoint
+written at one world size resumes at any other, one process included, and
+the file is the same as one process writes.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
+from pangu_tpu_torch.parallel.mesh import barrier, is_main
 from pangu_tpu_torch.train.step import TrainState
 
 STATE_FILE, PARAMS_FILE = "state.pt", "params.pt"
@@ -32,10 +40,13 @@ def _detached(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def _save(obj, path: str, name: str) -> str:
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, name + ".tmp")
-    torch.save(obj, tmp)
-    os.replace(tmp, os.path.join(path, name))  # a cut save never leaves a torn file
+    """Rank 0 writes; every rank of an active mesh waits for it."""
+    if is_main():
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, name + ".tmp")
+        torch.save(obj, tmp)
+        os.replace(tmp, os.path.join(path, name))  # a cut save never leaves a torn file
+    barrier()
     return path
 
 

@@ -32,6 +32,7 @@ tensors in place of the model's, every other parameter frozen. Two forms:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -194,7 +195,9 @@ def make_lora_train_step(
     ``unmerged`` switches to peft's per-element adapter-dropout form (module
     docstring); each call sets its form, so an eval step may share the model."""
     attach_lora(model, trainable, lora_cfg, unmerged, base_params)
-    inner = make_train_step(model, cfg, optimizer, steps_per_epoch)
+    # the JAX LoRA step differentiates the f32 tree whatever cfg.model.grads_dtype says
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, grads_dtype="float32"))
+    inner = make_train_step(model, f32, optimizer, steps_per_epoch)
 
     def step(batch, aux, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         set_lora_form(model, trainable, lora_cfg, unmerged)

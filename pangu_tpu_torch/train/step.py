@@ -8,12 +8,21 @@ count, set before every update, as optax indexes its schedule by the
 update count. Gradient accumulation runs the microbatches of a leading axis
 one after the other and averages loss and gradients before the one update.
 
-The JAX step's ZeRO sharding constraints have no counterpart on one card.
+Under an active mesh (``parallel.activate_mesh``) each rank holds its rows
+of the global batch and the step averages the gradients over the ranks, in
+one of the JAX step's three modes (``pangu_tpu/train/step.py:127-138``):
+with a ``parallel.sharding.ShardedOptimizer`` (``zero_shard_opt_state``, as
+the Trainer builds it when ``cfg.parallel.zero_opt_state``), ZeRO-2 when
+``cfg.parallel.zero_gradients`` (reduce-scatter, update of the rank's
+shards, all-gather), else ZeRO-1 (all-reduce, the sharded update,
+all-gather); with a plain optimizer, plain DP (all-reduce, the full update
+on every rank), which is also how replicated LoRA adapters train. The loss
+returned is the mean over the ranks, the same value on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -21,6 +30,10 @@ from torch import nn
 from pangu_tpu_torch.config import PanguConfig
 from pangu_tpu_torch.aux import AuxConstants, norm_data
 from pangu_tpu_torch.model.pangu import check_kernel_widths
+from pangu_tpu_torch.parallel.mesh import active_mesh
+from pangu_tpu_torch.parallel.sharding import (ShardedOptimizer, all_reduce_mean, local_shard,
+                                               replicate_constraint, trainable,
+                                               zero_constraint)
 from pangu_tpu_torch.train.loss import weighted_l1_loss
 from pangu_tpu_torch.train.schedule import multistep_lr
 
@@ -82,44 +95,121 @@ def loss_fn(model: nn.Module, batch: Batch, aux: AuxConstants, cfg: PanguConfig,
                             only_wind_speed=cfg.train.only_wind_speed_loss, mask=mask)
 
 
-def make_train_step(model: nn.Module, cfg: PanguConfig, optimizer: torch.optim.Optimizer,
-                    steps_per_epoch: int = 1) -> Callable[..., torch.Tensor]:
+def _update(optimizer, cfg: PanguConfig, loss: torch.Tensor, timer) -> torch.Tensor:
+    """Average the gradients over the active mesh, update, and return the
+    loss averaged over the ranks (one rank: the plain update)."""
+    mesh = active_mesh()
+    if mesh is None:
+        optimizer.step()
+        timer.mark("update")
+        return loss
+    loss = all_reduce_mean(loss)
+    if not isinstance(optimizer, ShardedOptimizer):  # plain DP
+        zero_constraint([p.grad for p in trainable(optimizer)], enable=False)
+        timer.mark("all_reduce")
+        optimizer.step()
+        timer.mark("update")
+        return loss
+    zero2 = cfg.parallel.zero_gradients
+    grads = zero_constraint([p.grad for p in optimizer.params], enable=zero2)
+    if not zero2:  # ZeRO-1: the rank's shard of each all-reduced gradient
+        grads = [None if g is None else local_shard(g, d, mesh)
+                 for g, d in zip(grads, optimizer.dims)]
+    timer.mark("reduce_scatter" if zero2 else "all_reduce")
+    optimizer.step(grads)
+    timer.mark("update")
+    replicate_constraint(optimizer.shards, optimizer.params)
+    timer.mark("all_gather")
+    return loss
+
+
+class _HalfParams:
+    """``grads_dtype="bfloat16"``: the f32 trainable tensors hold a bf16 copy
+    of their values while the forward and backward run (the blocks' casts
+    to the compute dtype are then no-ops), and each microbatch's bf16
+    gradients are cast up once into f32 sums; ``restore`` puts the f32
+    masters back and sets the f32 gradients (JAX casts them up before any
+    reduction, ``pangu_tpu/train/step.py:99-108``)."""
+
+    def __init__(self, tensors: Iterable[torch.Tensor]):
+        self.tensors = [t for t in tensors if t.dtype == torch.float32]
+        self.masters = [t.data for t in self.tensors]
+        self.sums: List[Optional[torch.Tensor]] = [None] * len(self.tensors)
+        for t in self.tensors:
+            t.data = t.data.to(torch.bfloat16)
+
+    def collect(self) -> None:
+        for i, t in enumerate(self.tensors):
+            if t.grad is not None:
+                g = t.grad.float()
+                self.sums[i] = g if self.sums[i] is None else self.sums[i] + g
+                t.grad = None
+
+    def restore(self) -> None:
+        for t, m, g in zip(self.tensors, self.masters, self.sums):
+            t.grad = None
+            t.data = m
+            t.grad = g
+
+
+def make_train_step(model: nn.Module, cfg: PanguConfig, optimizer,
+                    steps_per_epoch: int = 1,
+                    spans: Optional[Dict[str, float]] = None) -> Callable[..., torch.Tensor]:
     """Returns ``step(batch, aux, generator=None) -> loss``: one optimizer
-    update in place, the gradients it used left in ``.grad``.
+    update in place, the gradients it used left in ``.grad`` (under a mesh,
+    averaged over the ranks where an all-reduce ran in place, the rank's own
+    where a reduce-scatter took them).
 
     If ``cfg.train.accumulation_steps > 1`` the batch carries a leading
     microbatch axis of that length; loss and gradients are averaged over it.
-    On the card it first checks that the kernels take the model's widths
-    (``check_kernel_widths``).
+    ``cfg.model.grads_dtype="bfloat16"`` differentiates with respect to a
+    bf16 copy of the f32 parameters (``_HalfParams``); the masters, the
+    moments and the gradients the update reads stay f32. On the card it
+    first checks that the kernels take the model's widths
+    (``check_kernel_widths``). ``spans``, when given, gains the wall seconds
+    of the step's phases summed over its calls, each ended by a
+    synchronize: ``forward_backward``, under a mesh ``reduce_scatter`` (ZeRO-2)
+    or ``all_reduce``, ``update``, and with sharded moments ``all_gather``.
     """
+    from pangu_tpu_torch.eval.evaluate import Spans  # evaluate imports this module
+
     if next(model.parameters()).is_cuda:
         check_kernel_widths(cfg.model)
-    if cfg.model.grads_dtype != "float32":
-        raise NotImplementedError(f"grads_dtype={cfg.model.grads_dtype!r} is not ported")
+    if cfg.model.grads_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"grads_dtype={cfg.model.grads_dtype!r}")
+    bf16_grads = cfg.model.grads_dtype == "bfloat16"
     accum = cfg.train.accumulation_steps
     schedule = multistep_lr(cfg.train.lr, cfg.train.lr_milestones, cfg.train.lr_gamma,
                             steps_per_epoch)
+    device = next(model.parameters()).device
 
     def step(batch: Batch, aux: AuxConstants,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         model.train()
+        timer = Spans(spans, device)
         optimizer.zero_grad(set_to_none=True)
         micro = [batch] if accum == 1 else [Batch(*(t[i] for t in batch)) for i in range(accum)]
+        half = _HalfParams(trainable(optimizer)) if bf16_grads else None
         loss_sum = torch.zeros((), device=batch.upper.device)
-        for mb in micro:
-            loss = loss_fn(model, mb, aux, cfg, generator)
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
+        try:
+            for mb in micro:
+                loss = loss_fn(model, mb, aux, cfg, generator)
+                loss.backward()
+                if half is not None:
+                    half.collect()
+                loss_sum = loss_sum + loss.detach()
+        finally:
+            if half is not None:
+                half.restore()
         if accum > 1:
-            for group in optimizer.param_groups:
-                for p in group["params"]:
-                    if p.grad is not None:
-                        p.grad.div_(accum)
+            for p in trainable(optimizer):
+                if p.grad is not None:
+                    p.grad.div_(accum)
+        timer.mark("forward_backward")
         lr = schedule(optimizer_step_count(optimizer))
         for group in optimizer.param_groups:
             group["lr"] = lr
-        optimizer.step()
-        return loss_sum / accum
+        return _update(optimizer, cfg, loss_sum / accum, timer)
 
     return step
 

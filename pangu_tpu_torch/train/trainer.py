@@ -9,8 +9,15 @@ tracking on disk and early stopping.
 The loader contract is any iterable of (Batch of numpy arrays, periods) with
 ``__len__``, as the port's loaders and plain lists in tests give. Batches move
 to the model's device through pinned memory (``eval.evaluate.to_device``).
-One process, one device: the JAX package's multi-host assembly has no
-counterpart here yet (ROADMAP queue 1, item 10).
+
+Under an active mesh (one process per card) each rank's loaders hold its
+shard of the samples (``make_loader(..., num_shards, shard)``), the step
+averages over the ranks, and so does validation: every rank holds the same
+train and validation losses, so early stopping and the loss brake decide
+alike everywhere (a rank that broke out alone would leave the others
+waiting in the next collective). Every rank joins each checkpoint save;
+rank 0 writes it. Log lines, the writer and ``visualize`` (one process
+only) are rank 0's.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from torch import nn
 from pangu_tpu_torch.aux import AuxConstants
 from pangu_tpu_torch.config import PanguConfig
 from pangu_tpu_torch.eval.evaluate import Spans, model_device, to_device
+from pangu_tpu_torch.parallel.mesh import active_mesh, is_main
+from pangu_tpu_torch.parallel.sharding import all_reduce_mean, zero_shard_opt_state
 from pangu_tpu_torch.train import checkpoint as ckpt
 from pangu_tpu_torch.train.step import (
     Batch,
@@ -41,30 +50,41 @@ from pangu_tpu_torch.utils.logger import get_logger
 def sharded_val_stats(eval_step: Callable, val_loader: Iterable, aux: AuxConstants,
                       device: torch.device, count: int = 1,
                       last_batch_box: Optional[dict] = None) -> Tuple[float, int]:
-    """(loss_sum, n_batches) over the validation set: the single-process
-    branch of the JAX function, one ``eval_step(batch, aux)`` per batch.
-    ``last_batch_box``, when given, receives the last host batch under key
-    "batch" (the reference visualizes the last val batch,
-    models/pangu_sample.py:332-358)."""
-    if count > 1:
-        raise NotImplementedError("validation across processes is not ported "
-                                  "(ROADMAP queue 1, item 10)")
+    """(loss_sum, n_batches) over the validation set, one
+    ``eval_step(batch, aux)`` per batch. With ``count`` > 1 processes (an
+    active mesh) each rank's ``val_loader`` holds its wrap-padded shard
+    (equal counts) and each batch's loss is averaged over the ranks: the
+    mean over the global batch, as the JAX function's lockstep launch gives,
+    the same sums on every rank. ``last_batch_box``, when given, receives
+    the last host batch under key "batch" (the reference visualizes the
+    last val batch, models/pangu_sample.py:332-358)."""
     loss_sum, n = 0.0, 0
     for host_batch, _periods in val_loader:
         batch = Batch(*(to_device(x, device) for x in host_batch))
-        loss_sum += float(eval_step(batch, aux))
+        loss = eval_step(batch, aux)
+        if count > 1:
+            loss = all_reduce_mean(loss.clone())
+        loss_sum += float(loss)
         n += 1
         if last_batch_box is not None:
             last_batch_box["batch"] = host_batch
     return loss_sum, n
 
 
+def _global_val_loss(loss_sum: float, n: int) -> float:
+    """Validation loss from the lockstep stats: every rank holds the same
+    sums, so no gather."""
+    return loss_sum / max(1, n)
+
+
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     """The drop-path and dropout generator of one epoch, seeded from (seed,
     epoch) and advanced by each step's draws: the masks are a function of
     (seed, epoch, step), so a run resumed at epoch N draws what an
-    uninterrupted run draws at epoch N. (The bits differ from the JAX
-    package's ``fold_in``/``split`` stream, which torch cannot reproduce.)"""
+    uninterrupted run draws at epoch N. It is the same on every rank of a
+    mesh (drop path keeps the rank's rows of the global draw; dropout folds
+    the rank into its seeds). (The bits differ from the JAX package's
+    ``fold_in``/``split`` stream, which torch cannot reproduce.)"""
     mixed = int(np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0]) >> 1
     return torch.Generator(device=device).manual_seed(mixed)
 
@@ -105,8 +125,10 @@ class Trainer:
         optimizer: Optional[torch.optim.Optimizer] = None,
         visualize: bool = False,
     ):
-        """``optimizer`` defaults to Adam over the model's parameters; a
-        LoRA run passes its own over the trainable tree. ``train_step_fn``
+        """``optimizer`` defaults to Adam over the model's parameters,
+        sharded by ``zero_shard_opt_state`` under an active mesh when
+        ``cfg.parallel.zero_opt_state``; a LoRA run passes its own over the
+        trainable tree (plain, so its adapters train replicated). ``train_step_fn``
         is a builder ``optimizer -> step(batch, aux, generator) -> loss``
         (so a custom trainable tree shares the Trainer's optimizer);
         ``eval_step_fn`` is the eval step itself, ``(batch, aux) -> loss``.
@@ -124,7 +146,14 @@ class Trainer:
         self.out_dir = out_dir
         self.writer = writer
         self.logger = logger or get_logger("pangu_tpu_torch.train")
-        self.optimizer = optimizer or make_optimizer(model, cfg)
+        self.mesh = active_mesh()
+        self.count = self.mesh.data if self.mesh is not None else 1
+        self.is_main = is_main()
+        if optimizer is None:
+            optimizer = make_optimizer(model, cfg)
+            if self.mesh is not None:
+                optimizer = zero_shard_opt_state(optimizer, self.mesh, cfg.parallel.zero_opt_state)
+        self.optimizer = optimizer
         self.train_step = (train_step_fn(self.optimizer) if train_step_fn
                            else make_train_step(model, cfg, self.optimizer, steps_per_epoch))
         self.eval_step = eval_step_fn or make_eval_step(model, cfg)
@@ -180,7 +209,8 @@ class Trainer:
                 lf = float(device_loss)
                 if not math.isfinite(lf):
                     bad_steps += 1
-                    self.logger.warning("non-finite loss at epoch %d step %d", epoch, step_no)
+                    self._log("non-finite loss at epoch %d step %d", epoch, step_no,
+                              level="warning")
                     if bad_steps >= 3:
                         raise FloatingPointError(
                             f"training diverged (non-finite loss x{bad_steps}); "
@@ -207,45 +237,50 @@ class Trainer:
             if pending is not None:
                 consume(pending, n_batches - 1)
             epoch_loss /= max(1, n_batches)
-            self.logger.info("Epoch %d: loss=%.6f, time=%.3f", epoch, epoch_loss,
-                             time.time() - t0)
+            self._log("Epoch %d: loss=%.6f, time=%.3f", epoch, epoch_loss, time.time() - t0)
             if profiler is not None:
                 self._stop_profile(profiler, epoch)
 
             if epoch % cfg.train.save_interval == 0:
+                # every rank joins: the sharded moments are gathered for rank 0 to write
                 saving = Spans(spans, self.device)
                 ckpt.save_train_state(f"{self.out_dir}/models", epoch, state)
                 saving.mark("save")
 
             if val_loader is not None and epoch % cfg.train.val_interval == 0:
-                viz_box = {} if self.visualize else None
+                viz_box = {} if self.visualize and self.count == 1 else None
                 loss_sum, n_val = sharded_val_stats(self.eval_step, val_loader, self.aux,
-                                                    self.device, last_batch_box=viz_box)
-                val_loss = loss_sum / max(1, n_val)
-                self.logger.info("Validate at Epoch %d : %.6f", epoch, val_loss)
-                if viz_box is not None and viz_box.get("batch") is not None:
+                                                    self.device, self.count,
+                                                    last_batch_box=viz_box)
+                val_loss = _global_val_loss(loss_sum, n_val)
+                self._log("Validate at Epoch %d : %.6f", epoch, val_loss)
+                if viz_box is not None and viz_box.get("batch") is not None and self.is_main:
                     self._visualize_val(viz_box["batch"], epoch)
-                if self.writer is not None:
+                if self.writer is not None and self.is_main:
                     self.writer.add_scalars("Loss", {"train": epoch_loss, "val": val_loss},
                                             epoch)
                 if val_loss < best_loss:
                     best_loss = val_loss
                     ckpt.save_params(f"{self.out_dir}/models", state.params, "best")
                     have_best = True
-                    self.logger.info("current best model is saved at %d epoch.", epoch)
+                    self._log("current best model is saved at %d epoch.", epoch)
                     stale_epochs = 0
                 else:
                     stale_epochs += 1
                     if stale_epochs >= cfg.train.early_stop:
-                        self.logger.info(
-                            "No improvement in validation loss for %d epochs, "
-                            "terminating training.", stale_epochs)
+                        self._log("No improvement in validation loss for %d epochs, "
+                                  "terminating training.", stale_epochs)
                         break
 
         if not have_best:
             return state.params, state
         best_params = ckpt.restore_params(f"{self.out_dir}/models", state.params, "best")
         return best_params, state
+
+    def _log(self, msg: str, *args, level: str = "info") -> None:
+        """A log line of rank 0."""
+        if self.is_main:
+            getattr(self.logger, level)(msg, *args)
 
     # ------------------------------------------------------------------
     def _start_profile(self):
@@ -259,9 +294,10 @@ class Trainer:
     def _stop_profile(self, profiler, epoch: int) -> None:
         profiler.stop()
         os.makedirs(self.profile_dir, exist_ok=True)
-        path = os.path.join(self.profile_dir, f"epoch_{epoch}.trace.json")
+        rank = "" if self.mesh is None else f".rank{self.mesh.rank}"
+        path = os.path.join(self.profile_dir, f"epoch_{epoch}{rank}.trace.json")
         profiler.export_chrome_trace(path)
-        self.logger.info("profile written to %s", path)
+        self._log("profile written to %s", path)
 
     # ------------------------------------------------------------------
     def _visualize_val(self, batch: Batch, epoch: int) -> None:

@@ -115,6 +115,27 @@ def test_loader_batches_match(models, name):
                 np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize("samples,shards", [(1, 4), (2, 8), (3, 7)])
+def test_sharded_loader_gives_every_shard_the_same_count(models, samples, shards):
+    """More shards than twice the samples: the wrap-padding repeats the
+    samples as often as it takes (torch's DistributedSampler), so every
+    shard gets the same number of batches and the whole range; unequal
+    counts leave the ranks of a data-parallel validation waiting in
+    different collectives. (The JAX loader wraps once and comes up short
+    here, so there is no JAX side to compare.)"""
+    end = (np.datetime64("2018-01-01") + np.timedelta64(samples + 1, "D")).astype(str)
+    ds = tds.Era5Dataset(tds.SyntheticStore(models[1]), "20180101", end.replace("-", ""),
+                         "24h", 24)
+    assert len(ds) == samples
+    loaders = [tds.BatchLoader(ds, 1, drop_last=False, num_shards=shards, shard=r, prefetch=0)
+               for r in range(shards)]
+    per = -(-samples // shards)
+    assert [len(ld) for ld in loaders] == [per] * shards
+    seen = [p for ld in loaders for _, p in ld]
+    assert len(seen) == per * shards and {tuple(p) for p in seen} == {
+        tuple(p) for _, p in tds.BatchLoader(ds, 1, drop_last=False, prefetch=0)}
+
+
 @pytest.mark.parametrize("split", ["train", "val", "test"])
 def test_make_loader_matches(models, split):
     dates = dict(train_start="20180101", train_end="20180115", val_start="20180201",

@@ -985,8 +985,9 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     (K11/K12), the two-kernel block at one forecast step's mix (K10, K2 LN),
     and each script's timed run (2 warm-up + 10 or 12 timed calls). Phase
     18's served steps launch K1 16 times each with the eager bits, the
-    flagship bf16 bound is printed, and phase 19 prints its ``data:`` line
-    (the npy store's write, read rates and evaluate / finetune splits)."""
+    flagship bf16 bound is printed, phase 19 prints its ``data:`` line
+    (the npy store's write, read rates and evaluate / finetune splits), and
+    phase 20 its ``multi-gpu:`` line for a world of one rank per card."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=repo, capture_output=True,
                           text=True, timeout=1200)
@@ -1028,4 +1029,8 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     assert set(data[0]["fit_per_step_s"]) == {"load", "h2d", "step", "total"}
     bound = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("bf16 bound: ")]
     assert len(bound) == 1 and bound[0]["geometry"] == "full-721x1440x13" and bound[0]["pallas"]
+    multi = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("multi-gpu: {")]
+    assert len(multi) == 1 and multi[0]["world"] == torch.cuda.device_count()
+    assert set(multi[0]["step_split_s"]) == {"forward_backward", "reduce_scatter", "update",
+                                             "all_gather", "total"}
     assert json.loads(lines[-1])["ok"] is True

@@ -142,12 +142,14 @@ FORECAST_AND_SCORE = [
 ]
 
 
-#: the finetuning path: summary, checkpoints, the Trainer, LoRA and their scripts
+#: the finetuning path: summary, checkpoints, the Trainer, LoRA, data parallelism and
+#: their scripts
 FINETUNE = [
     "pangu_tpu_torch.utils.summary", "pangu_tpu_torch.train.checkpoint",
     "pangu_tpu_torch.train.trainer", "pangu_tpu_torch.train.lora",
     "pangu_tpu_torch.interop.from_jax", "pangu_tpu_torch.scripts.finetune",
-    "pangu_tpu_torch.scripts.lora_tune",
+    "pangu_tpu_torch.scripts.lora_tune", "pangu_tpu_torch.parallel",
+    "pangu_tpu_torch.parallel.mesh", "pangu_tpu_torch.parallel.sharding",
 ]
 
 
@@ -192,13 +194,14 @@ def test_importing_the_port_does_not_import_jax():
 def _python_sources():
     out = [os.path.relpath(os.path.join(d, f), REPO)
            for d, _, files in os.walk(PORT) for f in files if f.endswith(".py")]
-    return sorted(out) + ["chip_smoke.py"]
+    return sorted(out) + ["chip_smoke.py", os.path.join("tests", "torch_parallel_worker.py")]
 
 
 @pytest.mark.parametrize("path", _python_sources())
 def test_no_port_source_imports_jax(path):
     """Source level: no import of jax, jaxlib, flax or any module of the JAX
-    package (the port keeps its own copies of the jax-free ones)."""
+    package (the port keeps its own copies of the jax-free ones), in the
+    port, chip_smoke.py and the data-parallel test's rank worker."""
     with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):

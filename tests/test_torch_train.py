@@ -19,7 +19,12 @@ Tolerances:
   holds the kernel step to against the plain bf16 step;
 * the two A/B routes (``fused_block``: K11/K12; ``unfused_tail``: K8/K9 and
   the plain residual), bf16, against the default bf16 route and against the
-  JAX f32 gradient, under the same bf16 bounds.
+  JAX f32 gradient, under the same bf16 bounds;
+* ``grads_dtype="bfloat16"`` (gradients with respect to a bf16 copy of the
+  parameters, cast up once) on the bf16 kernel routing against the JAX
+  gradients of that setting, under the same bf16 bounds; and the JAX
+  self-test's checks (f32 masters, within bf16 tolerance of the f32 tree,
+  the loss falls).
 """
 
 import dataclasses
@@ -211,12 +216,6 @@ def test_eval_step_matches_jax_eval_loss(run):
     assert abs(float(got) - float(ref)) / abs(float(ref)) < 1e-4
 
 
-def test_bf16_grads_dtype_is_not_ported(run):
-    cfg, model = _port(run, run.params, grads_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        make_train_step(model, cfg, make_optimizer(model, cfg))
-
-
 @pytest.mark.parametrize("variant", ["wind_speed", "masked", "wind_speed_masked"])
 def test_loss_variants_match_jax(run, variant):
     rng = np.random.default_rng(41)
@@ -320,3 +319,63 @@ def test_ab_route_train_step_matches_default_route_and_jax_f32(run, monkeypatch,
     assert abs(loss - run.loss1) / max(1.0, abs(run.loss1)) < 0.04
     _assert_bf16_grads_close(grads, default_grads)
     _assert_bf16_grads_close(grads, run.grads)
+
+
+# ---- grads_dtype="bfloat16" ------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bf16_grads_run(run):
+    """The JAX bf16 gradients with ``grads_dtype="bfloat16"``: the training
+    loss differentiated with respect to a bf16 copy of the f32 params, the
+    gradients cast up once (``pangu_tpu/train/step.py:99-108``)."""
+    cfg = pangu_tiny(drop_path_max=0.0, compute_dtype="bfloat16", use_pallas_attention=True,
+                     grads_dtype="bfloat16")
+    jmodel = JaxPanguModel(cfg.model)
+    params = run.params
+    half = jax.tree_util.tree_map(
+        lambda p: p.astype(jnp.bfloat16) if p.dtype == np.float32 else p, params)
+    loss, grads = _jax_grads_fn(jmodel, cfg)(half, jax_step.Batch(*run.arrays), run.jaux)
+    grads = jax.tree_util.tree_map(lambda g, p: np.asarray(g.astype(p.dtype)), grads, params)
+    return float(loss), state_dict_from_params(cfg.model, grads)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_bf16_grads_step_matches_jax_bf16_grads(run, bf16_grads_run, remat):
+    """The port's ``grads_dtype="bfloat16"`` step on the bf16 kernel routing
+    (plain versions on the CPU) against the JAX gradients of the same
+    setting, under the bf16 bounds; the gradients the update read are f32."""
+    ref_loss, ref_grads = bf16_grads_run
+    cfg, model = _port(run, run.params, compute_dtype="bfloat16", use_pallas_attention=True,
+                       remat=remat, grads_dtype="bfloat16")
+    loss = make_train_step(model, cfg, make_optimizer(model, cfg))(_batch(run.arrays), run.aux)
+    assert abs(float(loss) - ref_loss) / max(1.0, abs(ref_loss)) < 0.04
+    assert {p.grad.dtype for p in model.parameters()} == {torch.float32}
+    _assert_bf16_grads_close({k: p.grad.numpy() for k, p in model.named_parameters()},
+                             ref_grads)
+
+
+def test_bf16_grads_keep_f32_masters_and_still_train(run):
+    """The JAX self-test's checks (tests/test_train.py:316-368) on the port,
+    bf16 compute, lr 1e-3: the step keeps every parameter, gradient and Adam
+    moment in f32; its loss agrees with the f32-tree step to bf16 tolerance,
+    and so do its gradients (the bf16 bounds; the updated parameters are no
+    measure here: Adam's first step moves each element by about lr, so an
+    element of a zero-initialized bias whose gradient rounds across zero
+    moves the other way); five more steps lower the loss."""
+    results = []
+    for grads_dtype in ("float32", "bfloat16"):
+        cfg, model = _port(run, run.params, compute_dtype="bfloat16", grads_dtype=grads_dtype)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, lr=1e-3))
+        opt = make_optimizer(model, cfg)
+        step = make_train_step(model, cfg, opt)
+        loss = float(step(_batch(run.arrays), run.aux))
+        results.append((loss, {k: p.grad.numpy().copy() for k, p in model.named_parameters()}))
+    (loss_f, grads_f), (loss_h, grads_h) = results
+    assert abs(loss_f - loss_h) <= 2e-2 * max(1.0, abs(loss_f))
+    for p in model.parameters():
+        assert p.dtype == p.grad.dtype == torch.float32
+        assert opt.state[p]["exp_avg"].dtype == opt.state[p]["exp_avg_sq"].dtype == torch.float32
+    _assert_bf16_grads_close(grads_h, grads_f)
+    losses = [loss_h] + [float(step(_batch(run.arrays), run.aux)) for _ in range(5)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -27,6 +27,8 @@ tests/test_torch_gpu.py and chip_smoke.py. The A/B script's variant handling
 is checked at the end.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -36,9 +38,14 @@ import torch
 
 from pangu_tpu.ops import fused_block_train as fbt
 from pangu_tpu.ops import fused_mlp as fm
+from pangu_tpu_torch.aux import synthetic_aux_constants
+from pangu_tpu_torch.config import pangu_tiny
+from pangu_tpu_torch.interop.from_jax import init_params
+from pangu_tpu_torch.model import PanguModel
 from pangu_tpu_torch.ops import fused_block_train as tfbt
 from pangu_tpu_torch.ops import fused_mlp as tfm
 from pangu_tpu_torch.scripts import bench_train_ab
+from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
 from test_torch_ops import _assert_scaled_close, _both, _np_inputs, interpret_tpu_route  # noqa: F401
 from test_torch_train_ops import _cotangent, _mlp_args, _mlp_both, _np, _rel
 
@@ -249,12 +256,50 @@ def test_ab_script_remat_variants_set_the_flags_as_the_jax_script(name, flags):
     assert name in bench_train_ab.VARIANTS and name not in bench_train_ab.REFUSED
 
 
+def test_ab_script_bf16_grads_variant_runs_the_base_route_with_bf16_grads(monkeypatch):
+    """``bf16_grads`` is ``base``'s config and flags with
+    ``grads_dtype="bfloat16"``, as the JAX script sets it
+    (scripts/bench_train_ab.py:62-65); a tiny step under its flags keeps f32
+    gradients within the bf16 bounds of the f32-gradient step."""
+    cfg = bench_train_ab.variant_config("bf16_grads")
+    assert cfg.model == dataclasses.replace(bench_train_ab.variant_config("base").model,
+                                            grads_dtype="bfloat16")
+    assert "bf16_grads" in bench_train_ab.VARIANTS and "bf16_grads" not in bench_train_ab.REFUSED
+    grads = {}
+    for variant in ("base", "bf16_grads"):
+        with bench_train_ab.variant_flags(variant):
+            tcfg = pangu_tiny(compute_dtype="bfloat16", use_pallas_attention=True, remat=True,
+                              drop_path_max=0.0,
+                              grads_dtype=bench_train_ab.variant_config(variant).model.grads_dtype)
+            model = PanguModel(tcfg.model)
+            init_params(model, seed=0)
+            aux = synthetic_aux_constants(tcfg.model, tcfg.train, device="cpu")
+            rng = np.random.default_rng(3)
+            m = tcfg.model
+            fields = [torch.from_numpy(rng.standard_normal((1,) + shape).astype(np.float32))
+                      for shape in ((m.upper_vars, m.levels, m.lat, m.lon),
+                                    (m.surface_vars, m.lat, m.lon))]
+            make_train_step(model, tcfg, make_optimizer(model, tcfg))(Batch(*fields, *fields),
+                                                                      aux)
+            grads[variant] = {k: p.grad for k, p in model.named_parameters()}
+    num = den = 0.0
+    for k, ref in grads["base"].items():
+        got = grads["bf16_grads"][k]
+        assert got.dtype == torch.float32
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((got - ref).abs().max()) / scale < 0.05, k
+        num += float(((got - ref) ** 2).sum())
+        den += float((ref ** 2).sum())
+    assert (num / den) ** 0.5 < 0.05
+
+
 def test_ab_script_sets_and_restores_every_flag():
     flags = lambda: (tfbt._TRAIN_FUSION, tfm._POSTNORM_FUSION)  # noqa: E731
     assert flags() == (False, True)  # the JAX package's defaults
     want = {"base": (False, True), "noremat": (False, True), "fused_block": (True, True),
             "unfused_block": (False, True), "unfused_tail": (False, False),
-            "save_attn": (False, True), "save_attn_mlp": (False, True)}
+            "save_attn": (False, True), "save_attn_mlp": (False, True),
+            "bf16_grads": (False, True)}
     for name in bench_train_ab.VARIANTS:
         with bench_train_ab.variant_flags(name):
             assert flags() == want[name], name
