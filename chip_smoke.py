@@ -2,8 +2,9 @@
 checks, the 24 h forecast step, the train step and its three A/B routes at
 full geometry, the two-kernel inference block, the three kernel A/B scripts,
 forecast and score, finetuning (full and LoRA), serving an exported forecast
-step, the data pipeline over an npy store, and data-parallel finetuning with
-one process per card.
+step, the data pipeline over an npy store, data-parallel finetuning with
+one process per card, and the kernels on spatial slabs of the token grid (and,
+on a host with several cards, finetuning with the grid sharded over them).
 
     python3 chip_smoke.py
 
@@ -186,7 +187,26 @@ Phases (any failure exits non-zero before the last line is printed):
    kernels), each
    rank's peak memory, ``zero_bytes_per_device`` of the
    parameters sharded and replicated at this world, 4 and 8, the save and
-   load times and the card.
+   load times and the card;
+21. spatial sharding (``pangu_tpu_torch.parallel.spatial``). 21a, on one
+   card: K1, K2, K3, K11 and K12 on each slab of whole windows of the
+   flagship lat=2 x lon=2 plane (outer 96 x 180 and 90 x 180, inner 48 x 96
+   and 48 x 84 rows x columns), with the earth bias and shift mask cut to
+   the slab's lat windows, at both stages, unshifted and shifted, against
+   the same windows of the whole-grid launch: forward outputs and the dx of
+   K3 and K12 the same bits (else the bounds of phase 3, reported), the
+   weight, bias and earth-bias gradients summed over the four slabs within
+   phase 3's bounds; then each slab shape's ms per launch beside the whole
+   grid's. 21b, on a host with 2 or more cards: lat=2 on 2 cards and lat=2 x
+   lon=2 on 4, one fresh process per card over NCCL, 3 flagship ZeRO-2 train
+   steps (data 1) of phase 8's config, weights, batch and drop-path draws on
+   the ranks' slabs, phase 8's launches per rank and step, the same loss and
+   parameter bits on every rank, one validation pass (16 K1 launches a
+   sample on every rank, the same value), step 1's loss and gradients within
+   phase 8's bounds of the one-process step on card 0, and a profiled step;
+   a ``spatial:`` line per world (step wall and split, busy, NCCL time and
+   launches, each rank's peak memory beside the one-process step's). With
+   one card, 21b prints that it did not run and why.
 
 A ``detail:`` line holds the per-shape kernel results and the slices'
 numbers as JSON. The second-to-last line is a JSON object with one entry per
@@ -194,7 +214,8 @@ kernel: ``launches`` counted over the run of the kernel's path (the 3
 forecast steps for K1, the 3 timed steps of the default train step for
 K2-K7, of ``unfused_tail`` for K8/K9 and of ``fused_block`` for K11/K12,
 phase 12's block mix for K10 and the LN mode, each script's timed run for
-its variants); ``ms``, ``plain_ms`` and ``bound_ms`` the mean per launch over
+its variants; phase 21a's launches on slabs are reported apart, under
+``detail.slabs.launches``); ``ms``, ``plain_ms`` and ``bound_ms`` the mean per launch over
 one step's mix of 2 + 2 outer and 6 + 6 inner blocks (the scripts: per call
 at their one shape; the micro-bench: per sweep). ``bound_ms`` is the larger
 of the bytes the function must move over 3.35 TB/s and its operations over
@@ -2022,6 +2043,54 @@ def hold_rank_launches(label: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{label}: launches {got}, want {want}")
 
 
+def _run_ranks(world: int, spec: dict, code: str, tmp: str, timeout_s: float,
+               phase: str) -> list:
+    """Spawn ``world`` fresh processes of ``code`` (one per card), each given
+    ``spec`` with its rank as JSON; wait, killing the others when one fails
+    or the time runs out (the phase then fails with that rank's stderr);
+    return each rank's last JSON line."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    procs, files = [], []
+    try:
+        for r in range(world):
+            files.append((open(os.path.join(tmp, f"rank{r}.out"), "w"),
+                          open(os.path.join(tmp, f"rank{r}.err"), "w")))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, json.dumps({**spec, "rank": r})],
+                stdout=files[r][0], stderr=files[r][1], cwd=repo, env=env))
+        deadline = time.monotonic() + timeout_s
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            late = time.monotonic() > deadline
+            if bad or late:
+                r = bad[0] if bad else codes.index(None)
+                with open(os.path.join(tmp, f"rank{r}.err")) as f:
+                    err = f.read()[-4000:]
+                raise AssertionError(
+                    f"{phase}: rank {r} " + (f"exited {codes[r]}" if bad else
+                                             f"ran past {timeout_s} s") +
+                    f"; its stderr:\n{err}")
+            if all(c == 0 for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for out, err in files:
+            out.close()
+            err.close()
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.out")) as f:
+            ranks.append(json.loads([ln for ln in f if ln.startswith("{")][-1]))
+    return ranks
+
+
 def check_multi_gpu(dev, world: int = 0, tiny: bool = False) -> dict:
     """Phase 20: the multi-GPU finetune, ``world`` ranks (default: one per
     card) spawned as fresh processes, joined through a ``file://`` store in a
@@ -2035,48 +2104,10 @@ def check_multi_gpu(dev, world: int = 0, tiny: bool = False) -> dict:
     world = world or torch.cuda.device_count()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
     with tempfile.TemporaryDirectory() as tmp:
         spec = dict(world=world, init="file://" + os.path.join(tmp, "store"), dir=tmp,
                     device=dev.type, tiny=tiny)
-        procs, files = [], []
-        try:
-            for r in range(world):
-                files.append((open(os.path.join(tmp, f"rank{r}.out"), "w"),
-                              open(os.path.join(tmp, f"rank{r}.err"), "w")))
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-c", RANK, json.dumps({**spec, "rank": r})],
-                    stdout=files[r][0], stderr=files[r][1], cwd=repo, env=env))
-            deadline = time.monotonic() + MULTI_GPU_TIMEOUT_S
-            while True:
-                codes = [p.poll() for p in procs]
-                bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
-                late = time.monotonic() > deadline
-                if bad or late:
-                    r = bad[0] if bad else codes.index(None)
-                    with open(os.path.join(tmp, f"rank{r}.err")) as f:
-                        err = f.read()[-4000:]
-                    raise AssertionError(
-                        f"phase 20: rank {r} " + (f"exited {codes[r]}" if bad else
-                                                  f"ran past {MULTI_GPU_TIMEOUT_S} s") +
-                        f"; its stderr:\n{err}")
-                if all(c == 0 for c in codes):
-                    break
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for out, err in files:
-                out.close()
-                err.close()
-        ranks = []
-        for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.out")) as f:
-                ranks.append(json.loads([ln for ln in f if ln.startswith("{")][-1]))
+        ranks = _run_ranks(world, spec, RANK, tmp, MULTI_GPU_TIMEOUT_S, "phase 20")
     first = ranks[0]
     want = dict(TRAIN_LAUNCHES)
     for res in ranks:
@@ -2113,6 +2144,289 @@ def check_multi_gpu(dev, world: int = 0, tiny: bool = False) -> dict:
         (", the one-process step's bits" if world == 1 else ""))
     log("multi-gpu: " + json.dumps(line))
     return line
+
+
+#: phase 21: the flagship plane of 21a's slabs (lat, lon), 21b's worlds (cards, mesh axes)
+#: and the seconds their ranks may take together
+SLAB_PLANE = (2, 2)
+SPATIAL_WORLDS = ((2, dict(lat=2)), (4, dict(lat=2, lon=2)))
+SPATIAL_TIMEOUT_S = 600
+SPATIAL_RANK = r"""
+import json, sys
+import chip_smoke
+print(json.dumps(chip_smoke.spatial_rank(json.loads(sys.argv[1]))), flush=True)
+"""
+
+
+def _place_types(t: torch.Tensor, slab, like: torch.Tensor) -> torch.Tensor:
+    """A slab's per-window-type gradient (dbias) put at its types of a
+    zero tensor shaped as the whole table ``like``."""
+    nz = slab.stage.z // slab.stage.window[0]
+    a, b = slab.lat_windows
+    out = torch.zeros_like(like).reshape(nz, like.shape[0] // nz, *like.shape[1:])
+    out[:, a:b] = t.reshape(nz, b - a, *t.shape[1:])
+    return out.reshape(like.shape)
+
+
+def _hold_slab(label: str, got: torch.Tensor, whole: torch.Tensor) -> dict:
+    """A slab launch's output against the same windows of the whole-grid
+    launch: the same bits expected; otherwise held to the kernel bounds."""
+    same = torch.equal(got, whole)
+    c = compare(got, whole)
+    if not same and not c["ok"]:
+        raise AssertionError(f"{label}: the slab launch disagrees with the whole grid's "
+                             f"(max|d| {c['max_abs']:.6g}, rms {c['rms']:.6g})")
+    return dict(same_bits=same, max_abs=c["max_abs"])
+
+
+def _slab_calls(args, statics, gy, s1, s2, slab=None) -> dict:
+    """K1, K2, K3, K11 and K12 on ``slab`` of the grid ``args[0]`` (the
+    whole grid when None), with the earth bias and shift mask cut to it."""
+    x, wqkv, bqkv, wproj, bproj, bias, mask = args[:7]
+    if slab is not None:
+        (r0, r1), (c0, c1) = slab.rows, slab.cols
+        x, gy = (t[:, :, r0:r1, c0:c1].contiguous() for t in (x, gy))
+        bias, mask = slab.cut_types(bias), None if mask is None else slab.cut_types(mask)
+    a = (x, *args[1:5], bias, mask, *args[7:])
+    return {
+        "K1": lambda: (fba.fused_earth_block(*a, *statics),),
+        "K2": lambda: (fba.fused_block_attention(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                                 None, None, *statics),),
+        "K3": lambda: fba.fused_block_attention_bwd(x, wqkv, bqkv, wproj, bias, mask, gy,
+                                                    *statics),
+        "K11": lambda: (fbt.fused_earth_block_train(*a, s1, s2, *statics),),
+        "K12": lambda: fbt.fused_earth_block_train_bwd(*a, s1, s2, gy, *statics),
+    }
+
+
+def _slab_inputs(stage, c: int, heads: int, shifted: bool, dev, seed: int):
+    args, statics = block_inputs(stage, c, heads, shifted, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    return args, statics, torch.randn(args[0].shape, generator=gen,
+                                      device=dev).to(torch.bfloat16)
+
+
+def check_slabs(g, dev) -> dict:
+    """Phase 21a: K1, K2, K3, K11 and K12 on each slab of the flagship
+    lat=2 x lon=2 plane (``parallel.spatial``: whole windows, the earth bias
+    and shift mask cut to the slab's lat windows), at both stages, unshifted
+    and shifted, against the same windows of the whole-grid launch: the
+    forward outputs and the dx of K3 and K12 the same bits (else held to
+    the kernel bounds, reported), the weight, bias and earth-bias gradients
+    summed over the four slabs within the kernel bounds of the whole grid's.
+    Then, shifted, each distinct slab shape's ms per launch beside the whole
+    grid's. Returns the results and the launches of the checks."""
+    from pangu_tpu_torch.parallel import spatial
+
+    s1, s2 = torch.full((1,), 1.25, device=dev), torch.full((1,), 0.8, device=dev)
+    names = {"K3": ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"),
+             "K12": fbt.GRAD_NAMES}
+    stages = (("outer", g.outer, 192, 6), ("inner", g.inner, 384, 12))
+    planes = {name: [spatial.slab_of(stage, Mesh(None, 1, r, *SLAB_PLANE))
+                     for r in range(SLAB_PLANE[0] * SLAB_PLANE[1])]
+              for name, stage, _, _ in stages}
+    res = []
+    reset_counts()
+    for name, stage, c, heads in stages:
+        for shifted in (False, True):
+            label = f"{name} {'shifted' if shifted else 'unshifted'}"
+            args, statics, gy = _slab_inputs(stage, c, heads, shifted, dev, 90 + len(res))
+            with torch.no_grad():
+                whole = {k: fn() for k, fn in _slab_calls(args, statics, gy, s1, s2).items()}
+                sums = {k: [None] * len(whole[k]) for k in names}
+                held = {k: [] for k in whole}
+                for slab in planes[name]:
+                    (r0, r1), (c0, c1) = slab.rows, slab.cols
+                    for k, fn in _slab_calls(args, statics, gy, s1, s2, slab).items():
+                        outs = fn()
+                        # forward outputs, and the dx of the backwards: per token
+                        held[k].append(_hold_slab(f"{k} {label} slab {slab.rows}x{slab.cols}",
+                                                  outs[0], whole[k][0][:, :, r0:r1, c0:c1]))
+                        for i, t in enumerate(outs[1:], 1):
+                            if names[k][i] == "dbias":
+                                t = _place_types(t, slab, whole[k][i])
+                            sums[k][i] = t.float() if sums[k][i] is None else sums[k][i] + t
+                errs = {k: check_outputs(f"{k} {label} slab sums", {
+                    names[k][i]: compare(outs[i], whole[k][i]) for i in range(1, len(outs))})
+                    for k, outs in sums.items()}
+            res.append(dict(stage=name, shifted=shifted,
+                            slabs=[dict(rows=sl.rows, cols=sl.cols) for sl in planes[name]],
+                            held=held, sum_max_abs_err=errs,
+                            same_bits={k: all(h["same_bits"] for h in v)
+                                       for k, v in held.items()}))
+            log(f"slabs {label}: the same bits as the whole grid: {res[-1]['same_bits']}; "
+                "summed gradients within the kernel bounds")
+            del args, gy, whole, sums
+            torch.cuda.empty_cache()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    times = []
+    for name, stage, c, heads in stages:  # the timing's launches are not counted
+        args, statics, gy = _slab_inputs(stage, c, heads, True, dev, 0)
+        shapes = {(sl.rows[1] - sl.rows[0], sl.cols[1] - sl.cols[0]): sl for sl in planes[name]}
+        for (h, w), slab in [((stage.h_pad, stage.w), None), *shapes.items()]:
+            with torch.no_grad():
+                times.append(dict(stage=name, grid=[h, w], whole=slab is None, ms={
+                    k: cuda_times_ms(fn)
+                    for k, fn in _slab_calls(args, statics, gy, s1, s2, slab).items()}))
+            log(f"slab times {name} {h}x{w}{' (whole grid)' if slab is None else ''}: "
+                f"{json.dumps({k: round(v, 4) for k, v in times[-1]['ms'].items()})} ms a launch")
+        del args, gy
+        torch.cuda.empty_cache()
+    return dict(checks=res, times=times, launches=launches)
+
+
+def spatial_rank(spec: dict) -> dict:
+    """One rank of phase 21b (its own process): join the group (NCCL on the
+    card, gloo on the CPU), make the mesh of ``spec["axes"]`` (data 1), then
+    3 ZeRO-2 train steps of phase 8's config, seeded weights, batch and
+    drop-path draws on this rank's slabs (launches, loss, parameter digest
+    and the step's split each), one validation pass over phase 17's val
+    range (K1 on slabs), and on the card one more step under torch.profiler.
+    Rank 0 then runs the one-process step from the same weights, batch and
+    generator (no mesh), holds the first mesh step's loss and gradients to
+    it under phase 8's bounds, and times its steps as the mesh's were
+    (``STEPS`` unprofiled, then one profiled)."""
+    from pangu_tpu_torch.parallel import zero_shard_opt_state
+    from pangu_tpu_torch.train.step import make_eval_step
+    from pangu_tpu_torch.train.trainer import sharded_val_stats
+
+    world, rank = spec["world"], spec["rank"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = distributed_init(spec["init"], world, rank, rank, spec["device"])
+    cuda = dev.type == "cuda"
+    try:
+        cfg = finetune_config(FINETUNE_DATA, spec["tiny"])
+        m = cfg.model
+        mesh = make_mesh(ParallelConfig(data=1, **spec["axes"]), model=m)
+        aux = synthetic_aux_constants(m, cfg.train, seed=0, device=dev)
+        with dev:
+            model = PanguModel(m).to(dev)
+        init_params(model, seed=0)
+        batch = train_batch(aux, m, dev)
+        res = dict(rank=rank, world=world, coords=mesh.coords, runs=[])
+        split = {}
+        with activate_mesh(mesh):
+            opt = zero_shard_opt_state(make_optimizer(model, cfg), mesh)
+            step = make_train_step(model, cfg, opt, spans=split)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            for i in range(STEPS):
+                reset_counts()
+                before = dict(split)
+                t0 = time.perf_counter()
+                loss = step(batch, aux, torch.Generator(device=dev).manual_seed(3 + i))
+                loss = loss.item()
+                res["runs"].append(dict(
+                    loss=loss, wall_s=time.perf_counter() - t0, params=param_digest(model),
+                    launches={k: v for k, v in launch_counts().items() if v},
+                    split={k: v - before.get(k, 0.0) for k, v in split.items()}))
+                if i == 0 and rank == 0:
+                    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+            res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            reset_counts()
+            val = make_loader(cfg.data, m, "val", cfg.horizon, 1)
+            res["val"] = sharded_val_stats(make_eval_step(model, cfg), val, aux, dev)
+            res["val_launches"] = {k: v for k, v in launch_counts().items() if v}
+            if cuda:  # one more step under torch.profiler, on every rank (it is collective)
+                summary, by_name = profile_train_step._profile(
+                    lambda: step(batch, aux, torch.Generator(device=dev).manual_seed(3)), dev, 8)
+                summary["nccl_ms"] = sum(ms for k, (ms, _) in by_name.items()
+                                         if "nccl" in k.lower())
+                summary["nccl_launches"] = sum(n for k, (_, n) in by_name.items()
+                                               if "nccl" in k.lower())
+                res["profile"] = summary
+            del step, opt
+        if rank == 0:  # the one-process step on the same weights, batch and generator
+            init_params(model, seed=0)
+            model.zero_grad(set_to_none=True)
+            one = make_train_step(model, cfg, make_optimizer(model, cfg))
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss = one(batch, aux, torch.Generator(device=dev).manual_seed(3)).item()
+            wall = time.perf_counter() - t0
+            named = dict(model.named_parameters())
+            dev_ = grad_deviation(f"spatial {spec['axes']} step vs the one-process step",
+                                  res["runs"][0]["loss"], grads, loss,
+                                  {k: named[k].grad.float() for k in grads})
+            check_train_bounds(f"the spatial {spec['axes']} step", dev_)
+            walls = [wall]
+            for i in range(1, STEPS):  # the mesh's steps' timing, unprofiled, for a like pair
+                t0 = time.perf_counter()
+                one(batch, aux, torch.Generator(device=dev).manual_seed(3 + i)).item()
+                walls.append(time.perf_counter() - t0)
+            res["one_process"] = dict(loss=loss, step_wall_s=walls, **dev_,
+                                      peak_bytes=torch.cuda.max_memory_allocated(dev)
+                                      if cuda else 0)
+            if cuda:
+                summary, by_name = profile_train_step._profile(
+                    lambda: one(batch, aux, torch.Generator(device=dev).manual_seed(3)), dev, 8)
+                res["one_process"]["profile"] = summary
+            del grads, one
+        torch.distributed.barrier()
+        return res
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def check_spatial(dev, worlds=None, tiny: bool = False) -> dict:
+    """Phase 21b: for each (cards, axes) of ``worlds`` (default: those of
+    ``SPATIAL_WORLDS`` this host has the cards for) the ranks of
+    ``spatial_rank`` as fresh processes over NCCL. Requires phase 8's
+    launches in each rank's every step, the same loss and parameter bits on
+    every rank, the same validation value on every rank and 16 K1 launches
+    a validation sample; prints a ``spatial:`` line per world (the step's
+    wall and split, the profile's busy, NCCL time and launches, each rank's
+    peak memory, all beside the one-process step's). On a host with one
+    card it prints why it did not run and returns None."""
+    if worlds is None:
+        cards = torch.cuda.device_count()
+        worlds = [(n, axes) for n, axes in SPATIAL_WORLDS if n <= cards]
+        if not worlds:
+            log(f"spatial: phase 21b did not run: it needs 2 or 4 cards (one process per "
+                f"card over NCCL) and this host has {cards}")
+            return None
+    lines = []
+    for world, axes in worlds:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            spec = dict(world=world, axes=axes, init="file://" + os.path.join(tmp, "store"),
+                        device=dev.type, tiny=tiny)
+            ranks = _run_ranks(world, spec, SPATIAL_RANK, tmp, SPATIAL_TIMEOUT_S,
+                               f"phase 21b {axes}")
+        first = ranks[0]
+        for res in ranks:
+            for i, (run, run0) in enumerate(zip(res["runs"], first["runs"])):
+                hold_rank_launches(f"spatial {axes} rank {res['rank']} step {i + 1}",
+                                   run["launches"], dict(TRAIN_LAUNCHES))
+                if (run["loss"], run["params"]) != (run0["loss"], run0["params"]):
+                    raise AssertionError(f"spatial {axes} step {i + 1}: rank {res['rank']} "
+                                         "differs from rank 0")
+            if res["val"] != first["val"]:
+                raise AssertionError(f"spatial {axes}: rank {res['rank']} validates "
+                                     f"{res['val']}, rank 0 {first['val']}")
+            hold_rank_launches(f"spatial {axes} rank {res['rank']} validation",
+                               res["val_launches"], {"fused_earth_block": 16 * first["val"][1]})
+        later = [r["split"] for r in first["runs"][1:]]
+        line = dict(world=world, axes=axes, losses=[r["loss"] for r in first["runs"]],
+                    step_wall_s=[r["wall_s"] for r in first["runs"]],
+                    step_split_s={k: statistics.mean(s[k] for s in later) for k in later[0]},
+                    val=first["val"], profile=[r.get("profile") for r in ranks],
+                    peak_bytes=[r["peak_bytes"] for r in ranks],
+                    one_process=first["one_process"], card=card_line())
+        one_later = first["one_process"]["step_wall_s"][1:]
+        log(f"spatial {axes}: steps 2-{STEPS} unprofiled, mean "
+            f"{statistics.mean(line['step_wall_s'][1:]):.6f} s a step; the one-process step "
+            f"in the same process {statistics.mean(one_later):.6f} s")
+        log(f"spatial {axes}: every rank the same loss and parameter bits in each of "
+            f"{STEPS} steps and the same validation value; step 1 within phase 8's bounds of "
+            "the one-process step")
+        log("spatial: " + json.dumps(line))
+        lines.append(line)
+    return lines
 
 
 def main() -> int:
@@ -2164,12 +2478,19 @@ def main() -> int:
     t0 = time.perf_counter()
     multi = check_multi_gpu(dev)
     log(f"phase 20 (multi-GPU finetune): {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    slabs = check_slabs(model_geom, dev)
+    log(f"phase 21a (kernels on slabs): {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    spatial = check_spatial(dev)
+    log(f"phase 21b (spatial finetune): {time.perf_counter() - t0:.3f} s")
 
     log("detail: " + json.dumps({"slice": sl, **shapes, "products": products, "train": tr,
                                  "ab": ab, "two_kernel_path": tail_path, "mxu_micro": micro,
                                  "attn_fwd_ab": fwd_ab, "attn_bwd_ab": bwd_ab,
                                  "forecast_and_score": score, "finetune": finetune,
-                                 "serving": serve, "data": data, "multi_gpu": multi}))
+                                 "serving": serve, "data": data, "multi_gpu": multi,
+                                 "slabs": slabs, "spatial": spatial}))
     # launches over the run of each kernel's path
     launches = {"fused_earth_block": sl["launches"], **tr["launches"],
                 **{k: ab["unfused_tail"]["launches"][k] for k in ("fused_mlp", "fused_mlp_bwd")},

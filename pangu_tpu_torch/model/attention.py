@@ -45,6 +45,7 @@ from pangu_tpu_torch.geometry import StageGeometry
 from pangu_tpu_torch.ops.fused_block_attention import dense, dot_f32, fused_block_attention
 from pangu_tpu_torch.ops.windows import window_partition, window_reverse
 from pangu_tpu_torch.parallel.mesh import active_mesh
+from pangu_tpu_torch.parallel.spatial import active_slab
 
 
 @dataclasses.dataclass
@@ -128,7 +129,10 @@ def train_seeds(module: nn.Module, generator: Optional[torch.Generator], sites: 
     0 keeps the drawn one): the generator is the same on every rank, so
     unfolded seeds would drop the same elements of different samples. The
     masks under data parallelism are per-rank draws (they differ from
-    flax's draws anyway)."""
+    flax's draws anyway). Outside a layer's slab (``parallel.spatial.on_slab``)
+    a module runs on the whole grid and folds the rank's data coordinate
+    instead, so the spatial peers of a sample draw the same masks and stay
+    replicas."""
     if not (module.training and draws(rate, *linears)):
         return None
     if generator is None:
@@ -136,7 +140,7 @@ def train_seeds(module: nn.Module, generator: Optional[torch.Generator], sites: 
     # one draw for all sites; on a card's generator, one read back to the host
     seeds = torch.randint(2**62, (len(sites),), generator=generator, device=generator.device)
     mesh = active_mesh()
-    rank = mesh.rank if mesh is not None else 0
+    rank = 0 if mesh is None else mesh.rank if active_slab() else mesh.data_rank
     return {site: (s + rank * _RANK_STRIDE) % 2**62 for site, s in zip(sites, seeds.tolist())}
 
 
@@ -205,11 +209,17 @@ class EarthAttention3D(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 epilogue: Optional[tuple] = None,
-                seeds: Optional[Dict[str, int]] = None) -> torch.Tensor:
+                seeds: Optional[Dict[str, int]] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, Z, Hp, W, C) in the compute dtype -> same shape and dtype;
         ``epilogue`` (ln_scale, ln_bias) adds the block's post-norm residual
         ``x + LN(.)``. ``seeds`` (``train_seeds`` of ``ATTENTION_SITES``)
-        draw the dropout masks in training; required when one is active."""
+        draw the dropout masks in training; required when one is active.
+        ``bias`` is the earth bias (nT, heads, T, T) f32 of ``x``'s windows
+        (on a spatial slab, cut to its lat windows like ``mask``), by default
+        the whole table."""
+        if bias is None:
+            bias = self.earth_specific_bias[0].float()
         cdt = x.dtype
         b, z, hp, w, c = x.shape
         d = c // self.heads
@@ -222,7 +232,7 @@ class EarthAttention3D(nn.Module):
             return fused_block_attention(
                 x, linear_weight(self.linear1).to(cdt), self.linear1.bias.to(cdt),
                 linear_weight(self.linear2).to(cdt), self.linear2.bias.to(cdt),
-                self.earth_specific_bias[0].float(), mask, ln_s, ln_b,
+                bias, mask, ln_s, ln_b,
                 self.window, self.heads, d ** -0.5)
         seed = seed_of(seeds, self.training)
         rate = self.dropout_rate if self.training else 0.0
@@ -234,7 +244,7 @@ class EarthAttention3D(nn.Module):
                       self.linear1, xw, seed("qkv"))
         q, k, v = qkv.reshape(b, n_w, n_t, t, 3, self.heads, d).permute(4, 0, 1, 2, 5, 3, 6)
         attn = dot_f32(q * d ** -0.5, k.transpose(-1, -2))
-        attn = attn + self.earth_specific_bias[0].float()
+        attn = attn + bias
         if mask is not None:
             attn = attn + mask.float()[:, None]
         attn = dropout(torch.softmax(attn, dim=-1).to(cdt), rate, seed("attn_drop"))

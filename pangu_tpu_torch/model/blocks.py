@@ -41,6 +41,16 @@ outside the checkpoint (its autograd Function saves only its inputs); a
 kept plain stage is a checkpoint of its own, whose output is kept. Dropout
 masks come from per-site seeds drawn before the stages (``train_seeds``), so
 a recompute draws the masks of the forward.
+
+Under a mesh with a lat x lon plane (``parallel.spatial``) a layer takes the
+rank's slab of whole windows of the padded grid at its entry and gathers the
+slabs at its exit: every block's residual stream lives only as the slab.
+A block then re-zeroes the pad rows by their global index, its roll is a
+halo shift between neighbours, and its attention reads the earth bias and
+the shift mask cut to the slab's lat windows, on every route. The route
+does not depend on the slab's shape, so every rank of the plane recomputes
+the same checkpoints in the same order (the recompute runs the halo shifts
+again).
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from pangu_tpu_torch.model.attention import (ATTENTION_SITES, EarthAttention3D, 
 from pangu_tpu_torch.ops import fused_block_train, fused_mlp
 from pangu_tpu_torch.ops.fused_block_attention import dense, fused_earth_block, layer_norm_f32
 from pangu_tpu_torch.ops.fused_epilogue import fused_residual_postnorm
+from pangu_tpu_torch.parallel import spatial
 from pangu_tpu_torch.parallel.mesh import active_mesh
 
 
@@ -162,22 +173,32 @@ class EarthSpecificBlock(nn.Module):
                 and fused_block_train._TRAIN_FUSION and self.attention.dropout_rate == 0.0
                 and not self.adapted())
 
-    def _enter(self, x: torch.Tensor):
-        """Pad rows re-zeroed, then the shifted block's roll: (shortcut, x)."""
+    def _enter(self, x: torch.Tensor, slab: Optional[spatial.Slab]):
+        """Pad rows (global rows >= h) re-zeroed, then the shifted block's
+        roll: (shortcut, x). ``x`` is the whole padded grid, or the slab."""
         st = self.stage
-        wz, wh, ww = st.window
-        assert tuple(x.shape[1:4]) == (st.z, st.h_pad, st.w), (x.shape, st)
-        if st.h_pad != st.h:
-            x = F.pad(x[:, :, :st.h], (0, 0, 0, 0, 0, st.h_pad - st.h))
+        (r0, r1), (c0, c1) = (slab.rows, slab.cols) if slab else ((0, st.h_pad), (0, st.w))
+        assert tuple(x.shape[1:4]) == (st.z, r1 - r0, c1 - c0), (x.shape, st, slab)
+        real = min(max(st.h - r0, 0), r1 - r0)
+        if real < r1 - r0:
+            x = F.pad(x[:, :, :real], (0, 0, 0, 0, 0, r1 - r0 - real))
         if not self.shifted:
             return x, x
-        return x, torch.roll(x, shifts=(-(wz // 2), -(wh // 2), -(ww // 2)), dims=(1, 2, 3))
+        return x, spatial.roll(x, [-(w // 2) for w in st.window], slab)
 
-    def _roll_back(self, x: torch.Tensor) -> torch.Tensor:
+    def _roll_back(self, x: torch.Tensor, slab: Optional[spatial.Slab]) -> torch.Tensor:
         if not self.shifted:
             return x
-        wz, wh, ww = self.stage.window
-        return torch.roll(x, shifts=(wz // 2, wh // 2, ww // 2), dims=(1, 2, 3))
+        return spatial.roll(x, [w // 2 for w in self.stage.window], slab)
+
+    def _tables(self, slab: Optional[spatial.Slab]) -> tuple:
+        """The earth bias (nT, heads, T, T) f32 and the shift mask (or None)
+        for the slab's lat windows (the whole tables without one)."""
+        bias, mask = self.attention.earth_specific_bias[0], self.attn_mask
+        if slab is not None:
+            bias = slab.cut_types(bias)
+            mask = None if mask is None else slab.cut_types(mask)
+        return bias.float(), mask
 
     def forward(self, x: torch.Tensor, s1: Optional[torch.Tensor] = None,
                 s2: Optional[torch.Tensor] = None, kept: Optional[frozenset] = None,
@@ -187,14 +208,15 @@ class EarthSpecificBlock(nn.Module):
         ``kept`` is None (no checkpoint) or the set of stage outputs the
         backward keeps ("attention", "mlp"; empty: the whole block is
         recomputed) and ``seeds`` the dropout seeds (``draw_seeds``)."""
+        slab = spatial.slab_of(self.stage, active_mesh())
         if self.training:
             if s1 is None or s2 is None:
                 raise ValueError("a training block needs its drop-path scales s1 and s2")
             if self.train_fused(x):
-                return self._train_fused(x, s1, s2)
-            return run_stages(self._train_stages(x, s1, s2, seeds), x, kept)
+                return self._train_fused(x, s1, s2, slab)
+            return run_stages(self._train_stages(x, s1, s2, seeds, slab), x, kept)
 
-        shortcut, x = self._enter(x)
+        shortcut, x = self._enter(x, slab)
         if (self.use_kernel and x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
                 and not self.adapted()):
             cdt = x.dtype
@@ -203,37 +225,39 @@ class EarthSpecificBlock(nn.Module):
                 x,
                 linear_weight(attn.linear1).to(cdt), attn.linear1.bias.to(cdt),
                 linear_weight(attn.linear2).to(cdt), attn.linear2.bias.to(cdt),
-                attn.earth_specific_bias[0].float(), self.attn_mask,
+                *self._tables(slab),
                 self.norm1.weight.float(), self.norm1.bias.float(),
                 *mlp.weights(cdt),
                 self.norm2.weight.float(), self.norm2.bias.float(),
                 self.stage.window, self.heads, (self.dim // self.heads) ** -0.5,
             )
-            return self._roll_back(x)
+            return self._roll_back(x, slab)
 
-        x = self._roll_back(self.attention(x, self.attn_mask))
+        bias, mask = self._tables(slab)
+        x = self._roll_back(self.attention(x, mask, bias=bias), slab)
         x = shortcut + apply_layer_norm(x, self.norm1.weight, self.norm1.bias)
         return x + apply_layer_norm(self.linear(x), self.norm2.weight, self.norm2.bias)
 
-    def _train_fused(self, x: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    def _train_fused(self, x: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
+                     slab: Optional[spatial.Slab]) -> torch.Tensor:
         """The training block as one call of K11 (backward K12)."""
-        _, x = self._enter(x)
+        _, x = self._enter(x, slab)
         cdt, attn, mlp = x.dtype, self.attention, self.linear
         x = fused_block_train.fused_earth_block_train(
             x,
             linear_weight(attn.linear1).to(cdt), attn.linear1.bias.to(cdt),
             linear_weight(attn.linear2).to(cdt), attn.linear2.bias.to(cdt),
-            attn.earth_specific_bias[0].float(), self.attn_mask,
+            *self._tables(slab),
             self.norm1.weight.float(), self.norm1.bias.float(),
             *mlp.weights(cdt),
             self.norm2.weight.float(), self.norm2.bias.float(),
             s1.reshape(-1), s2.reshape(-1),
             self.stage.window, self.heads, (self.dim // self.heads) ** -0.5,
         )
-        return self._roll_back(x)
+        return self._roll_back(x, slab)
 
     def _train_stages(self, x: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
-                      seeds: Optional[dict]) -> list:
+                      seeds: Optional[dict], slab: Optional[spatial.Slab]) -> list:
         """The training block as (function, name, kernel) stages, each a
         function of the previous stage's tensors returning a tuple; the names
         "attention" and "mlp" mark the stages whose outputs the remat flags
@@ -247,11 +271,12 @@ class EarthSpecificBlock(nn.Module):
         mlp_kernel = residual_kernel and not mlp.plain_only()
 
         def attention(x):
-            shortcut, x = self._enter(x)
-            return shortcut, attn(x, self.attn_mask, seeds=seeds)
+            shortcut, x = self._enter(x, slab)
+            bias, mask = self._tables(slab)
+            return shortcut, attn(x, mask, seeds=seeds, bias=bias)
 
         def residual(shortcut, y):
-            y = self._roll_back(y)
+            y = self._roll_back(y, slab)
             if residual_kernel:
                 return (fused_residual_postnorm(shortcut, y, norm1.weight.float(),
                                                 norm1.bias.float(), s1),)
@@ -320,16 +345,17 @@ def drop_path_scale(batch: int, rate: float, generator: Optional[torch.Generator
     """Per-sample stochastic-depth branch scale (B, 1, 1, 1, 1) f32: 1/keep
     with probability keep = 1 - rate, else 0 (ones at rate 0). Under an
     active mesh the generator (the same on every rank) draws the global
-    batch's B * data uniforms and the rank keeps its rows, so a world of N
-    ranks draws what one process draws for the whole batch, as the JAX
-    package's global key does."""
+    batch's B * data uniforms and the rank keeps the rows of its data
+    coordinate, so a world of N ranks draws what one process draws for the
+    whole batch, as the JAX package's global key does, and the spatial peers
+    of one sample draw the same scales."""
     if rate <= 0.0:
         return torch.ones((batch, 1, 1, 1, 1), device=device)
     if generator is None:
         raise ValueError("drop path in training needs an explicit torch.Generator")
     keep = 1.0 - rate
     mesh = active_mesh()
-    world, rank = (mesh.data, mesh.rank) if mesh is not None else (1, 0)
+    world, rank = (mesh.data, mesh.data_rank) if mesh is not None else (1, 0)
     u = torch.rand((batch * world,), generator=generator, device=generator.device)
     u = u[rank * batch:(rank + 1) * batch].to(device)
     return torch.where(u < keep, 1.0 / keep, 0.0).reshape(batch, 1, 1, 1, 1).float()
@@ -337,7 +363,11 @@ def drop_path_scale(batch: int, rate: float, generator: Optional[torch.Generator
 
 class EarthSpecificLayer(nn.Module):
     """A stack of blocks alternating unshifted/shifted windows. Latitude is
-    window-padded once for the whole stack and cropped at the end.
+    window-padded once for the whole stack and cropped at the end. Under a
+    spatial mesh the blocks run on the rank's slab, taken after the pad and
+    gathered before the crop (``parallel.spatial.scatter``/``gather``), inside
+    ``parallel.spatial.on_slab``; ``parallel.spatial.record_shardings`` logs each block's input shape
+    beside the whole grid's.
 
     In training each block gets two fresh drop-path scales and, when it
     draws dropout masks, its per-site seeds, drawn here, outside the
@@ -370,14 +400,37 @@ class EarthSpecificLayer(nn.Module):
         st = self.stage
         assert tuple(x.shape[1:4]) == (st.z, st.h, st.w), (x.shape, st)
         x = F.pad(x, (0, 0, 0, 0, 0, st.h_pad - st.h))
-        for block, rate in zip(self.blocks.values(), self.drop_path_rates):
-            if not self.training:
-                x = block(x)
-                continue
-            s1 = drop_path_scale(x.shape[0], rate, generator, x.device)
-            s2 = drop_path_scale(x.shape[0], rate, generator, x.device)
-            x = block(x, s1, s2, self.kept, block.draw_seeds(generator))
+        whole = tuple(x.shape)
+        slab = spatial.slab_of(st, active_mesh())
+        if slab is not None:
+            x = spatial.scatter(x, slab)
+        with spatial.on_slab(slab):
+            for (name, block), rate in zip(self.blocks.items(), self.drop_path_rates):
+                spatial.record(f"block:{name}", whole, x.shape)
+                if not self.training:
+                    x = block(x)
+                    continue
+                s1 = drop_path_scale(x.shape[0], rate, generator, x.device)
+                s2 = drop_path_scale(x.shape[0], rate, generator, x.device)
+                x = block(x, s1, s2, self.kept, block.draw_seeds(generator))
+        if slab is not None:
+            x = spatial.gather(x, slab)
         return x[:, :, :st.h]
+
+
+def slab_tensors(model: nn.Module) -> list:
+    """The tensors ``model``'s layers use on slabs under a spatial mesh: the
+    parameters of every ``EarthSpecificLayer`` and the A and B of the LoRA
+    adapters riding its linears. Their gradients are partial sums over the
+    rank's slab (``parallel.sharding.spatial_reduce``); every other
+    tensor is used on the whole grid, the same on every spatial peer."""
+    out = []
+    for layer in model.modules():
+        if isinstance(layer, EarthSpecificLayer):
+            out += list(layer.parameters())
+            out += [t for m in layer.modules() if m.__dict__.get("lora") is not None
+                    for t in (m.lora.a, m.lora.b)]
+    return out
 
 
 class DownSample(nn.Module):

@@ -4,14 +4,18 @@ era5_data/utils_dist.py:15-207).
 
 One process per card, joined by ``torch.distributed``: NCCL on the card,
 gloo only when the caller asks for the CPU. The mesh is a small record of
-the process group, the size of its ``data`` axis (the world) and this
-process's rank in it. Model code reads the active mesh (``activate_mesh``)
-instead of taking it as an argument, as in the JAX package. Only the
-``data`` axis is ported: data parallelism with ZeRO sharding of the Adam
-state (``parallel.sharding``). Spatial sharding over ``lat``/``lon`` and the
-``pipe`` axis are refused (ROADMAP queue 1, items 10b and 10c).
+the process group, the sizes of its axes ``(data, lat, lon)``, this process's
+rank, and the process groups of the data axis and of the lat x lon plane.
+Ranks are laid out row-major over ``(data, lat, lon)``, as the JAX
+``make_mesh`` reshapes its devices: the world is ``data * lat * lon``. Model
+code reads the active mesh (``activate_mesh``) instead of taking it as an
+argument, as in the JAX package. The ``data`` axis runs data parallelism with
+ZeRO sharding of the Adam state (``parallel.sharding``); ``lat`` and ``lon``
+shard the window-padded token grid of every layer (``parallel.spatial``).
+The ``pipe`` axis is refused (ROADMAP queue 1, item 10c).
 
-Launch: ``torchrun --nproc-per-node N -m pangu_tpu_torch.scripts.finetune ...``.
+Launch: ``torchrun --nproc-per-node N -m pangu_tpu_torch.scripts.finetune ...
+[--set parallel.lat=2 --set parallel.lon=2]``.
 """
 
 from __future__ import annotations
@@ -26,19 +30,50 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from pangu_tpu_torch.config import ParallelConfig
+from pangu_tpu_torch.config import ModelConfig, ParallelConfig
+from pangu_tpu_torch.geometry import Geometry, StageGeometry, compute_geometry
+
+# the name of torch 2.13; older releases have only the second form
+all_gather_tensor = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 _local = threading.local()
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data-parallel mesh: ``group`` (None: the default process group),
-    the size of its ``data`` axis and this process's ``rank`` on it."""
+    """The mesh: ``group`` (None: the default process group), the sizes of
+    its ``data``, ``lat`` and ``lon`` axes and this process's ``rank`` in
+    ``group``; ``data_group`` reduces over the data axis (None: the default
+    group, which is the data axis when lat = lon = 1) and ``plane_group``
+    over the rank's lat x lon plane (None without one)."""
 
     group: Optional[dist.ProcessGroup]
     data: int
     rank: int
+    lat: int = 1
+    lon: int = 1
+    data_group: Optional[dist.ProcessGroup] = None
+    plane_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def size(self) -> int:
+        return self.data * self.lat * self.lon
+
+    @property
+    def coords(self) -> tuple:
+        """This rank's (data, lat, lon) coordinates."""
+        d, plane = divmod(self.rank, self.lat * self.lon)
+        return d, plane // self.lon, plane % self.lon
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's coordinate on the data axis: the sample shard it holds."""
+        return self.coords[0]
+
+    def global_rank(self, d: int, la: int, lo: int) -> int:
+        """The global rank of the mesh position (d, la, lo)."""
+        r = (d * self.lat + la) * self.lon + lo
+        return r if self.group is None else dist.get_global_rank(self.group, r)
 
 
 def _world() -> int:
@@ -82,64 +117,112 @@ def is_main() -> bool:
 
 
 def _refuse_unported(cfg: ParallelConfig) -> None:
-    if cfg.lat > 1 or cfg.lon > 1:
-        raise NotImplementedError(
-            f"parallel.lat={cfg.lat}, parallel.lon={cfg.lon}: spatial sharding of the token "
-            "grid is not ported (ROADMAP queue 1, item 10b)")
     if cfg.pipe > 1:
         raise NotImplementedError(
             f"parallel.pipe={cfg.pipe}: the GPipe pipeline is not ported "
             "(ROADMAP queue 1, item 10c)")
 
 
-def make_mesh(cfg: ParallelConfig, group: Optional[dist.ProcessGroup] = None) -> Mesh:
+def _check_stage(name: str, stage: StageGeometry, lat: int, lon: int) -> None:
+    n_lat, n_lon = stage.h_pad // stage.window[1], stage.n_lon_windows
+    for axis, ranks, windows in (("lat", lat, n_lat), ("lon", lon, n_lon)):
+        if ranks > windows:
+            raise ValueError(
+                f"parallel.{axis}={ranks} outnumbers the {windows} {axis} windows of the "
+                f"{name} stage (grid {stage.z} x {stage.h_pad} x {stage.w}, window "
+                f"{stage.window}): every rank of a spatial axis needs a whole window")
+
+
+def check_partition(geom: Geometry, lat: int, lon: int) -> None:
+    """Raise ValueError, naming the stage, where ``lat`` or ``lon`` ranks
+    outnumber a stage's windows along that axis (the JAX ``valid_spec``
+    silently drops such an axis instead)."""
+    for name, stage in (("outer", geom.outer), ("inner", geom.inner)):
+        _check_stage(name, stage, lat, lon)
+
+
+def _new_group(ranks: list, group: Optional[dist.ProcessGroup]):
+    """A process group of the mesh positions ``ranks`` (ranks of ``group``);
+    every process calls it for every group, in the same order."""
+    if group is not None:
+        ranks = [dist.get_global_rank(group, r) for r in ranks]
+    return dist.new_group(ranks)
+
+
+def make_mesh(cfg: ParallelConfig, group: Optional[dist.ProcessGroup] = None,
+              model: Optional[ModelConfig] = None) -> Mesh:
     """The mesh of ``cfg`` over the initialized process ``group`` (default:
-    the world); ``cfg.data`` must be the group's size."""
+    the world): ``data * lat * lon`` must be the group's size. With lat or
+    lon > 1 every process creates the data and plane groups (collectively);
+    such a mesh needs the ``model``, and an axis with more ranks than a
+    stage has windows along it raises ValueError naming the stage, before
+    anything else. This is the only check: the slabs trust the mesh."""
     _refuse_unported(cfg)
+    if cfg.lat * cfg.lon > 1:
+        if model is None:
+            raise ValueError("a mesh with lat or lon > 1 needs the model config, to check "
+                             "that every rank of a spatial axis gets whole windows")
+        check_partition(compute_geometry(model), cfg.lat, cfg.lon)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group (distributed_init)")
-    world = dist.get_world_size(group)
-    if cfg.data != world:
-        raise ValueError(f"parallel.data={cfg.data} but the process group holds {world} ranks "
-                         "(one process per card)")
-    return Mesh(group, world, dist.get_rank(group))
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if cfg.data * cfg.lat * cfg.lon != world:
+        raise ValueError(f"parallel {cfg.data} x {cfg.lat} x {cfg.lon} (data x lat x lon) but "
+                         f"the process group holds {world} ranks (one process per card)")
+    plane = cfg.lat * cfg.lon
+    if plane == 1:
+        return Mesh(group, world, rank, data_group=group)
+    data_group = plane_group = None
+    for d in range(cfg.data):  # the planes, then the data axes
+        g = _new_group(list(range(d * plane, (d + 1) * plane)), group)
+        if rank // plane == d:
+            plane_group = g
+    for p in range(plane):
+        g = _new_group(list(range(p, world, plane)), group)
+        if rank % plane == p:
+            data_group = g
+    return Mesh(group, cfg.data, rank, cfg.lat, cfg.lon, data_group, plane_group)
 
 
-def infer_mesh(group: Optional[dist.ProcessGroup] = None) -> Mesh:
-    """Every rank on the data axis -- the safe default (pure DP)."""
-    return make_mesh(ParallelConfig(data=dist.get_world_size(group)), group)
-
-
-def resolve_mesh(cfg: ParallelConfig, device=None) -> Optional[Mesh]:
+def resolve_mesh(cfg: ParallelConfig, device=None,
+                 model: Optional[ModelConfig] = None) -> Optional[Mesh]:
     """Entry-point mesh policy: never silently waste attached cards.
 
-    None for a single process (the collective-free path); a default
-    (1x1x1x1) config in a world of N processes expands to data parallelism
-    over all of them (``infer_mesh``), as the JAX policy does over devices;
-    a ``parallel.data`` that is neither 1 nor the world size raises, and so
-    do ``lat``, ``lon`` or ``pipe`` > 1 (not ported). A world smaller than
-    the cards of ``device``'s host logs that the others will IDLE."""
+    None for a single process (the collective-free path), where any axis
+    above 1 raises; in a world of N processes a ``parallel.data`` of 1
+    expands to N / (lat * lon), so a default (1x1x1x1) config is data
+    parallelism over all of them, as the JAX policy does over devices; a
+    lat x lon that does not divide N, or a ``data`` that is neither 1 nor
+    N / (lat * lon), raises, and so does ``pipe`` > 1 (not ported) and,
+    given the ``model``, an axis that outnumbers a stage's windows. A
+    world smaller than the cards of ``device``'s host logs that the others
+    will IDLE."""
     _refuse_unported(cfg)
     log = logging.getLogger("pangu_tpu_torch")
     world = _world()
-    if world == 1 and cfg.data > 1:
+    plane = cfg.lat * cfg.lon
+    if world == 1 and cfg.data * plane > 1:
         raise ValueError(
-            f"parallel config asks for {cfg.data} devices but this is a single process -- "
-            f"launch one process per card (torchrun --nproc-per-node {cfg.data}) or drop "
-            "the parallel.* overrides")
-    if world > 1 and cfg.data not in (1, world):
+            f"parallel config asks for {cfg.data * plane} devices ({cfg.data} x {cfg.lat} x "
+            f"{cfg.lon}, data x lat x lon) but this is a single process -- launch one process "
+            f"per card (torchrun --nproc-per-node {cfg.data * plane}) or drop the parallel.* "
+            "overrides")
+    if world > 1 and world % plane:
+        raise ValueError(f"parallel.lat x parallel.lon = {plane} does not divide WORLD_SIZE "
+                         f"{world}")
+    if world > 1 and cfg.data not in (1, world // plane):
         raise ValueError(f"parallel.data={cfg.data} but WORLD_SIZE is {world}")
     cards = (torch.cuda.device_count()
              if device is not None and torch.device(device).type == "cuda" else 0)
     if world < cards:
-        log.warning("parallel config %dx1x1x1 covers only %d of %d attached devices -- the "
-                    "other %d will IDLE for the whole run", world, world, cards, cards - world)
+        log.warning("%d processes cover only %d of %d attached devices -- the other %d will "
+                    "IDLE for the whole run", world, world, cards, cards - world)
     if world == 1:
         return None
-    if cfg.data == 1:
+    if cfg.data * plane == 1:
         log.info("parallel config covers 1 device but %d processes run -- using a "
                  "data-parallel mesh over all of them", world)
-    return infer_mesh()
+    return make_mesh(dataclasses.replace(cfg, data=world // plane), model=model)
 
 
 @contextlib.contextmanager

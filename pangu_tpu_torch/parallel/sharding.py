@@ -16,6 +16,12 @@ updated whole on every rank. Every collective is one call per tensor
 
 Unlike the JAX functions, these do not return early at ``data`` 1: under an
 active mesh one card runs the same collectives, which are copies there.
+
+Under a mesh with a lat x lon plane every collective here runs over the
+rank's data group (the JAX ``_zero_spec`` shards over ``"data"`` only): the
+spatial peers of one data replica hold the same shards. Before them,
+``spatial_reduce`` sums over the plane the gradients of the tensors the
+layers use on their slabs, each a partial sum over one slab.
 """
 
 from __future__ import annotations
@@ -25,10 +31,9 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from pangu_tpu_torch.parallel.mesh import Mesh, active_mesh
+from pangu_tpu_torch.parallel.mesh import Mesh, active_mesh, all_gather_tensor
 
-# the names of torch 2.13; older releases have only the first forms
-_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+# the name of torch 2.13; older releases have only the second form
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
@@ -66,19 +71,19 @@ def local_shard(x: torch.Tensor, dim: Optional[int], mesh: Mesh) -> torch.Tensor
     if dim is None:
         return x
     k = x.shape[dim] // mesh.data
-    return x.movedim(dim, 0).narrow(0, mesh.rank * k, k).contiguous()
+    return x.movedim(dim, 0).narrow(0, mesh.data_rank * k, k).contiguous()
 
 
 def gather_full(shard: torch.Tensor, dim: Optional[int], mesh: Mesh,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """All-gather the ranks' ``shard``s (front-moved layout) into the full
+    """All-gather the data axis's ``shard``s (front-moved layout) into the full
     tensor, in ``out``'s layout when given (written in place), else a new
     contiguous tensor."""
     if dim is None:
         return shard
     full = torch.empty((shard.shape[0] * mesh.data, *shard.shape[1:]), dtype=shard.dtype,
                        device=shard.device)
-    _all_gather(full, shard, group=mesh.group)
+    all_gather_tensor(full, shard, group=mesh.data_group)
     full = full.movedim(0, dim)
     if out is None:
         return full.contiguous()
@@ -88,14 +93,15 @@ def gather_full(shard: torch.Tensor, dim: Optional[int], mesh: Mesh,
 
 def shard_batch(batch: Any, mesh: Mesh) -> Any:
     """This rank's rows of a global batch (a Batch or any tuple of arrays or
-    tensors); with gradient accumulation (6-d upper fields) the rows are on
+    tensors), by its data coordinate; with gradient accumulation (6-d upper fields) the rows are on
     axis 1, behind the microbatch axis."""
     axis = 1 if batch[0].ndim == 6 else 0
     rows = batch[0].shape[axis]
     if rows % mesh.data:
         raise ValueError(f"a global batch of {rows} does not split over {mesh.data} ranks")
     b = rows // mesh.data
-    sl = (slice(None),) * axis + (slice(mesh.rank * b, (mesh.rank + 1) * b),)
+    d = mesh.data_rank
+    sl = (slice(None),) * axis + (slice(d * b, (d + 1) * b),)
     return type(batch)(*(x[sl] for x in batch))
 
 
@@ -194,9 +200,19 @@ def zero_shard_opt_state(optimizer: torch.optim.Optimizer, mesh: Mesh,
     return ShardedOptimizer(optimizer, mesh) if enable else optimizer
 
 
+def spatial_reduce(grads: Sequence[Optional[torch.Tensor]]) -> None:
+    """Sum each gradient over the active mesh's lat x lon plane, in place:
+    the gradients of tensors used on the slabs (blocks, their adapters, the
+    earth bias), each a partial sum over the rank's slab. None stays None."""
+    mesh = _mesh()
+    for g in grads:
+        if g is not None:
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=mesh.plane_group)
+
+
 def zero_constraint(grads: Sequence[Optional[torch.Tensor]],
                     enable: bool = True) -> List[Optional[torch.Tensor]]:
-    """Average the ranks' gradients over the active mesh. With ``enable``
+    """Average the ranks' gradients over the active mesh's data axis. With ``enable``
     (ZeRO-2): a reduce-scatter of each gradient along its ``_zero_spec`` dim,
     moved to the front and contiguous, returning the rank's shard; a
     gradient with no divisible dim is all-reduced whole. Without (ZeRO-1
@@ -209,13 +225,13 @@ def zero_constraint(grads: Sequence[Optional[torch.Tensor]],
         if g is None:
             out.append(None)
         elif d is None:
-            dist.all_reduce(g, op=dist.ReduceOp.AVG, group=mesh.group)
+            dist.all_reduce(g, op=dist.ReduceOp.AVG, group=mesh.data_group)
             out.append(g)
         else:
             full = g.movedim(d, 0).contiguous()
             shard = torch.empty((full.shape[0] // mesh.data, *full.shape[1:]), dtype=g.dtype,
                                 device=g.device)
-            _reduce_scatter(shard, full, op=dist.ReduceOp.AVG, group=mesh.group)
+            _reduce_scatter(shard, full, op=dist.ReduceOp.AVG, group=mesh.data_group)
             out.append(shard)
     return out
 
@@ -247,9 +263,10 @@ def zero_bytes_per_device(tree: Any, mesh: Mesh, enable: bool = True) -> int:
 
 
 def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
-    """``x`` averaged over the active mesh's ranks, in place."""
+    """``x`` averaged over the active mesh's data axis, in place (the spatial
+    peers of a data replica hold the same value)."""
     mesh = _mesh()
-    dist.all_reduce(x, op=dist.ReduceOp.AVG, group=mesh.group)
+    dist.all_reduce(x, op=dist.ReduceOp.AVG, group=mesh.data_group)
     return x
 
 

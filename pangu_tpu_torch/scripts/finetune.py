@@ -11,14 +11,19 @@ Checkpoints go to ``<out>/finetune_fully/<horizon>/models`` (``train_<n>/``,
 ``best/``); ``--resume`` continues from the latest. Runs on the card;
 ``main(argv, device="cpu")`` runs on the CPU.
 
-Data parallel, one process per card, ZeRO-2 by default (``parallel.*``):
+Data parallel, one process per card, ZeRO-2 by default (``parallel.*``),
+with the token grid optionally sharded over a lat x lon plane of ranks:
 
     torchrun --nproc-per-node N -m pangu_tpu_torch.scripts.finetune ...
+    torchrun --nproc-per-node 4 -m pangu_tpu_torch.scripts.finetune ... \
+        --set parallel.lat=2 --set parallel.lon=2
 
-Each rank loads ``train.batch_size // N`` samples a step from its shard of
-the train and val ranges; rank 0 writes the checkpoints, the log file and
-the writer, and scores the test range. Spatial (``parallel.lat``/``lon``)
-and pipeline (``parallel.pipe``) sharding are refused (``resolve_mesh``).
+The data axis holds N / (lat * lon) replicas (``resolve_mesh``). Each
+replica loads ``train.batch_size // replicas`` samples a step from its
+shard of the train and val ranges, the same on each of its spatial peers;
+rank 0 writes the checkpoints, the log file and the writer, and scores the
+test range. Pipeline sharding (``parallel.pipe``) is refused, and so is
+lat or lon > 1 in a single process.
 """
 
 from __future__ import annotations
@@ -49,8 +54,9 @@ def rank_logger(name: str, path: str) -> logging.Logger:
 
 
 def shard_of_world(mesh) -> tuple:
-    """(world size, rank) of ``mesh``; (1, 0) without one."""
-    return (mesh.data, mesh.rank) if mesh is not None else (1, 0)
+    """(data replicas, this rank's data coordinate) of ``mesh``: the loaders'
+    shards (spatial peers load the same samples); (1, 0) without one."""
+    return (mesh.data, mesh.data_rank) if mesh is not None else (1, 0)
 
 
 def open_writer(out_dir: str):
@@ -75,7 +81,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> Optional[float]
 
     cfg = build_config(args)
     # resolve_mesh expands a default config over every rank and refuses what is not ported
-    mesh = resolve_mesh(cfg.parallel, device)
+    mesh = resolve_mesh(cfg.parallel, device, cfg.model)
     world, rank = shard_of_world(mesh)
     out_dir = os.path.join(cfg.out_dir, "finetune_fully", str(cfg.horizon))
     os.makedirs(out_dir, exist_ok=True)

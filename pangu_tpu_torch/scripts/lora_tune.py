@@ -16,10 +16,12 @@ adapted sites run the plain path. The best tree is written to
 the card; ``main(argv, device="cpu")`` runs on the CPU.
 
 Data parallel as the finetune script (``torchrun --nproc-per-node N -m
-pangu_tpu_torch.scripts.lora_tune ...``): replicated adapters whose
-gradients are averaged over the ranks, each rank on its shard of every
-global batch (the JAX script's "replicated adapters + data-sharded global
-batches"); rank 0 writes the files and scores the test range.
+pangu_tpu_torch.scripts.lora_tune ...``, ``parallel.lat``/``lon`` too):
+replicated adapters whose gradients are averaged over the data axis, each
+replica on its shard of every global batch (the JAX script's "replicated
+adapters + data-sharded global batches"); under a spatial mesh the adapters
+of the blocks' linears are summed over the plane first, as every tensor
+used on a slab is; rank 0 writes the files and scores the test range.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> Optional[float]
     device = distributed_init(device=require_device(device))
 
     cfg = build_config(args)
-    mesh = resolve_mesh(cfg.parallel, device)
+    mesh = resolve_mesh(cfg.parallel, device, cfg.model)
     world, rank = shard_of_world(mesh)
     out_dir = os.path.join(cfg.out_dir, "lora", str(cfg.horizon))
     os.makedirs(out_dir, exist_ok=True)

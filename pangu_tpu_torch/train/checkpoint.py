@@ -11,8 +11,9 @@ count, which the optimizer state carries. Files are written uncompressed
 (plain ``torch.save``) and read with ``weights_only=True``.
 
 Under an active mesh every rank calls a save: a sharded optimizer gathers
-its moments into the one-device layout (a collective), rank 0 writes the
-file, and all ranks meet at a barrier after it. Every rank reads a load,
+its moments into the one-device layout (a collective over its data group;
+the spatial peers of a data replica hold the same shards), rank 0 writes
+the file, and all ranks meet at a barrier after it. Every rank reads a load,
 and a sharded optimizer keeps its shards of the moments; so a checkpoint
 written at one world size resumes at any other, one process included, and
 the file is the same as one process writes.

@@ -28,6 +28,11 @@ tensors in place of the model's, every other parameter frozen. Two forms:
     dropout (the JAX ``lora_tap``); the adapted attention and MLP sites take
     the plain path, as in JAX. Eval always merges: with dropout off the two
     forms are the same function.
+
+Under a spatial mesh the adapters on the layers' linears work on slabs, as
+the linears do: their gradients are summed over the lat x lon plane before
+the data axis averages them (``model.blocks.slab_tensors``); the adapters of
+the joints and the full-train heads work on the whole grid and are not.
 """
 
 from __future__ import annotations

@@ -17,7 +17,15 @@ the Trainer builds it when ``cfg.parallel.zero_opt_state``), ZeRO-2 when
 shards, all-gather), else ZeRO-1 (all-reduce, the sharded update,
 all-gather); with a plain optimizer, plain DP (all-reduce, the full update
 on every rank), which is also how replicated LoRA adapters train. The loss
-returned is the mean over the ranks, the same value on every rank.
+returned is the mean over the data axis, the same value on every rank.
+
+Under a mesh with a lat x lon plane the step first sums over the plane the
+gradients of the tensors the layers use on their slabs (``spatial_reduce``
+of ``model.blocks.slab_tensors``: blocks, their adapters, the earth biases;
+each rank's is a partial sum over its slab); the tensors used on the whole
+grid (embedding, joints, recovery, the LoRA heads) already hold the whole
+gradient, the same on every spatial peer, and are not reduced. Then the
+data axis runs one of the three modes over the data group.
 """
 
 from __future__ import annotations
@@ -29,10 +37,11 @@ from torch import nn
 
 from pangu_tpu_torch.config import PanguConfig
 from pangu_tpu_torch.aux import AuxConstants, norm_data
+from pangu_tpu_torch.model.blocks import slab_tensors
 from pangu_tpu_torch.model.pangu import check_kernel_widths
 from pangu_tpu_torch.parallel.mesh import active_mesh
 from pangu_tpu_torch.parallel.sharding import (ShardedOptimizer, all_reduce_mean, local_shard,
-                                               replicate_constraint, trainable,
+                                               replicate_constraint, spatial_reduce, trainable,
                                                zero_constraint)
 from pangu_tpu_torch.train.loss import weighted_l1_loss
 from pangu_tpu_torch.train.schedule import multistep_lr
@@ -95,15 +104,21 @@ def loss_fn(model: nn.Module, batch: Batch, aux: AuxConstants, cfg: PanguConfig,
                             only_wind_speed=cfg.train.only_wind_speed_loss, mask=mask)
 
 
-def _update(optimizer, cfg: PanguConfig, loss: torch.Tensor, timer) -> torch.Tensor:
-    """Average the gradients over the active mesh, update, and return the
-    loss averaged over the ranks (one rank: the plain update)."""
+def _update(optimizer, cfg: PanguConfig, loss: torch.Tensor, timer,
+            model: nn.Module) -> torch.Tensor:
+    """Sum the slab gradients over the active mesh's plane, average the
+    gradients over its data axis, update, and return the loss averaged over
+    the data axis (one rank: the plain update)."""
     mesh = active_mesh()
     if mesh is None:
         optimizer.step()
         timer.mark("update")
         return loss
     loss = all_reduce_mean(loss)
+    if mesh.lat * mesh.lon > 1:
+        on_slabs = {id(t) for t in slab_tensors(model)}
+        spatial_reduce([p.grad for p in trainable(optimizer) if id(p) in on_slabs])
+        timer.mark("spatial_reduce")
     if not isinstance(optimizer, ShardedOptimizer):  # plain DP
         zero_constraint([p.grad for p in trainable(optimizer)], enable=False)
         timer.mark("all_reduce")
@@ -168,8 +183,9 @@ def make_train_step(model: nn.Module, cfg: PanguConfig, optimizer,
     first checks that the kernels take the model's widths
     (``check_kernel_widths``). ``spans``, when given, gains the wall seconds
     of the step's phases summed over its calls, each ended by a
-    synchronize: ``forward_backward``, under a mesh ``reduce_scatter`` (ZeRO-2)
-    or ``all_reduce``, ``update``, and with sharded moments ``all_gather``.
+    synchronize: ``forward_backward``, under a spatial mesh ``spatial_reduce``,
+    under a mesh ``reduce_scatter`` (ZeRO-2) or ``all_reduce``, ``update``,
+    and with sharded moments ``all_gather``.
     """
     from pangu_tpu_torch.eval.evaluate import Spans  # evaluate imports this module
 
@@ -209,7 +225,7 @@ def make_train_step(model: nn.Module, cfg: PanguConfig, optimizer,
         lr = schedule(optimizer_step_count(optimizer))
         for group in optimizer.param_groups:
             group["lr"] = lr
-        return _update(optimizer, cfg, loss_sum / accum, timer)
+        return _update(optimizer, cfg, loss_sum / accum, timer, model)
 
     return step
 

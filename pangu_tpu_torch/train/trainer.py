@@ -10,14 +10,15 @@ The loader contract is any iterable of (Batch of numpy arrays, periods) with
 ``__len__``, as the port's loaders and plain lists in tests give. Batches move
 to the model's device through pinned memory (``eval.evaluate.to_device``).
 
-Under an active mesh (one process per card) each rank's loaders hold its
-shard of the samples (``make_loader(..., num_shards, shard)``), the step
-averages over the ranks, and so does validation: every rank holds the same
-train and validation losses, so early stopping and the loss brake decide
+Under an active mesh (one process per card) each rank's loaders hold the
+shard of the samples of its data coordinate (``make_loader(..., num_shards,
+shard)``; the spatial peers of a data replica load the same samples and run
+its slabs), the step averages over the data axis, and so does validation:
+every rank holds the same train and validation losses, so early stopping and the loss brake decide
 alike everywhere (a rank that broke out alone would leave the others
 waiting in the next collective). Every rank joins each checkpoint save;
-rank 0 writes it. Log lines, the writer and ``visualize`` (one process
-only) are rank 0's.
+rank 0 writes it. Log lines, the writer and ``visualize`` (a mesh of one
+rank at most) are rank 0's.
 """
 
 from __future__ import annotations
@@ -51,9 +52,10 @@ def sharded_val_stats(eval_step: Callable, val_loader: Iterable, aux: AuxConstan
                       device: torch.device, count: int = 1,
                       last_batch_box: Optional[dict] = None) -> Tuple[float, int]:
     """(loss_sum, n_batches) over the validation set, one
-    ``eval_step(batch, aux)`` per batch. With ``count`` > 1 processes (an
-    active mesh) each rank's ``val_loader`` holds its wrap-padded shard
-    (equal counts) and each batch's loss is averaged over the ranks: the
+    ``eval_step(batch, aux)`` per batch. With ``count`` > 1 data replicas (an
+    active mesh) each rank's ``val_loader`` holds its data coordinate's
+    wrap-padded shard (equal counts) and each batch's loss is averaged over
+    the data axis: the
     mean over the global batch, as the JAX function's lockstep launch gives,
     the same sums on every rank. ``last_batch_box``, when given, receives
     the last host batch under key "batch" (the reference visualizes the
@@ -147,6 +149,7 @@ class Trainer:
         self.writer = writer
         self.logger = logger or get_logger("pangu_tpu_torch.train")
         self.mesh = active_mesh()
+        # data replicas: the validation losses average over the data axis
         self.count = self.mesh.data if self.mesh is not None else 1
         self.is_main = is_main()
         if optimizer is None:
@@ -248,7 +251,8 @@ class Trainer:
                 saving.mark("save")
 
             if val_loader is not None and epoch % cfg.train.val_interval == 0:
-                viz_box = {} if self.visualize and self.count == 1 else None
+                viz_box = ({} if self.visualize and (self.mesh is None or self.mesh.size == 1)
+                           else None)
                 loss_sum, n_val = sharded_val_stats(self.eval_step, val_loader, self.aux,
                                                     self.device, self.count,
                                                     last_batch_box=viz_box)
@@ -294,7 +298,7 @@ class Trainer:
     def _stop_profile(self, profiler, epoch: int) -> None:
         profiler.stop()
         os.makedirs(self.profile_dir, exist_ok=True)
-        rank = "" if self.mesh is None else f".rank{self.mesh.rank}"
+        rank = "" if self.mesh is None else f".rank{self.mesh.rank}"  # the global rank
         path = os.path.join(self.profile_dir, f"epoch_{epoch}{rank}.trace.json")
         profiler.export_chrome_trace(path)
         self._log("profile written to %s", path)

@@ -1,4 +1,5 @@
-"""The port's data parallelism (``pangu_tpu_torch.parallel``) on the CPU.
+"""The port's data parallelism (``pangu_tpu_torch.parallel``) on the CPU
+(the lat x lon axes: ``tests/test_torch_spatial.py``).
 
 Ranks are real processes (``tests/torch_parallel_worker.py``, which imports
 nothing of jax or the JAX package) joined over gloo through a ``file://``
@@ -74,8 +75,8 @@ ROWS = 4  # the global batch: 2 rows a rank at world 2, 1 at world 4
 MODES = list(worker.MODES)
 
 
-def _spawn(world: int, spec: dict, out: str) -> list:
-    """Run ``world`` ranks of the worker; return each rank's saved results.
+def _spawn(world: int, spec: dict, out: str, worker: str = WORKER) -> list:
+    """Run ``world`` ranks of ``worker``; return each rank's saved results.
     The ranks get 120 s together; on a failure or a timeout every rank is
     killed and the test fails with the failed rank's stderr."""
     os.makedirs(out, exist_ok=True)
@@ -87,7 +88,7 @@ def _spawn(world: int, spec: dict, out: str) -> list:
             logs.append(open(os.path.join(out, f"rank{r}.log"), "w"))
             s = dict(spec, world=world, rank=r, out=out,
                      init="file://" + os.path.join(out, "store"))
-            procs.append(subprocess.Popen([sys.executable, WORKER, json.dumps(s)],
+            procs.append(subprocess.Popen([sys.executable, worker, json.dumps(s)],
                                           stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO,
                                           env=env))
         deadline = time.monotonic() + TIMEOUT_S
@@ -381,13 +382,20 @@ def test_scripts_at_world2(jig, script):
         assert os.path.isfile(os.path.join(out, "lora_best.npz"))
 
 
-@pytest.mark.parametrize("override,item", [(dict(lat=2), "10b"), (dict(lon=2), "10b"),
-                                           (dict(pipe=2), "10c")])
-def test_resolve_mesh_refuses_what_is_not_ported(override, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("override,error,match", [
+    (dict(lat=2), ValueError, "one process per card"),
+    (dict(lon=2), ValueError, "one process per card"),
+    (dict(pipe=2), NotImplementedError, "10c")])
+def test_resolve_mesh_refuses_what_is_not_ported(override, error, match):
+    """In one process: the pipeline is not ported (item 10c), and a spatial
+    axis asks for more processes than there are; ``make_mesh`` refuses the
+    pipeline before it looks for a process group, and wants one for lat/lon
+    (given the model, which a spatial mesh needs)."""
+    with pytest.raises(error, match=match):
         resolve_mesh(ParallelConfig(**override))
-    with pytest.raises(NotImplementedError, match=item):
-        make_mesh(ParallelConfig(**override))
+    with pytest.raises(NotImplementedError if "pipe" in override else RuntimeError,
+                       match="10c" if "pipe" in override else "initialized process group"):
+        make_mesh(ParallelConfig(**override), model=pangu_tiny(lon=192).model)
 
 
 def test_resolve_mesh_policy(jig):

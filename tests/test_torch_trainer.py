@@ -301,7 +301,7 @@ def test_finetune_script_runs_end_to_end_on_the_cpu(tmp_path):
     assert len(os.listdir(out / "csv")) == 14
     again = finetune.main(argv + ["--resume", "--set", "train.epochs=3"], device="cpu")
     assert np.isfinite(again) and (out / "models" / "train_3").is_dir()
-    with pytest.raises(NotImplementedError, match="10b"):
+    with pytest.raises(ValueError, match="one process per card"):
         finetune.main(argv + ["--set", "parallel.lat=2"], device="cpu")
     with pytest.raises(NotImplementedError, match="10c"):
         finetune.main(argv + ["--set", "parallel.pipe=2"], device="cpu")
