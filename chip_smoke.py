@@ -3,8 +3,10 @@ checks, the 24 h forecast step, the train step and its three A/B routes at
 full geometry, the two-kernel inference block, the three kernel A/B scripts,
 forecast and score, finetuning (full and LoRA), serving an exported forecast
 step, the data pipeline over an npy store, data-parallel finetuning with
-one process per card, and the kernels on spatial slabs of the token grid (and,
-on a host with several cards, finetuning with the grid sharded over them).
+one process per card, the kernels on spatial slabs of the token grid (and,
+on a host with several cards, finetuning with the grid sharded over them),
+and the GPipe pipeline's stages on one card (and, on a host with several
+cards, the pipeline over them).
 
     python3 chip_smoke.py
 
@@ -206,7 +208,30 @@ Phases (any failure exits non-zero before the last line is printed):
    phase 8's bounds of the one-process step on card 0, and a profiled step;
    a ``spatial:`` line per world (step wall and split, busy, NCCL time and
    launches, each rank's peak memory beside the one-process step's). With
-   one card, 21b prints that it did not run and why.
+   one card, 21b prints that it did not run and why;
+22. the GPipe pipeline (``pangu_tpu_torch.parallel.pipeline``), phase 8's
+   config and weights with drop path 0, the 4-way split at the U-Net joints,
+   2 microbatches of one sample. 22a, on card 0 in this process: the four
+   stages' modules fed one another's outputs in the transport dtype by the
+   pipeline's own ``stage_forward`` / ``stage_backward``, in GPipe order
+   (every forward, then every backward); the eval forward (K1, 16 launches a
+   sample over the stages' 2/6/6/2 blocks) against the one-process forecast
+   step of each sample (the same bits, else phase 4's bounds, reported);
+   the train step's loss and gradients against the one-process step with
+   ``train.accumulation_steps`` = 2 under phase 8's bounds, and whether the
+   loss, the gradients and the updated parameters keep its bits; each
+   stage's launches (K2-K7 by its blocks x 2) and parameter + Adam bytes.
+   22b, on a host with 2 or more cards, one fresh process per card over
+   NCCL: pipe=2 (2 microbatches) on 2 cards, pipe=4 (4 microbatches) and
+   data=2 x pipe=2 (2) on 4; 3 steps of the global batch (microbatches x
+   data samples), each rank's launches its stage's, every rank the same
+   loss, step 1's loss and gathered gradients within phase 8's bounds of
+   the one-process accumulation step (1-sample microbatches) on card 0,
+   bits reported; steps 2-3 timed unprofiled beside that step's steps 2-3
+   in rank 0's process; one profiled step a rank (NCCL time and launches,
+   idle share), peak memory and parameter + Adam bytes a rank, the bubble
+   (S-1)/(M+S-1). With one card, 22b prints that it did not run and why.
+   Then a ``pipeline:`` line with both.
 
 A ``detail:`` line holds the per-shape kernel results and the slices'
 numbers as JSON. The second-to-last line is a JSON object with one entry per
@@ -214,10 +239,11 @@ kernel: ``launches`` counted over the run of the kernel's path (the 3
 forecast steps for K1, the 3 timed steps of the default train step for
 K2-K7, of ``unfused_tail`` for K8/K9 and of ``fused_block`` for K11/K12,
 phase 12's block mix for K10 and the LN mode, each script's timed run for
-its variants; phase 21a's launches on slabs are reported apart, under
-``detail.slabs.launches``); ``ms``, ``plain_ms`` and ``bound_ms`` the mean per launch over
-one step's mix of 2 + 2 outer and 6 + 6 inner blocks (the scripts: per call
-at their one shape; the micro-bench: per sweep). ``bound_ms`` is the larger
+its variants; phase 21a's launches on slabs and phase 22's on stages are
+reported apart, under ``detail.slabs.launches`` and ``detail.pipeline``);
+``ms``, ``plain_ms`` and ``bound_ms`` the mean per launch over one step's
+mix of 2 + 2 outer and 6 + 6 inner blocks (the scripts: per call at their
+one shape; the micro-bench: per sweep). ``bound_ms`` is the larger
 of the bytes the function must move over 3.35 TB/s and its operations over
 the card's peak for their type (989 TFLOP/s for the bf16 products, 1,979
 TOP/s for int8; 67 TFLOP/s for the f32 elementwise work of K4/K5), computed
@@ -243,8 +269,8 @@ from datetime import datetime, timedelta
 import numpy as np
 import torch
 
-from pangu_tpu_torch import pangu_pretrain, pangu_tiny
-from pangu_tpu_torch.aux import load_aux_constants, synthetic_aux_constants
+from pangu_tpu_torch import dtype_of, pangu_pretrain, pangu_tiny
+from pangu_tpu_torch.aux import load_aux_constants, norm_back_data, synthetic_aux_constants
 from pangu_tpu_torch.cli import base_parser, build_config, load_model_and_params
 from pangu_tpu_torch.config import (DataConfig, ERA5_SURFACE_VARIABLES, ERA5_UPPER_LEVELS,
                                     ParallelConfig)
@@ -280,9 +306,10 @@ from pangu_tpu_torch.train.lora import (LoraConfig, attach_lora, changed_param_r
                                         flatten_trainable, init_lora_params,
                                         lora_target_paths, make_lora_eval_step,
                                         make_lora_train_step, merge_params, set_lora_form)
-from pangu_tpu_torch.train.step import loss_fn
+from pangu_tpu_torch.train.schedule import multistep_lr
+from pangu_tpu_torch.train.step import loss_fn, output_loss, set_scheduled_lr
 from pangu_tpu_torch.train.trainer import Trainer, epoch_generator
-from pangu_tpu_torch.parallel import activate_mesh, distributed_init, make_mesh
+from pangu_tpu_torch.parallel import activate_mesh, distributed_init, make_mesh, pipeline
 from pangu_tpu_torch.parallel.mesh import Mesh
 from pangu_tpu_torch.parallel.sharding import ShardedOptimizer, zero_bytes_per_device
 from pangu_tpu_torch.utils import profiling
@@ -955,13 +982,13 @@ def check_block_train(g, dev) -> dict:
     return {"fused_earth_block_train": fwd, "fused_earth_block_train_bwd": bwd}
 
 
-def train_batch(aux, m, dev) -> Batch:
+def train_batch(aux, m, dev, rows: int = 1) -> Batch:
     """Seeded physical-unit inputs and targets (targets: inputs plus noise)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     inputs = [aux.upper_mean + aux.upper_std * torch.randn(
-        (1, m.upper_vars, m.levels, m.lat, m.lon), generator=gen, device=dev),
+        (rows, m.upper_vars, m.levels, m.lat, m.lon), generator=gen, device=dev),
         aux.surface_mean + aux.surface_std * torch.randn(
-        (1, m.surface_vars, m.lat, m.lon), generator=gen, device=dev)]
+        (rows, m.surface_vars, m.lat, m.lon), generator=gen, device=dev)]
     targets = [x + 0.5 * std * torch.randn(x.shape, generator=gen, device=dev)
                for x, std in zip(inputs, (aux.upper_std, aux.surface_std))]
     return Batch(*inputs, *targets)
@@ -2012,13 +2039,8 @@ def multi_gpu_rank(spec: dict) -> dict:
             res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
             if cuda:  # one more step under torch.profiler, on every rank (it is collective)
                 step = make_train_step(model, cfg, state.opt_state, steps)
-                summary, by_name = profile_train_step._profile(
-                    lambda: step(batches[1], aux, epoch_generator(cfg.train.seed, 2, dev)), dev, 8)
-                summary["nccl_ms"] = sum(ms for k, (ms, _) in by_name.items()
-                                         if "nccl" in k.lower())
-                summary["nccl_launches"] = sum(n for k, (_, n) in by_name.items()
-                                               if "nccl" in k.lower())
-                res["profile"] = summary
+                res["profile"] = profiled_step(
+                    lambda: step(batches[1], aux, epoch_generator(cfg.train.seed, 2, dev)), dev)
             del trainer, state
         res.update(runs=runs, nccl=".".join(map(str, torch.cuda.nccl.version())) if cuda else None)
         if rank == 0:
@@ -2035,6 +2057,15 @@ def multi_gpu_rank(spec: dict) -> dict:
         return res
     finally:
         torch.distributed.destroy_process_group()
+
+
+def profiled_step(fn, dev) -> dict:
+    """The summary of one call of ``fn`` under torch.profiler, with the NCCL
+    kernels' device ms and launches (kernels only: the profiler also lists
+    each coalesced point-to-point group as a range of the same length)."""
+    summary, by_name = profile_train_step._profile(fn, dev, 8)
+    nccl = [v for k, v in by_name.items() if k.startswith("ncclDevKernel")]
+    return dict(summary, nccl_ms=sum(ms for ms, _ in nccl), nccl_launches=sum(n for _, n in nccl))
 
 
 def hold_rank_launches(label: str, got: dict, want: dict) -> None:
@@ -2329,13 +2360,8 @@ def spatial_rank(spec: dict) -> dict:
             res["val"] = sharded_val_stats(make_eval_step(model, cfg), val, aux, dev)
             res["val_launches"] = {k: v for k, v in launch_counts().items() if v}
             if cuda:  # one more step under torch.profiler, on every rank (it is collective)
-                summary, by_name = profile_train_step._profile(
-                    lambda: step(batch, aux, torch.Generator(device=dev).manual_seed(3)), dev, 8)
-                summary["nccl_ms"] = sum(ms for k, (ms, _) in by_name.items()
-                                         if "nccl" in k.lower())
-                summary["nccl_launches"] = sum(n for k, (_, n) in by_name.items()
-                                               if "nccl" in k.lower())
-                res["profile"] = summary
+                res["profile"] = profiled_step(
+                    lambda: step(batch, aux, torch.Generator(device=dev).manual_seed(3)), dev)
             del step, opt
         if rank == 0:  # the one-process step on the same weights, batch and generator
             init_params(model, seed=0)
@@ -2429,6 +2455,314 @@ def check_spatial(dev, worlds=None, tiny: bool = False) -> dict:
     return lines
 
 
+#: phase 22: the microbatches of 22a, 22b's worlds by the cards they need ((cards, mesh
+#: axes, microbatches)) and the seconds their ranks may take together
+PIPELINE_MICRO = 2
+PIPELINE_WORLDS = {2: [(2, dict(pipe=2), 2)],
+                   4: [(4, dict(pipe=4), 4), (4, dict(data=2, pipe=2), 2)]}
+PIPELINE_TIMEOUT_S = 600
+PIPELINE_RANK = r"""
+import json, sys
+import chip_smoke
+print(json.dumps(chip_smoke.pipeline_rank(json.loads(sys.argv[1]))), flush=True)
+"""
+
+
+def pipeline_config(tiny: bool = False):
+    """Phase 22's run: phase 8's config (the tiny preset's on the CPU) with
+    drop path 0, as the JAX pipeline test's."""
+    kw = dict(compute_dtype="bfloat16", matmul_precision="default", use_pallas_attention=True,
+              drop_path_max=0.0)
+    return pangu_tiny(**kw) if tiny else pangu_pretrain(24, **kw)
+
+
+def stage_blocks(stage) -> int:
+    """The transformer blocks of a pipeline stage."""
+    return sum(len(stage.get_submodule(pipeline.MODULE_NAMES[op]).blocks)
+               for op in stage.ops if op.startswith("layer"))
+
+
+def stage_launches(stage, micro: int) -> dict:
+    """A stage's launches in one train step: phase 8's per block (of 16), by
+    its blocks, times the microbatches."""
+    blocks = stage_blocks(stage)
+    return {k: v // 16 * blocks * micro for k, v in TRAIN_LAUNCHES.items()} if blocks else {}
+
+
+def adam_bytes(optimizer) -> int:
+    """The bytes of an optimizer's parameters and per-element state."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    state = [v for p in params for v in optimizer.state.get(p, {}).values()
+             if torch.is_tensor(v) and v.dim() > 0]
+    return sum(t.numel() * t.element_size() for t in params + state)
+
+
+def counted(fn, into: dict):
+    """``fn()``, its launches added into ``into``."""
+    before = launch_counts()
+    out = fn()
+    for k, v in launch_counts().items():
+        if v - before[k]:
+            into[k] = into.get(k, 0) + v - before[k]
+    return out
+
+
+def check_pipeline_one_card(dev, tiny: bool = False) -> dict:
+    """Phase 22a: the default 4-way split's stages on one card, fed one
+    another's outputs in the transport dtype by the pipeline's own stage
+    functions in GPipe order, against the one-process model: the eval
+    forward of each sample against the forecast step (the same bits, else
+    phase 4's bounds), one train step of 2 microbatches against the
+    one-process step with ``accumulation_steps`` = 2 (phase 8's bounds; the
+    bits reported); each stage's launches and parameter + Adam bytes."""
+    cfg = pipeline_config(tiny)
+    m, micro = cfg.model, PIPELINE_MICRO
+    transport = dtype_of(m.compute_dtype)
+    aux = synthetic_aux_constants(m, cfg.train, seed=0, device=dev)
+    with dev:
+        model = PanguModel(m).to(dev)
+    init_params(model, seed=0)
+    w0 = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(aux, m, dev, rows=micro)
+    stages = []
+    for ops, part in zip(pipeline.DEFAULT_STAGES,
+                         pipeline.split_stage_params(w0, pipeline.DEFAULT_STAGES)):
+        with dev:
+            stages.append(pipeline.PanguStage(m, ops).to(dev))
+        stages[-1].load_state_dict(part)
+    rows = [slice(i, i + 1) for i in range(micro)]
+
+    # the eval forward: K1 on the stages' blocks
+    launches = [{} for _ in stages]
+    fwd = dict(same_bits=True, max_abs=0.0, rms=0.0)
+    forecast = make_forecast_step(model, aux)
+    for r in rows:
+        ref = forecast(batch.upper[r], batch.surface[r])
+        payload = (batch.upper[r], batch.surface[r])
+        with torch.no_grad():
+            for stage, into in zip(stages, launches):
+                run = counted(lambda: pipeline.stage_forward(stage.eval(), payload, aux,
+                                                             grad=False), into)
+                payload = tuple(o.to(transport) for o in run.outputs) \
+                    if stage is not stages[-1] else run.outputs
+        got = norm_back_data(*payload, aux)
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        max_abs, rms = deviation(got, ref, aux)
+        if not same and not (max_abs < STEP_MAX_TOL and rms < STEP_RMS_TOL):
+            raise AssertionError(f"pipeline stages' forward: max|d| {max_abs}, rms {rms} "
+                                 "against the one-process forecast step")
+        fwd = dict(same_bits=fwd["same_bits"] and same, max_abs=max(fwd["max_abs"], max_abs),
+                   rms=max(fwd["rms"], rms))
+    for stage, into in zip(stages, launches):
+        hold_rank_launches(f"pipeline stage {stage.ops} forward", into,
+                           {"fused_earth_block": stage_blocks(stage) * micro})
+    fwd["launches"] = launches
+    log(f"pipeline stages' forward: {micro} samples, the one-process forecast step's bits "
+        f"{fwd['same_bits']} (max|d| {fwd['max_abs']:.6g}); K1 by stage "
+        f"{[d.get('fused_earth_block', 0) for d in launches]}")
+
+    # one train step: the one-process step with accumulation_steps = micro, then the stages
+    acc_cfg = cfg.replace(train=dataclasses.replace(cfg.train, accumulation_steps=micro))
+    ref_loss = make_train_step(model, acc_cfg, make_optimizer(model, acc_cfg))(
+        Batch(*(t.reshape(micro, 1, *t.shape[1:]) for t in batch)), aux).item()
+    ref_grads = {k: p.grad.float() for k, p in model.named_parameters()}
+    ref_params = {k: p.detach() for k, p in model.named_parameters()}
+    del forecast
+    model.zero_grad(set_to_none=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    opts = [make_optimizer(stage.train(), cfg) for stage in stages]
+    launches = [{} for _ in stages]
+    runs = [[None] * micro for _ in stages]
+    loss_sum = torch.zeros((), device=dev)
+    for i, r in enumerate(rows):  # every forward, microbatch by microbatch
+        payload = (batch.upper[r], batch.surface[r])
+        for s, (stage, into) in enumerate(zip(stages, launches)):
+            run = counted(lambda: pipeline.stage_forward(stage, payload, aux), into)
+            if stage is stages[-1]:
+                loss = output_loss(*run.outputs, batch.target_upper[r], batch.target_surface[r],
+                                   aux, cfg)
+                run = run._replace(outputs=(loss,))
+                loss_sum = loss_sum + loss.detach()
+            else:
+                payload = tuple(o.detach().to(transport) for o in run.outputs)
+            runs[s][i] = run
+    for i in range(micro):  # then every backward, in the same microbatch order
+        grads = None
+        for s in reversed(range(len(stages))):
+            grads = counted(lambda: pipeline.stage_backward(runs[s][i], grads), launches[s])
+            runs[s][i] = None
+    schedule = multistep_lr(cfg.train.lr, cfg.train.lr_milestones, cfg.train.lr_gamma, 1)
+    grads = {}
+    for stage, opt in zip(stages, opts):
+        for k, p in stage.named_parameters():
+            p.grad.div_(micro)
+            grads[k] = p.grad
+        set_scheduled_lr(opt, schedule)
+        opt.step()
+    loss = (loss_sum / micro).item()
+    d = grad_deviation("pipeline stages' step vs the one-process accumulation step", loss,
+                       grads, ref_loss, ref_grads)
+    check_train_bounds("the pipeline stages' step", d)
+    params = {k: p.detach() for stage in stages for k, p in stage.named_parameters()}
+    step = dict(**d, loss=loss, ref_loss=ref_loss, same_loss_bits=loss == ref_loss,
+                same_grad_bits=all(torch.equal(grads[k].float(), ref_grads[k]) for k in grads),
+                same_param_bits=all(torch.equal(params[k], ref_params[k]) for k in params),
+                launches=launches)
+    for stage, into in zip(stages, launches):
+        hold_rank_launches(f"pipeline stage {stage.ops} step", into,
+                           stage_launches(stage, micro))
+    log(f"pipeline stages' step: loss {loss!r} against {ref_loss!r}; the one-process "
+        f"accumulation step's bits: loss {step['same_loss_bits']}, gradients "
+        f"{step['same_grad_bits']}, parameters {step['same_param_bits']}")
+    out = dict(forward=fwd, step=step,
+               stages=[dict(ops=list(stage.ops), bytes=adam_bytes(opt))
+                       for stage, opt in zip(stages, opts)])
+    log(f"pipeline stages' parameter + Adam bytes: {[s['bytes'] for s in out['stages']]}")
+    del model, stages, opts, runs, ref_grads, ref_params, grads, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_rank(spec: dict) -> dict:
+    """One rank of phase 22b (its own process): join the group (NCCL on the
+    card, gloo on the CPU), make the mesh of ``spec["axes"]``, load phase
+    22's seeded weights into this rank's stage and take 3 steps of the
+    global batch (launches, loss, split and wall each; step 1's gradients
+    gathered to each replica's first stage), then on the card one profiled
+    step. Rank 0 then runs the one-process step with ``accumulation_steps``
+    = microbatches x data on the same batch and weights, holds step 1's loss
+    and gradients to it under phase 8's bounds, and times its steps as the
+    pipeline's were (``STEPS`` unprofiled)."""
+    world, rank, micro = spec["world"], spec["rank"], spec["micro"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = distributed_init(spec["init"], world, rank, rank, spec["device"])
+    cuda = dev.type == "cuda"
+    try:
+        pcfg = ParallelConfig(**spec["axes"])
+        cfg = pipeline_config(spec["tiny"]).replace(parallel=pcfg)
+        m = cfg.model
+        mesh = make_mesh(pcfg)
+        aux = synthetic_aux_constants(m, cfg.train, seed=0, device=dev)
+        whole = PanguModel(m)  # on the host
+        init_params(whole, seed=0)
+        pipe = pipeline.PanguPipeline(cfg, mesh, dev)
+        pipe.load_state_dict(whole.state_dict())
+        batch = train_batch(aux, m, dev, rows=micro * mesh.data)
+        opt = make_optimizer(pipe.stage, cfg)
+        split = {}
+        step = pipe.make_train_step(opt, micro, spans=split)
+        res = dict(rank=rank, coords=mesh.coords, ops=list(pipe.stage.ops), runs=[],
+                   want=stage_launches(pipe.stage, micro))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(STEPS):
+            reset_counts()
+            before = dict(split)
+            t0 = time.perf_counter()
+            loss = step(batch, aux).item()
+            res["runs"].append(dict(
+                loss=loss, wall_s=time.perf_counter() - t0,
+                launches={k: v for k, v in launch_counts().items() if v},
+                split={k: v - before.get(k, 0.0) for k, v in split.items()}))
+            if i == 0:
+                grads = pipe.gather({k: p.grad for k, p in pipe.stage.named_parameters()})
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        res["stage_bytes"] = adam_bytes(opt)
+        if cuda:  # one more step under torch.profiler, on every rank (it is collective)
+            res["profile"] = profiled_step(lambda: step(batch, aux), dev)
+        del step, opt, pipe
+        if rank == 0:  # the one-process step on the same weights and batch
+            if cuda:
+                torch.cuda.empty_cache()
+            model = whole.to(dev)
+            acc = micro * mesh.data
+            acc_cfg = cfg.replace(train=dataclasses.replace(cfg.train, accumulation_steps=acc))
+            one = make_train_step(model, acc_cfg, make_optimizer(model, acc_cfg))
+            acc_batch = Batch(*(t.reshape(acc, -1, *t.shape[1:]) for t in batch))
+            walls, losses = [], []
+            for i in range(STEPS):
+                t0 = time.perf_counter()
+                losses.append(one(acc_batch, aux).item())
+                walls.append(time.perf_counter() - t0)
+                if i == 0:
+                    named = dict(model.named_parameters())
+                    ref = {k: named[k].grad.float() for k in grads}
+                    got = {k: g.to(dev) for k, g in grads.items()}
+                    d = grad_deviation(f"pipeline {spec['axes']} step vs the one-process "
+                                       "accumulation step", res["runs"][0]["loss"], got,
+                                       losses[0], ref)
+                    d["same_grad_bits"] = all(torch.equal(got[k].float(), ref[k]) for k in ref)
+                    d["same_loss_bits"] = res["runs"][0]["loss"] == losses[0]
+                    check_train_bounds(f"the pipeline {spec['axes']} step", d)
+                    del named, ref, got
+            res["one_process"] = dict(losses=losses, step_wall_s=walls, **d)
+        torch.distributed.barrier()
+        return res
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def check_pipeline(dev, worlds=None, tiny: bool = False) -> list | None:
+    """Phase 22b: for each (cards, axes, microbatches) of ``worlds``
+    (default: ``PIPELINE_WORLDS`` of the most cards this host has) the ranks
+    of ``pipeline_rank`` as fresh processes over NCCL. Requires each rank's
+    launches in every step to be its stage's and every rank's loss the same
+    in every step; logs a ``pipeline 22b`` line per world (the step's wall
+    and split beside the one-process step's, the profile's busy, NCCL time
+    and launches, each rank's peak memory and bytes, the bubble). On a host
+    with one card it prints why it did not run and returns None."""
+    if worlds is None:
+        cards = torch.cuda.device_count()
+        fits = [n for n in PIPELINE_WORLDS if n <= cards]
+        if not fits:
+            log(f"pipeline: phase 22b did not run: it needs 2 or 4 cards (one process per card "
+                f"over NCCL) and this host has {cards}")
+            return None
+        worlds = PIPELINE_WORLDS[max(fits)]
+    lines = []
+    for world, axes, micro in worlds:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            spec = dict(world=world, axes=axes, micro=micro, device=dev.type, tiny=tiny,
+                        init="file://" + os.path.join(tmp, "store"))
+            ranks = _run_ranks(world, spec, PIPELINE_RANK, tmp, PIPELINE_TIMEOUT_S,
+                               f"phase 22b {axes}")
+        first = ranks[0]
+        for res in ranks:
+            for i, (run, run0) in enumerate(zip(res["runs"], first["runs"])):
+                hold_rank_launches(f"pipeline {axes} rank {res['rank']} step {i + 1}",
+                                   run["launches"], res["want"])
+                if run["loss"] != run0["loss"]:
+                    raise AssertionError(f"pipeline {axes} step {i + 1}: rank {res['rank']} "
+                                         f"loss {run['loss']!r}, rank 0 {run0['loss']!r}")
+        one = first["one_process"]
+        later = [r["split"] for r in first["runs"][1:]]
+        stages = world // axes.get("data", 1)
+        line = dict(world=world, axes=axes, microbatches=micro,
+                    bubble=pipeline.bubble_fraction(stages, micro),
+                    losses=[r["loss"] for r in first["runs"]],
+                    step_wall_s=[r["wall_s"] for r in first["runs"]],
+                    step_split_s={k: statistics.mean(s[k] for s in later) for k in later[0]},
+                    step1={k: one[k] for k in ("loss_rel_dev", "grad_rel_l2", "same_loss_bits",
+                                                "same_grad_bits")},
+                    one_process_step_wall_s=one["step_wall_s"],
+                    profile=[r.get("profile") for r in ranks],
+                    peak_bytes=[r["peak_bytes"] for r in ranks],
+                    stage_bytes=[r["stage_bytes"] for r in ranks], card=card_line())
+        log(f"pipeline {axes}, {micro} microbatches: steps 2-{STEPS} unprofiled, mean "
+            f"{statistics.mean(line['step_wall_s'][1:]):.6f} s a step; the one-process "
+            f"accumulation step in rank 0's process {statistics.mean(one['step_wall_s'][1:]):.6f}"
+            f" s; every rank the same loss in each of {STEPS} steps; step 1 within phase 8's "
+            f"bounds (the same gradient bits: {one['same_grad_bits']})")
+        log("pipeline 22b: " + json.dumps(line))
+        lines.append(line)
+    return lines
+
+
 def main() -> int:
     card()
     dev = torch.device("cuda:0")
@@ -2484,13 +2818,20 @@ def main() -> int:
     t0 = time.perf_counter()
     spatial = check_spatial(dev)
     log(f"phase 21b (spatial finetune): {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    pipe = dict(one_card=check_pipeline_one_card(dev))
+    log(f"phase 22a (pipeline stages on one card): {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    pipe["worlds"] = check_pipeline(dev)
+    log(f"phase 22b (pipeline over cards): {time.perf_counter() - t0:.3f} s")
+    log("pipeline: " + json.dumps({**pipe, "card": card_line()}))
 
     log("detail: " + json.dumps({"slice": sl, **shapes, "products": products, "train": tr,
                                  "ab": ab, "two_kernel_path": tail_path, "mxu_micro": micro,
                                  "attn_fwd_ab": fwd_ab, "attn_bwd_ab": bwd_ab,
                                  "forecast_and_score": score, "finetune": finetune,
                                  "serving": serve, "data": data, "multi_gpu": multi,
-                                 "slabs": slabs, "spatial": spatial}))
+                                 "slabs": slabs, "spatial": spatial, "pipeline": pipe}))
     # launches over the run of each kernel's path
     launches = {"fused_earth_block": sl["launches"], **tr["launches"],
                 **{k: ab["unfused_tail"]["launches"][k] for k in ("fused_mlp", "fused_mlp_bwd")},

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from pangu_tpu_torch.config import ModelConfig
-from pangu_tpu_torch.geometry import compute_geometry
+from pangu_tpu_torch.geometry import Geometry, compute_geometry
 from pangu_tpu_torch import dtype_of
 from pangu_tpu_torch.aux import AuxConstants
 from pangu_tpu_torch.model.blocks import DownSample, EarthSpecificLayer, UpSample
@@ -59,6 +59,27 @@ def drop_path_rates(cfg: ModelConfig) -> Tuple[Tuple[float, ...], ...]:
     return tuple(out)
 
 
+def backbone_module(cfg: ModelConfig, g: Geometry, op: str) -> nn.Module:
+    """The module of one op of the backbone chain (the JAX package's
+    ``backbone_modules`` names: ``patch_embed``, ``layer0``-``layer3``,
+    ``downsample``, ``upsample``, ``patch_recovery``), as the whole model
+    holds it; a pipeline stage builds only its own ops."""
+    if op == "patch_embed":
+        return PatchEmbedding(cfg, g)
+    if op == "downsample":
+        return DownSample(cfg.dims[0], g.h_down_pad)
+    if op == "upsample":
+        return UpSample(cfg.dims[2], cfg.dims[3], g.h)
+    if op == "patch_recovery":
+        return PatchRecovery(cfg, g)
+    i = int(op.removeprefix("layer"))
+    return EarthSpecificLayer(
+        (g.outer, g.inner, g.inner, g.outer)[i], cfg.dims[i], cfg.heads[i],
+        drop_path_rates(cfg)[i], mlp_ratio=cfg.mlp_ratio, use_kernel=cfg.use_pallas_attention,
+        remat=cfg.remat, dropout_rate=cfg.dropout_rate, save_attention=cfg.remat_save_attention,
+        save_mlp=cfg.remat_save_mlp)
+
+
 class PanguModel(nn.Module):
     """Parameters are f32; activations run in ``cfg.compute_dtype``. With
     ``cfg.use_pallas_attention`` and bf16 compute, eval blocks run the fused
@@ -74,20 +95,12 @@ class PanguModel(nn.Module):
         self.cfg = cfg
         self.compute_dtype = dtype_of(cfg.compute_dtype)
         g = self.geom = compute_geometry(cfg)
-        stages = (g.outer, g.inner, g.inner, g.outer)
-        rates = drop_path_rates(cfg)
-        self._input_layer = PatchEmbedding(cfg, g)
-        self.layers = nn.ModuleDict({
-            f"EarthSpecificLayer{i}": EarthSpecificLayer(
-                stages[i], cfg.dims[i], cfg.heads[i], rates[i], mlp_ratio=cfg.mlp_ratio,
-                use_kernel=cfg.use_pallas_attention, remat=cfg.remat,
-                dropout_rate=cfg.dropout_rate, save_attention=cfg.remat_save_attention,
-                save_mlp=cfg.remat_save_mlp)
-            for i in range(4)
-        })
-        self.downsample = DownSample(cfg.dims[0], g.h_down_pad)
-        self.upsample = UpSample(cfg.dims[2], cfg.dims[3], g.h)
-        self._output_layer = PatchRecovery(cfg, g)
+        self._input_layer = backbone_module(cfg, g, "patch_embed")
+        self.layers = nn.ModuleDict({f"EarthSpecificLayer{i}": backbone_module(cfg, g, f"layer{i}")
+                                     for i in range(4)})
+        self.downsample = backbone_module(cfg, g, "downsample")
+        self.upsample = backbone_module(cfg, g, "upsample")
+        self._output_layer = backbone_module(cfg, g, "patch_recovery")
 
     def forward(self, upper: torch.Tensor, surface: torch.Tensor, aux: AuxConstants,
                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -4,18 +4,23 @@ era5_data/utils_dist.py:15-207).
 
 One process per card, joined by ``torch.distributed``: NCCL on the card,
 gloo only when the caller asks for the CPU. The mesh is a small record of
-the process group, the sizes of its axes ``(data, lat, lon)``, this process's
-rank, and the process groups of the data axis and of the lat x lon plane.
-Ranks are laid out row-major over ``(data, lat, lon)``, as the JAX
-``make_mesh`` reshapes its devices: the world is ``data * lat * lon``. Model
-code reads the active mesh (``activate_mesh``) instead of taking it as an
-argument, as in the JAX package. The ``data`` axis runs data parallelism with
-ZeRO sharding of the Adam state (``parallel.sharding``); ``lat`` and ``lon``
-shard the window-padded token grid of every layer (``parallel.spatial``).
-The ``pipe`` axis is refused (ROADMAP queue 1, item 10c).
+the process group, the sizes of its axes ``(data, pipe, lat, lon)``, this
+process's rank, and the process groups of the data axis, of the lat x lon
+plane and of the pipe axis. Ranks are laid out row-major over ``(data, pipe,
+lat, lon)``, as the JAX ``make_mesh`` reshapes its devices: the world is
+``data * pipe * lat * lon``. Model code reads the active mesh
+(``activate_mesh``) instead of taking it as an argument, as in the JAX
+package. The ``data`` axis runs data parallelism with ZeRO sharding of the
+Adam state (``parallel.sharding``); ``lat`` and ``lon`` shard the
+window-padded token grid of every layer (``parallel.spatial``); ``pipe``
+cuts the backbone into pipeline stages, one a rank (``parallel.pipeline``),
+and does not compose with ``lat`` or ``lon``. Under a pipe axis the data
+group of a rank joins the same stage of every replica, and its pipe group
+the stages of its own replica.
 
 Launch: ``torchrun --nproc-per-node N -m pangu_tpu_torch.scripts.finetune ...
-[--set parallel.lat=2 --set parallel.lon=2]``.
+[--set parallel.lat=2 --set parallel.lon=2]``; the pipeline trains through
+``pangu_tpu_torch.scripts.pipeline_train``.
 """
 
 from __future__ import annotations
@@ -42,10 +47,12 @@ _local = threading.local()
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The mesh: ``group`` (None: the default process group), the sizes of
-    its ``data``, ``lat`` and ``lon`` axes and this process's ``rank`` in
-    ``group``; ``data_group`` reduces over the data axis (None: the default
-    group, which is the data axis when lat = lon = 1) and ``plane_group``
-    over the rank's lat x lon plane (None without one)."""
+    its ``data``, ``lat``, ``lon`` and ``pipe`` axes and this process's
+    ``rank`` in ``group``; ``data_group`` reduces over the data axis (None:
+    the default group, which is the data axis when pipe = lat = lon = 1),
+    ``plane_group`` over the rank's lat x lon plane (None without one) and
+    ``pipe_group`` joins the pipeline stages of the rank's data replica, its
+    consecutive ranks (None without a pipe axis)."""
 
     group: Optional[dist.ProcessGroup]
     data: int
@@ -54,25 +61,28 @@ class Mesh:
     lon: int = 1
     data_group: Optional[dist.ProcessGroup] = None
     plane_group: Optional[dist.ProcessGroup] = None
+    pipe: int = 1
+    pipe_group: Optional[dist.ProcessGroup] = None
 
     @property
     def size(self) -> int:
-        return self.data * self.lat * self.lon
+        return self.data * self.pipe * self.lat * self.lon
 
     @property
     def coords(self) -> tuple:
-        """This rank's (data, lat, lon) coordinates."""
-        d, plane = divmod(self.rank, self.lat * self.lon)
-        return d, plane // self.lon, plane % self.lon
+        """This rank's (data, pipe, lat, lon) coordinates."""
+        d, inner = divmod(self.rank, self.pipe * self.lat * self.lon)
+        p, plane = divmod(inner, self.lat * self.lon)
+        return d, p, plane // self.lon, plane % self.lon
 
     @property
     def data_rank(self) -> int:
         """This rank's coordinate on the data axis: the sample shard it holds."""
         return self.coords[0]
 
-    def global_rank(self, d: int, la: int, lo: int) -> int:
-        """The global rank of the mesh position (d, la, lo)."""
-        r = (d * self.lat + la) * self.lon + lo
+    def global_rank(self, d: int, p: int, la: int, lo: int) -> int:
+        """The global rank of the mesh position (d, p, la, lo)."""
+        r = ((d * self.pipe + p) * self.lat + la) * self.lon + lo
         return r if self.group is None else dist.get_global_rank(self.group, r)
 
 
@@ -116,11 +126,10 @@ def is_main() -> bool:
     return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
-def _refuse_unported(cfg: ParallelConfig) -> None:
-    if cfg.pipe > 1:
-        raise NotImplementedError(
-            f"parallel.pipe={cfg.pipe}: the GPipe pipeline is not ported "
-            "(ROADMAP queue 1, item 10c)")
+def _refuse_pipe_with_plane(cfg: ParallelConfig) -> None:
+    if cfg.pipe > 1 and cfg.lat * cfg.lon > 1:
+        raise ValueError("pipeline mode does not compose with spatial (lat/lon) sharding; "
+                         "use PP x DP (docs/PARITY.md discusses why)")
 
 
 def _check_stage(name: str, stage: StageGeometry, lat: int, lon: int) -> None:
@@ -152,12 +161,14 @@ def _new_group(ranks: list, group: Optional[dist.ProcessGroup]):
 def make_mesh(cfg: ParallelConfig, group: Optional[dist.ProcessGroup] = None,
               model: Optional[ModelConfig] = None) -> Mesh:
     """The mesh of ``cfg`` over the initialized process ``group`` (default:
-    the world): ``data * lat * lon`` must be the group's size. With lat or
-    lon > 1 every process creates the data and plane groups (collectively);
-    such a mesh needs the ``model``, and an axis with more ranks than a
-    stage has windows along it raises ValueError naming the stage, before
-    anything else. This is the only check: the slabs trust the mesh."""
-    _refuse_unported(cfg)
+    the world): ``data * pipe * lat * lon`` must be the group's size. With
+    pipe, lat or lon > 1 every process creates the data groups and the pipe
+    or plane groups (collectively). A pipe axis with lat or lon > 1 raises
+    ValueError, as the JAX pipeline does. A spatial mesh needs the
+    ``model``, and an axis with more ranks than a stage has windows along it
+    raises ValueError naming the stage, before anything else. This is the
+    only check: the slabs trust the mesh."""
+    _refuse_pipe_with_plane(cfg)
     if cfg.lat * cfg.lon > 1:
         if model is None:
             raise ValueError("a mesh with lat or lon > 1 needs the model config, to check "
@@ -166,22 +177,26 @@ def make_mesh(cfg: ParallelConfig, group: Optional[dist.ProcessGroup] = None,
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group (distributed_init)")
     world, rank = dist.get_world_size(group), dist.get_rank(group)
-    if cfg.data * cfg.lat * cfg.lon != world:
-        raise ValueError(f"parallel {cfg.data} x {cfg.lat} x {cfg.lon} (data x lat x lon) but "
-                         f"the process group holds {world} ranks (one process per card)")
-    plane = cfg.lat * cfg.lon
-    if plane == 1:
+    if cfg.data * cfg.pipe * cfg.lat * cfg.lon != world:
+        raise ValueError(f"parallel {cfg.data} x {cfg.pipe} x {cfg.lat} x {cfg.lon} (data x pipe "
+                         f"x lat x lon) but the process group holds {world} ranks (one process "
+                         "per card)")
+    inner = cfg.pipe * cfg.lat * cfg.lon  # a replica's ranks: its stages or its plane
+    if inner == 1:
         return Mesh(group, world, rank, data_group=group)
-    data_group = plane_group = None
-    for d in range(cfg.data):  # the planes, then the data axes
-        g = _new_group(list(range(d * plane, (d + 1) * plane)), group)
-        if rank // plane == d:
-            plane_group = g
-    for p in range(plane):
-        g = _new_group(list(range(p, world, plane)), group)
-        if rank % plane == p:
+    data_group = replica_group = None
+    for d in range(cfg.data):  # the replicas, then the data axes
+        g = _new_group(list(range(d * inner, (d + 1) * inner)), group)
+        if rank // inner == d:
+            replica_group = g
+    for p in range(inner):
+        g = _new_group(list(range(p, world, inner)), group)
+        if rank % inner == p:
             data_group = g
-    return Mesh(group, cfg.data, rank, cfg.lat, cfg.lon, data_group, plane_group)
+    if cfg.pipe > 1:
+        return Mesh(group, cfg.data, rank, data_group=data_group, pipe=cfg.pipe,
+                    pipe_group=replica_group)
+    return Mesh(group, cfg.data, rank, cfg.lat, cfg.lon, data_group, replica_group)
 
 
 def resolve_mesh(cfg: ParallelConfig, device=None,
@@ -190,27 +205,27 @@ def resolve_mesh(cfg: ParallelConfig, device=None,
 
     None for a single process (the collective-free path), where any axis
     above 1 raises; in a world of N processes a ``parallel.data`` of 1
-    expands to N / (lat * lon), so a default (1x1x1x1) config is data
+    expands to N / (pipe * lat * lon), so a default (1x1x1x1) config is data
     parallelism over all of them, as the JAX policy does over devices; a
-    lat x lon that does not divide N, or a ``data`` that is neither 1 nor
-    N / (lat * lon), raises, and so does ``pipe`` > 1 (not ported) and,
-    given the ``model``, an axis that outnumbers a stage's windows. A
-    world smaller than the cards of ``device``'s host logs that the others
-    will IDLE."""
-    _refuse_unported(cfg)
+    pipe x lat x lon that does not divide N, or a ``data`` that is neither 1
+    nor N / (pipe * lat * lon), raises, and so do a pipe axis with lat or
+    lon > 1 and, given the ``model``, an axis that outnumbers a stage's
+    windows. A world smaller than the cards of ``device``'s host logs that
+    the others will IDLE."""
     log = logging.getLogger("pangu_tpu_torch")
     world = _world()
-    plane = cfg.lat * cfg.lon
-    if world == 1 and cfg.data * plane > 1:
+    inner = cfg.pipe * cfg.lat * cfg.lon
+    if world == 1 and cfg.data * inner > 1:
         raise ValueError(
-            f"parallel config asks for {cfg.data * plane} devices ({cfg.data} x {cfg.lat} x "
-            f"{cfg.lon}, data x lat x lon) but this is a single process -- launch one process "
-            f"per card (torchrun --nproc-per-node {cfg.data * plane}) or drop the parallel.* "
-            "overrides")
-    if world > 1 and world % plane:
-        raise ValueError(f"parallel.lat x parallel.lon = {plane} does not divide WORLD_SIZE "
-                         f"{world}")
-    if world > 1 and cfg.data not in (1, world // plane):
+            f"parallel config asks for {cfg.data * inner} devices ({cfg.data} x {cfg.pipe} x "
+            f"{cfg.lat} x {cfg.lon}, data x pipe x lat x lon) but this is a single process -- "
+            f"launch one process per card (torchrun --nproc-per-node {cfg.data * inner}) or "
+            "drop the parallel.* overrides")
+    _refuse_pipe_with_plane(cfg)
+    if world > 1 and world % inner:
+        raise ValueError(f"parallel.pipe x parallel.lat x parallel.lon = {inner} does not "
+                         f"divide WORLD_SIZE {world}")
+    if world > 1 and cfg.data not in (1, world // inner):
         raise ValueError(f"parallel.data={cfg.data} but WORLD_SIZE is {world}")
     cards = (torch.cuda.device_count()
              if device is not None and torch.device(device).type == "cuda" else 0)
@@ -219,10 +234,10 @@ def resolve_mesh(cfg: ParallelConfig, device=None,
                     "IDLE for the whole run", world, world, cards, cards - world)
     if world == 1:
         return None
-    if cfg.data * plane == 1:
+    if cfg.data * inner == 1:
         log.info("parallel config covers 1 device but %d processes run -- using a "
                  "data-parallel mesh over all of them", world)
-    return make_mesh(dataclasses.replace(cfg, data=world // plane), model=model)
+    return make_mesh(dataclasses.replace(cfg, data=world // inner), model=model)
 
 
 @contextlib.contextmanager

@@ -80,11 +80,11 @@ class Slab:
 
     @property
     def lat_windows(self) -> Tuple[int, int]:
-        return self.lat_parts[self.mesh.coords[1]]
+        return self.lat_parts[self.mesh.coords[2]]
 
     @property
     def lon_windows(self) -> Tuple[int, int]:
-        return self.lon_parts[self.mesh.coords[2]]
+        return self.lon_parts[self.mesh.coords[3]]
 
     @property
     def rows(self) -> Tuple[int, int]:
@@ -219,8 +219,8 @@ class _Shift(torch.autograd.Function):
 
 def _neighbours(mesh, axis: int) -> Tuple[int, int]:
     """Global ranks of the previous and next rank along mesh axis ``axis``
-    (1: lat, 2: lon), cyclically."""
-    size = (mesh.data, mesh.lat, mesh.lon)[axis]
+    (2: lat, 3: lon), cyclically."""
+    size = (mesh.data, mesh.pipe, mesh.lat, mesh.lon)[axis]
     c = list(mesh.coords)
     out = []
     for step in (-1, 1):
@@ -238,8 +238,8 @@ def roll(x: torch.Tensor, shifts: Sequence[int], slab: Optional[Slab]) -> torch.
     sz, sh, sw = shifts
     x = torch.roll(x, shifts=sz, dims=1)
     mesh = slab.mesh
-    for dim, axis, s in ((2, 1, sh), (3, 2, sw)):
-        if (mesh.data, mesh.lat, mesh.lon)[axis] == 1:
+    for dim, axis, s in ((2, 2, sh), (3, 3, sw)):
+        if (mesh.data, mesh.pipe, mesh.lat, mesh.lon)[axis] == 1:
             x = torch.roll(x, shifts=s, dims=dim)
         elif s:
             x = _Shift.apply(x, dim, s, *_neighbours(mesh, axis), mesh.group)

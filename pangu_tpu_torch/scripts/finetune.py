@@ -22,8 +22,10 @@ The data axis holds N / (lat * lon) replicas (``resolve_mesh``). Each
 replica loads ``train.batch_size // replicas`` samples a step from its
 shard of the train and val ranges, the same on each of its spatial peers;
 rank 0 writes the checkpoints, the log file and the writer, and scores the
-test range. Pipeline sharding (``parallel.pipe``) is refused, and so is
-lat or lon > 1 in a single process.
+test range. ``parallel.pipe`` > 1 raises in a world of processes: the
+pipeline trains through ``pangu_tpu_torch.scripts.pipeline_train`` (the JAX
+script would run its SPMD step with the pipe devices replicating one
+another). Any axis > 1 in a single process raises.
 """
 
 from __future__ import annotations
@@ -59,6 +61,14 @@ def shard_of_world(mesh) -> tuple:
     return (mesh.data, mesh.data_rank) if mesh is not None else (1, 0)
 
 
+def refuse_pipeline(cfg) -> None:
+    """Raise for ``parallel.pipe`` > 1: this script's step runs no pipeline."""
+    if cfg.parallel.pipe > 1:
+        raise ValueError(f"parallel.pipe={cfg.parallel.pipe}: the pipeline trains through "
+                         "pangu_tpu_torch.scripts.pipeline_train (torchrun --nproc-per-node N "
+                         "-m pangu_tpu_torch.scripts.pipeline_train ...)")
+
+
 def open_writer(out_dir: str):
     """A tensorboardX writer under ``out_dir/writer`` when tensorboardX imports."""
     try:
@@ -80,8 +90,10 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> Optional[float]
     device = distributed_init(device=require_device(device))
 
     cfg = build_config(args)
-    # resolve_mesh expands a default config over every rank and refuses what is not ported
+    # resolve_mesh expands a default config over every rank and refuses any axis > 1 in
+    # one process
     mesh = resolve_mesh(cfg.parallel, device, cfg.model)
+    refuse_pipeline(cfg)
     world, rank = shard_of_world(mesh)
     out_dir = os.path.join(cfg.out_dir, "finetune_fully", str(cfg.horizon))
     os.makedirs(out_dir, exist_ok=True)

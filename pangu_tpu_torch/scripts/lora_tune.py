@@ -22,6 +22,7 @@ replica on its shard of every global batch (the JAX script's "replicated
 adapters + data-sharded global batches"); under a spatial mesh the adapters
 of the blocks' linears are summed over the plane first, as every tensor
 used on a slab is; rank 0 writes the files and scores the test range.
+``parallel.pipe`` > 1 raises, as in the finetune script.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ from pangu_tpu_torch.eval import evaluate
 from pangu_tpu_torch.interop.from_jax import load_lora_npz, save_lora_npz
 from pangu_tpu_torch.parallel import activate_mesh, distributed_init, is_main, resolve_mesh
 from pangu_tpu_torch.parallel.sharding import shard_params
-from pangu_tpu_torch.scripts.finetune import open_writer, rank_logger, shard_of_world
+from pangu_tpu_torch.scripts.finetune import (open_writer, rank_logger, refuse_pipeline,
+                                             shard_of_world)
 from pangu_tpu_torch.train.lora import (
     LoraConfig,
     changed_param_report,
@@ -78,6 +80,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> Optional[float]
 
     cfg = build_config(args)
     mesh = resolve_mesh(cfg.parallel, device, cfg.model)
+    refuse_pipeline(cfg)
     world, rank = shard_of_world(mesh)
     out_dir = os.path.join(cfg.out_dir, "lora", str(cfg.horizon))
     os.makedirs(out_dir, exist_ok=True)

@@ -93,19 +93,34 @@ def optimizer_step_count(optimizer: torch.optim.Optimizer) -> int:
     return 0
 
 
-def loss_fn(model: nn.Module, batch: Batch, aux: AuxConstants, cfg: PanguConfig,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """The loss of one batch, in the model's current mode; ``generator``
-    draws the drop paths and dropout masks in training."""
-    out_u, out_s = model(batch.upper, batch.surface, aux, generator)
-    tgt_u, tgt_s = norm_data(batch.target_upper, batch.target_surface, aux)
+def output_loss(out_u: torch.Tensor, out_s: torch.Tensor, target_upper: torch.Tensor,
+                target_surface: torch.Tensor, aux: AuxConstants,
+                cfg: PanguConfig) -> torch.Tensor:
+    """The weighted L1 loss of normalized outputs against physical targets."""
+    tgt_u, tgt_s = norm_data(target_upper, target_surface, aux)
     mask = aux.custom_mask if cfg.train.use_custom_mask else None
     return weighted_l1_loss(out_u, out_s, tgt_u, tgt_s, aux,
                             only_wind_speed=cfg.train.only_wind_speed_loss, mask=mask)
 
 
-def _update(optimizer, cfg: PanguConfig, loss: torch.Tensor, timer,
-            model: nn.Module) -> torch.Tensor:
+def loss_fn(model: nn.Module, batch: Batch, aux: AuxConstants, cfg: PanguConfig,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The loss of one batch, in the model's current mode; ``generator``
+    draws the drop paths and dropout masks in training."""
+    out_u, out_s = model(batch.upper, batch.surface, aux, generator)
+    return output_loss(out_u, out_s, batch.target_upper, batch.target_surface, aux, cfg)
+
+
+def set_scheduled_lr(optimizer, schedule: Callable[[int], float]) -> None:
+    """Set the LR the schedule gives at the optimizer's update count, before
+    the update (optax indexes its schedule by the update count)."""
+    lr = schedule(optimizer_step_count(optimizer))
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def reduce_and_update(optimizer, cfg: PanguConfig, loss: torch.Tensor, timer,
+                      model: nn.Module) -> torch.Tensor:
     """Sum the slab gradients over the active mesh's plane, average the
     gradients over its data axis, update, and return the loss averaged over
     the data axis (one rank: the plain update)."""
@@ -222,10 +237,8 @@ def make_train_step(model: nn.Module, cfg: PanguConfig, optimizer,
                 if p.grad is not None:
                     p.grad.div_(accum)
         timer.mark("forward_backward")
-        lr = schedule(optimizer_step_count(optimizer))
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        return _update(optimizer, cfg, loss_sum / accum, timer, model)
+        set_scheduled_lr(optimizer, schedule)
+        return reduce_and_update(optimizer, cfg, loss_sum / accum, timer, model)
 
     return step
 

@@ -986,8 +986,10 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     and each script's timed run (2 warm-up + 10 or 12 timed calls). Phase
     18's served steps launch K1 16 times each with the eager bits, the
     flagship bf16 bound is printed, phase 19 prints its ``data:`` line
-    (the npy store's write, read rates and evaluate / finetune splits), and
-    phase 20 its ``multi-gpu:`` line for a world of one rank per card."""
+    (the npy store's write, read rates and evaluate / finetune splits),
+    phase 20 its ``multi-gpu:`` line for a world of one rank per card, and
+    phase 22 its ``pipeline:`` line (22a's stages within the one-process
+    forward's and step's bounds; 22b's worlds, or None on one card)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=repo, capture_output=True,
                           text=True, timeout=1200)
@@ -1033,4 +1035,10 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
     assert len(multi) == 1 and multi[0]["world"] == torch.cuda.device_count()
     assert set(multi[0]["step_split_s"]) == {"forward_backward", "reduce_scatter", "update",
                                              "all_gather", "total"}
+    pipe = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("pipeline: {")]
+    assert len(pipe) == 1 and len(pipe[0]["one_card"]["stages"]) == 4
+    assert pipe[0]["one_card"]["step"]["grad_rel_l2"] < 0.01
+    forward = pipe[0]["one_card"]["forward"]
+    assert sum(d.get("fused_earth_block", 0) for d in forward["launches"]) == 32
+    assert (pipe[0]["worlds"] is None) == (torch.cuda.device_count() < 2)
     assert json.loads(lines[-1])["ok"] is True

@@ -385,16 +385,14 @@ def test_scripts_at_world2(jig, script):
 @pytest.mark.parametrize("override,error,match", [
     (dict(lat=2), ValueError, "one process per card"),
     (dict(lon=2), ValueError, "one process per card"),
-    (dict(pipe=2), NotImplementedError, "10c")])
+    (dict(pipe=2), ValueError, "one process per card")])
 def test_resolve_mesh_refuses_what_is_not_ported(override, error, match):
-    """In one process: the pipeline is not ported (item 10c), and a spatial
-    axis asks for more processes than there are; ``make_mesh`` refuses the
-    pipeline before it looks for a process group, and wants one for lat/lon
-    (given the model, which a spatial mesh needs)."""
+    """In one process: a spatial or pipe axis asks for more processes than
+    there are; ``make_mesh`` wants a process group for each (given the
+    model, which a spatial mesh needs)."""
     with pytest.raises(error, match=match):
         resolve_mesh(ParallelConfig(**override))
-    with pytest.raises(NotImplementedError if "pipe" in override else RuntimeError,
-                       match="10c" if "pipe" in override else "initialized process group"):
+    with pytest.raises(RuntimeError, match="initialized process group"):
         make_mesh(ParallelConfig(**override), model=pangu_tiny(lon=192).model)
 
 

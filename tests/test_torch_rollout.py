@@ -142,14 +142,16 @@ FORECAST_AND_SCORE = [
 ]
 
 
-#: the finetuning path: summary, checkpoints, the Trainer, LoRA, data parallelism and
-#: their scripts
+#: the finetuning path: summary, checkpoints, the Trainer, LoRA, data parallelism, the
+#: pipeline and their scripts
 FINETUNE = [
     "pangu_tpu_torch.utils.summary", "pangu_tpu_torch.train.checkpoint",
     "pangu_tpu_torch.train.trainer", "pangu_tpu_torch.train.lora",
     "pangu_tpu_torch.interop.from_jax", "pangu_tpu_torch.scripts.finetune",
     "pangu_tpu_torch.scripts.lora_tune", "pangu_tpu_torch.parallel",
     "pangu_tpu_torch.parallel.mesh", "pangu_tpu_torch.parallel.sharding",
+    "pangu_tpu_torch.parallel.pipeline", "pangu_tpu_torch.scripts.pipeline_train",
+    "pangu_tpu_torch.scripts.bench_pipeline",
 ]
 
 
@@ -194,14 +196,16 @@ def test_importing_the_port_does_not_import_jax():
 def _python_sources():
     out = [os.path.relpath(os.path.join(d, f), REPO)
            for d, _, files in os.walk(PORT) for f in files if f.endswith(".py")]
-    return sorted(out) + ["chip_smoke.py", os.path.join("tests", "torch_parallel_worker.py")]
+    return sorted(out) + ["chip_smoke.py"] + [os.path.join("tests", f"torch_{name}_worker.py")
+                                              for name in ("parallel", "spatial", "pipeline")]
 
 
 @pytest.mark.parametrize("path", _python_sources())
 def test_no_port_source_imports_jax(path):
     """Source level: no import of jax, jaxlib, flax or any module of the JAX
     package (the port keeps its own copies of the jax-free ones), in the
-    port, chip_smoke.py and the data-parallel test's rank worker."""
+    port, chip_smoke.py and the rank workers of the data-parallel, spatial
+    and pipeline tests."""
     with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):

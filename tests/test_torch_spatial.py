@@ -210,8 +210,8 @@ def test_a_single_process_refuses_a_spatial_mesh(axes):
 
 
 def test_mesh_coordinates_are_row_major_over_data_lat_lon():
-    """The rank's (data, lat, lon) as the JAX ``make_mesh`` reshapes its
-    devices; drop path keeps the rows of the data coordinate (the spatial
+    """The rank's (data, pipe, lat, lon) as the JAX ``make_mesh`` reshapes
+    its devices (pipe 1 here); drop path keeps the rows of the data coordinate (the spatial
     peers of a sample draw the same scales); outside a layer's slab the dropout
     seeds fold the data coordinate, inside it (``on_slab``) the rank."""
     full = drop_path_scale(4, 0.5, torch.Generator().manual_seed(3), "cpu")
@@ -229,8 +229,8 @@ def test_mesh_coordinates_are_row_major_over_data_lat_lon():
             with on_slab(slab_of(stage, mesh)):
                 slab.append(train_seeds(down, torch.Generator().manual_seed(7),
                                         ATTENTION_SITES, 0.1))
-    assert coords == [(d, la, lo) for d in range(2) for la in range(2) for lo in range(2)]
-    for rank, (d, _, _) in enumerate(coords):
+    assert coords == [(d, 0, la, lo) for d in range(2) for la in range(2) for lo in range(2)]
+    for rank, (d, _, _, _) in enumerate(coords):
         assert torch.equal(scales[rank], full[2 * d:2 * d + 2])
         assert whole[rank] == whole[4 * d]
     assert whole[0] != whole[4] and len({tuple(s.values()) for s in slab}) == 8

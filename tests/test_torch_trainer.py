@@ -303,7 +303,7 @@ def test_finetune_script_runs_end_to_end_on_the_cpu(tmp_path):
     assert np.isfinite(again) and (out / "models" / "train_3").is_dir()
     with pytest.raises(ValueError, match="one process per card"):
         finetune.main(argv + ["--set", "parallel.lat=2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="10c"):
+    with pytest.raises(ValueError, match="one process per card"):
         finetune.main(argv + ["--set", "parallel.pipe=2"], device="cpu")
 
 
