@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from functools import partial
 from typing import Callable, Dict, Iterable, Optional
 
@@ -38,6 +37,7 @@ from pangu_tpu_torch.metrics import (
 )
 from pangu_tpu_torch.train.loss import weighted_l1_loss
 from pangu_tpu_torch.train.step import Batch, make_forward
+from pangu_tpu_torch.utils.profiling import Spans
 
 
 def to_device(x, device: torch.device) -> torch.Tensor:
@@ -171,24 +171,6 @@ def make_score_step(model: nn.Module, cfg: PanguConfig,
     return score
 
 
-class Spans:
-    """Wall seconds by span, summed over the loop; each mark waits for the
-    device, so a span holds the work queued in it."""
-
-    def __init__(self, totals: Optional[Dict[str, float]], device: torch.device):
-        self.totals, self.device = totals, device
-        self.t = time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if self.totals is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.totals[name] = self.totals.get(name, 0.0) + now - self.t
-        self.t = now
-
-
 def evaluate(
     model: nn.Module,
     loader: Iterable,
@@ -206,7 +188,8 @@ def evaluate(
     summed over the batches: ``load`` (waiting for the loader), ``h2d``,
     ``forecast`` (the model forward), ``score`` (loss, scores and their
     copy to the host) and, with ``visualize``, ``visualize``; each phase
-    then waits for the device at its end."""
+    then waits for the device at its end. Under a running profiler each
+    phase is a ``pangu.eval.<phase>`` range, with or without ``spans``."""
     device = model_device(model)
     forward = make_forward(model)
     scorer = _make_batch_scorer(cfg, return_fields=visualize)
@@ -215,15 +198,14 @@ def evaluate(
     acc_scores: Dict[str, Dict[str, np.ndarray]] = {f: {} for f in ACC_FAMILIES}
 
     total_loss, n = 0.0, 0
-    timer = Spans(spans, device)
-    for host_batch, periods in loader:
-        timer.mark("load")
-        batch = Batch(*(to_device(x, device) for x in host_batch))
-        timer.mark("h2d")
-        out_u, out_s = forward(batch.upper, batch.surface, aux)
-        timer.mark("forecast")
-        out = {k: v.cpu().numpy() for k, v in scorer(out_u, out_s, batch, aux).items()}
-        timer.mark("score")
+    timer = Spans("eval", spans, device)
+    for host_batch, periods in timer.iterate("load", loader):
+        with timer("h2d"):
+            batch = Batch(*(to_device(x, device) for x in host_batch))
+        with timer("forecast"):
+            out_u, out_s = forward(batch.upper, batch.surface, aux)
+        with timer("score"):
+            out = {k: v.cpu().numpy() for k, v in scorer(out_u, out_s, batch, aux).items()}
         total_loss += float(out["loss"])
         n += 1
         # one score row PER SAMPLE, keyed by that sample's target time
@@ -234,30 +216,30 @@ def evaluate(
                 acc_scores[f][target_time] = out[f"acc_{f}"][i]
 
         if visualize:
-            from pangu_tpu_torch.eval import visualize as viz
+            with timer("visualize"):
+                from pangu_tpu_torch.eval import visualize as viz
 
-            png_path = os.path.join(res_path, "png")
-            names_u = (
-                list(ERA5_UPPER_VARIABLES)
-                if cfg.model.upper_vars == len(ERA5_UPPER_VARIABLES)
-                else [str(i) for i in range(cfg.model.upper_vars)]
-            )
-            names_s = (
-                list(ERA5_SURFACE_VARIABLES)
-                if cfg.model.surface_vars == len(ERA5_SURFACE_VARIABLES)
-                else [str(i) for i in range(cfg.model.surface_vars)]
-            )
-            viz.plot_upper(
-                out["output_upper"][0], np.asarray(host_batch.target_upper[0]),
-                np.asarray(host_batch.upper[0]), names_u[-1], cfg.model.levels // 2,
-                periods[0][1], png_path, var_names=names_u,
-            )
-            viz.plot_surface(
-                out["output_surface"][0], np.asarray(host_batch.target_surface[0]),
-                np.asarray(host_batch.surface[0]), names_s[1], periods[0][1],
-                png_path, var_names=names_s,
-            )
-            timer.mark("visualize")
+                png_path = os.path.join(res_path, "png")
+                names_u = (
+                    list(ERA5_UPPER_VARIABLES)
+                    if cfg.model.upper_vars == len(ERA5_UPPER_VARIABLES)
+                    else [str(i) for i in range(cfg.model.upper_vars)]
+                )
+                names_s = (
+                    list(ERA5_SURFACE_VARIABLES)
+                    if cfg.model.surface_vars == len(ERA5_SURFACE_VARIABLES)
+                    else [str(i) for i in range(cfg.model.surface_vars)]
+                )
+                viz.plot_upper(
+                    out["output_upper"][0], np.asarray(host_batch.target_upper[0]),
+                    np.asarray(host_batch.upper[0]), names_u[-1], cfg.model.levels // 2,
+                    periods[0][1], png_path, var_names=names_u,
+                )
+                viz.plot_surface(
+                    out["output_surface"][0], np.asarray(host_batch.target_surface[0]),
+                    np.asarray(host_batch.surface[0]), names_s[1], periods[0][1],
+                    png_path, var_names=names_s,
+                )
 
     csv_path = os.path.join(res_path, "csv")
     write_score_tables(csv_path, rmse_scores, acc_scores, cfg)

@@ -71,6 +71,7 @@ from pangu_tpu_torch.ops.fused_block_attention import dense, fused_earth_block, 
 from pangu_tpu_torch.ops.fused_epilogue import fused_residual_postnorm
 from pangu_tpu_torch.parallel import spatial
 from pangu_tpu_torch.parallel.mesh import active_mesh
+from pangu_tpu_torch.utils.profiling import span
 
 
 def apply_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -175,21 +176,24 @@ class EarthSpecificBlock(nn.Module):
 
     def _enter(self, x: torch.Tensor, slab: Optional[spatial.Slab]):
         """Pad rows (global rows >= h) re-zeroed, then the shifted block's
-        roll: (shortcut, x). ``x`` is the whole padded grid, or the slab."""
+        roll: (shortcut, x). ``x`` is the whole padded grid, or the slab.
+        A ``pangu.block.shift`` range, as is ``_roll_back``'s roll."""
         st = self.stage
         (r0, r1), (c0, c1) = (slab.rows, slab.cols) if slab else ((0, st.h_pad), (0, st.w))
         assert tuple(x.shape[1:4]) == (st.z, r1 - r0, c1 - c0), (x.shape, st, slab)
-        real = min(max(st.h - r0, 0), r1 - r0)
-        if real < r1 - r0:
-            x = F.pad(x[:, :, :real], (0, 0, 0, 0, 0, r1 - r0 - real))
-        if not self.shifted:
-            return x, x
-        return x, spatial.roll(x, [-(w // 2) for w in st.window], slab)
+        with span("pangu.block.shift"):
+            real = min(max(st.h - r0, 0), r1 - r0)
+            if real < r1 - r0:
+                x = F.pad(x[:, :, :real], (0, 0, 0, 0, 0, r1 - r0 - real))
+            if not self.shifted:
+                return x, x
+            return x, spatial.roll(x, [-(w // 2) for w in st.window], slab)
 
     def _roll_back(self, x: torch.Tensor, slab: Optional[spatial.Slab]) -> torch.Tensor:
         if not self.shifted:
             return x
-        return spatial.roll(x, [w // 2 for w in self.stage.window], slab)
+        with span("pangu.block.shift"):
+            return spatial.roll(x, [w // 2 for w in self.stage.window], slab)
 
     def _tables(self, slab: Optional[spatial.Slab]) -> tuple:
         """The earth bias (nT, heads, T, T) f32 and the shift mask (or None)
@@ -306,9 +310,12 @@ BLOCK_SITES = ATTENTION_SITES + MLP_SITES
 
 
 def _chain(stages):
+    """The stages as one function: a ``pangu.block.stages`` range, which a
+    checkpoint's replay in the backward opens again."""
     def run(*state):
-        for fn, *_ in stages:
-            state = fn(*state)
+        with span("pangu.block.stages"):
+            for fn, *_ in stages:
+                state = fn(*state)
         return state
     return run
 

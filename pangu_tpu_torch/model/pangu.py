@@ -22,6 +22,7 @@ from pangu_tpu_torch import dtype_of
 from pangu_tpu_torch.aux import AuxConstants
 from pangu_tpu_torch.model.blocks import DownSample, EarthSpecificLayer, UpSample
 from pangu_tpu_torch.model.embeddings import PatchEmbedding, PatchRecovery
+from pangu_tpu_torch.utils.profiling import span
 
 
 #: the widths the CUDA kernels take: tokens per window, head dim, channels, MLP ratio
@@ -107,16 +108,23 @@ class PanguModel(nn.Module):
         """Physical (B, Vu, L, lat, lon) and (B, Vs, lat, lon) -> normalized
         next-state fields of the same shapes, f32. ``generator`` draws the
         drop paths and dropout masks in training (required when a rate is
-        above 0 or an unmerged adapter has dropout)."""
+        above 0 or an unmerged adapter has dropout). Under a running
+        profiler the layers' outsides are ranges: ``pangu.embed``,
+        ``pangu.resample`` (each of the down- and upsampling) and
+        ``pangu.recovery`` (the skip concat and the recovery)."""
         if upper.is_cuda:
             check_kernel_widths(self.cfg)
         layers = list(self.layers.values())
-        x = self._input_layer(upper, surface, aux, self.compute_dtype)
+        with span("pangu.embed"):
+            x = self._input_layer(upper, surface, aux, self.compute_dtype)
         x = layers[0](x, generator)
         skip = x
-        x = self.downsample(x, generator)
+        with span("pangu.resample"):
+            x = self.downsample(x, generator)
         x = layers[1](x, generator)
         x = layers[2](x, generator)
-        x = self.upsample(x, generator)
+        with span("pangu.resample"):
+            x = self.upsample(x, generator)
         x = layers[3](x, generator)
-        return self._output_layer(torch.cat([skip, x], dim=-1))
+        with span("pangu.recovery"):
+            return self._output_layer(torch.cat([skip, x], dim=-1))

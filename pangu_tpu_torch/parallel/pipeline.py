@@ -63,7 +63,7 @@ from torch import nn
 from pangu_tpu_torch import dtype_of
 from pangu_tpu_torch.aux import AuxConstants
 from pangu_tpu_torch.config import ModelConfig, PanguConfig
-from pangu_tpu_torch.eval.evaluate import Spans, to_device
+from pangu_tpu_torch.eval.evaluate import to_device
 from pangu_tpu_torch.geometry import compute_geometry
 from pangu_tpu_torch.model.blocks import EarthSpecificLayer
 from pangu_tpu_torch.model.pangu import backbone_module, check_kernel_widths
@@ -71,6 +71,7 @@ from pangu_tpu_torch.parallel.mesh import Mesh, activate_mesh, all_gather_tensor
 from pangu_tpu_torch.train.schedule import multistep_lr
 from pangu_tpu_torch.train.step import (Batch, output_loss, reduce_and_update,
                                         set_scheduled_lr)
+from pangu_tpu_torch.utils.profiling import Spans
 
 #: the full backbone as an ordered op chain; a pipeline stage is any
 #: contiguous slice of it.
@@ -495,7 +496,9 @@ class PanguPipeline:
         on every rank. The stage runs in training mode (the training
         kernels, remat as ``cfg.model.remat``). ``spans``, when given, gains
         the wall seconds of ``forward``, ``backward``, ``all_reduce`` and
-        ``update``, each ended by a synchronize."""
+        ``update``, each ended by a synchronize; under a running profiler
+        each phase is a ``pangu.pipe.<phase>`` range, with or without
+        ``spans``."""
         cfg, m = self.cfg, num_microbatches
         schedule = multistep_lr(cfg.train.lr, cfg.train.lr_milestones, cfg.train.lr_gamma,
                                 steps_per_epoch)
@@ -504,18 +507,19 @@ class PanguPipeline:
         def step(batch: Batch, aux: AuxConstants,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
             self.stage.train()
-            timer = Spans(spans, self.device)
+            timer = Spans("pipe", spans, self.device)
             optimizer.zero_grad(set_to_none=True)
             rows, shapes = self._plan(batch[0].shape[0], m)
             with activate_mesh(self.mesh), _drop_path_off(self.stage, generator is None):
-                runs = self._fill(batch, aux, rows, shapes, True, self._generators(generator, m))
-                loss_sum = torch.zeros((), device=self.device)
-                if self.last:
-                    for run in runs:
-                        loss_sum = loss_sum + run.outputs[0].detach()
-                timer.mark("forward")
-                self._drain(runs, shapes)
-                timer.mark("backward")
+                with timer("forward"):
+                    runs = self._fill(batch, aux, rows, shapes, True,
+                                      self._generators(generator, m))
+                    loss_sum = torch.zeros((), device=self.device)
+                    if self.last:
+                        for run in runs:
+                            loss_sum = loss_sum + run.outputs[0].detach()
+                with timer("backward"):
+                    self._drain(runs, shapes)
                 for p in params:
                     if p.grad is not None:
                         p.grad.div_(m)

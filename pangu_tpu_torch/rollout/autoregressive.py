@@ -15,6 +15,7 @@ from torch import nn
 
 from pangu_tpu_torch.aux import AuxConstants, norm_back_data
 from pangu_tpu_torch.model.pangu import check_kernel_widths
+from pangu_tpu_torch.utils.profiling import span
 
 Fields = Tuple[torch.Tensor, torch.Tensor]
 
@@ -23,7 +24,8 @@ def make_forecast_step(model: nn.Module, aux: AuxConstants) -> Callable[[torch.T
     """``step(upper, surface) -> (upper', surface')``, physical units,
     under ``torch.inference_mode`` with the model in eval mode (the JAX
     package's ``deterministic=True``). On the card it first checks that the
-    kernels take the model's widths (``check_kernel_widths``)."""
+    kernels take the model's widths (``check_kernel_widths``). Under a
+    running profiler ``norm_back_data`` is a ``pangu.norm_back`` range."""
     if next(model.parameters()).is_cuda:
         check_kernel_widths(model.cfg)
 
@@ -31,7 +33,8 @@ def make_forecast_step(model: nn.Module, aux: AuxConstants) -> Callable[[torch.T
     def step(upper: torch.Tensor, surface: torch.Tensor) -> Fields:
         model.eval()
         ou, os_ = model(upper, surface, aux)
-        return norm_back_data(ou, os_, aux)
+        with span("pangu.norm_back"):
+            return norm_back_data(ou, os_, aux)
 
     return step
 

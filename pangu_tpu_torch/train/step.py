@@ -45,6 +45,7 @@ from pangu_tpu_torch.parallel.sharding import (ShardedOptimizer, all_reduce_mean
                                                zero_constraint)
 from pangu_tpu_torch.train.loss import weighted_l1_loss
 from pangu_tpu_torch.train.schedule import multistep_lr
+from pangu_tpu_torch.utils.profiling import Spans, span
 
 
 class Batch(NamedTuple):
@@ -119,37 +120,38 @@ def set_scheduled_lr(optimizer, schedule: Callable[[int], float]) -> None:
         group["lr"] = lr
 
 
-def reduce_and_update(optimizer, cfg: PanguConfig, loss: torch.Tensor, timer,
+def reduce_and_update(optimizer, cfg: PanguConfig, loss: torch.Tensor, timer: Spans,
                       model: nn.Module) -> torch.Tensor:
     """Sum the slab gradients over the active mesh's plane, average the
     gradients over its data axis, update, and return the loss averaged over
-    the data axis (one rank: the plain update)."""
+    the data axis (one rank: the plain update); each collective and the
+    update a phase of ``timer``."""
     mesh = active_mesh()
     if mesh is None:
-        optimizer.step()
-        timer.mark("update")
+        with timer("update"):
+            optimizer.step()
         return loss
     loss = all_reduce_mean(loss)
     if mesh.lat * mesh.lon > 1:
-        on_slabs = {id(t) for t in slab_tensors(model)}
-        spatial_reduce([p.grad for p in trainable(optimizer) if id(p) in on_slabs])
-        timer.mark("spatial_reduce")
+        with timer("spatial_reduce"):
+            on_slabs = {id(t) for t in slab_tensors(model)}
+            spatial_reduce([p.grad for p in trainable(optimizer) if id(p) in on_slabs])
     if not isinstance(optimizer, ShardedOptimizer):  # plain DP
-        zero_constraint([p.grad for p in trainable(optimizer)], enable=False)
-        timer.mark("all_reduce")
-        optimizer.step()
-        timer.mark("update")
+        with timer("all_reduce"):
+            zero_constraint([p.grad for p in trainable(optimizer)], enable=False)
+        with timer("update"):
+            optimizer.step()
         return loss
     zero2 = cfg.parallel.zero_gradients
-    grads = zero_constraint([p.grad for p in optimizer.params], enable=zero2)
-    if not zero2:  # ZeRO-1: the rank's shard of each all-reduced gradient
-        grads = [None if g is None else local_shard(g, d, mesh)
-                 for g, d in zip(grads, optimizer.dims)]
-    timer.mark("reduce_scatter" if zero2 else "all_reduce")
-    optimizer.step(grads)
-    timer.mark("update")
-    replicate_constraint(optimizer.shards, optimizer.params)
-    timer.mark("all_gather")
+    with timer("reduce_scatter" if zero2 else "all_reduce"):
+        grads = zero_constraint([p.grad for p in optimizer.params], enable=zero2)
+        if not zero2:  # ZeRO-1: the rank's shard of each all-reduced gradient
+            grads = [None if g is None else local_shard(g, d, mesh)
+                     for g, d in zip(grads, optimizer.dims)]
+    with timer("update"):
+        optimizer.step(grads)
+    with timer("all_gather"):
+        replicate_constraint(optimizer.shards, optimizer.params)
     return loss
 
 
@@ -200,10 +202,10 @@ def make_train_step(model: nn.Module, cfg: PanguConfig, optimizer,
     of the step's phases summed over its calls, each ended by a
     synchronize: ``forward_backward``, under a spatial mesh ``spatial_reduce``,
     under a mesh ``reduce_scatter`` (ZeRO-2) or ``all_reduce``, ``update``,
-    and with sharded moments ``all_gather``.
+    and with sharded moments ``all_gather``. Under a running profiler each
+    phase is a ``pangu.train.<phase>`` range, and each microbatch's loss and
+    its ``backward()`` are ``pangu.train.forward`` and ``pangu.train.backward``.
     """
-    from pangu_tpu_torch.eval.evaluate import Spans  # evaluate imports this module
-
     if next(model.parameters()).is_cuda:
         check_kernel_widths(cfg.model)
     if cfg.model.grads_dtype not in ("float32", "bfloat16"):
@@ -217,26 +219,29 @@ def make_train_step(model: nn.Module, cfg: PanguConfig, optimizer,
     def step(batch: Batch, aux: AuxConstants,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         model.train()
-        timer = Spans(spans, device)
-        optimizer.zero_grad(set_to_none=True)
-        micro = [batch] if accum == 1 else [Batch(*(t[i] for t in batch)) for i in range(accum)]
-        half = _HalfParams(trainable(optimizer)) if bf16_grads else None
-        loss_sum = torch.zeros((), device=batch.upper.device)
-        try:
-            for mb in micro:
-                loss = loss_fn(model, mb, aux, cfg, generator)
-                loss.backward()
+        timer = Spans("train", spans, device)
+        with timer("forward_backward"):
+            optimizer.zero_grad(set_to_none=True)
+            micro = [batch] if accum == 1 else [Batch(*(t[i] for t in batch))
+                                                for i in range(accum)]
+            half = _HalfParams(trainable(optimizer)) if bf16_grads else None
+            loss_sum = torch.zeros((), device=batch.upper.device)
+            try:
+                for mb in micro:
+                    with span("pangu.train.forward"):
+                        loss = loss_fn(model, mb, aux, cfg, generator)
+                    with span("pangu.train.backward"):
+                        loss.backward()
+                    if half is not None:
+                        half.collect()
+                    loss_sum = loss_sum + loss.detach()
+            finally:
                 if half is not None:
-                    half.collect()
-                loss_sum = loss_sum + loss.detach()
-        finally:
-            if half is not None:
-                half.restore()
-        if accum > 1:
-            for p in trainable(optimizer):
-                if p.grad is not None:
-                    p.grad.div_(accum)
-        timer.mark("forward_backward")
+                    half.restore()
+            if accum > 1:
+                for p in trainable(optimizer):
+                    if p.grad is not None:
+                        p.grad.div_(accum)
         set_scheduled_lr(optimizer, schedule)
         return reduce_and_update(optimizer, cfg, loss_sum / accum, timer, model)
 

@@ -34,7 +34,7 @@ from torch import nn
 
 from pangu_tpu_torch.aux import AuxConstants
 from pangu_tpu_torch.config import PanguConfig
-from pangu_tpu_torch.eval.evaluate import Spans, model_device, to_device
+from pangu_tpu_torch.eval.evaluate import model_device, to_device
 from pangu_tpu_torch.parallel.mesh import active_mesh, is_main
 from pangu_tpu_torch.parallel.sharding import all_reduce_mean, zero_shard_opt_state
 from pangu_tpu_torch.train import checkpoint as ckpt
@@ -46,6 +46,7 @@ from pangu_tpu_torch.train.step import (
     make_train_step,
 )
 from pangu_tpu_torch.utils.logger import get_logger
+from pangu_tpu_torch.utils.profiling import Spans
 
 
 def sharded_val_stats(eval_step: Callable, val_loader: Iterable, aux: AuxConstants,
@@ -177,7 +178,9 @@ class Trainer:
         phases summed over its batches: ``load`` (waiting for the loader),
         ``h2d`` and ``step``, and of the train-state checkpoints, ``save``;
         each phase then waits for the device at its end (which also makes the
-        loss brake below read each step at once)."""
+        loss brake below read each step at once). Under a running profiler
+        (``profile_dir``) each phase is a ``pangu.fit.<phase>`` range, with or
+        without ``spans``."""
         cfg = self.cfg
         if state is None:
             state = init_train_state(self.model, cfg, self.aux, self.optimizer)
@@ -226,13 +229,12 @@ class Trainer:
             # the card never idles waiting on the brake check (the brake
             # fires at most one step late)
             pending = None
-            timer = Spans(spans, self.device)
-            for host_batch, _periods in train_loader:
-                timer.mark("load")
-                batch = Batch(*(to_device(x, self.device) for x in host_batch))
-                timer.mark("h2d")
-                loss = self.train_step(batch, self.aux, gen)
-                timer.mark("step")
+            timer = Spans("fit", spans, self.device)
+            for host_batch, _periods in timer.iterate("load", train_loader):
+                with timer("h2d"):
+                    batch = Batch(*(to_device(x, self.device) for x in host_batch))
+                with timer("step"):
+                    loss = self.train_step(batch, self.aux, gen)
                 if pending is not None:
                     consume(pending, n_batches - 1)
                 pending = loss
@@ -246,9 +248,9 @@ class Trainer:
 
             if epoch % cfg.train.save_interval == 0:
                 # every rank joins: the sharded moments are gathered for rank 0 to write
-                saving = Spans(spans, self.device)
-                ckpt.save_train_state(f"{self.out_dir}/models", epoch, state)
-                saving.mark("save")
+                saving = Spans("fit", spans, self.device)
+                with saving("save"):
+                    ckpt.save_train_state(f"{self.out_dir}/models", epoch, state)
 
             if val_loader is not None and epoch % cfg.train.val_interval == 0:
                 viz_box = ({} if self.visualize and (self.mesh is None or self.mesh.size == 1)

@@ -1,8 +1,15 @@
 """Profiling and system monitoring (port of ``pangu_tpu/utils/profiling.py``;
 role of the reference's nvidia-smi/df polling, monitor_system in
-models/pangu_sample.py:21-72): a ``torch.profiler`` trace context, the
+models/pangu_sample.py:21-72): the port's named ranges (``span``, and the
+loop phases of ``Spans``), a ``torch.profiler`` trace context, the
 device-busy split of a trace, CUDA memory counters, and a host/disk
 snapshot.
+
+Tracing is on exactly while a ``torch.profiler`` runs (``trace``,
+``Trainer(profile_dir=...)``, a benchmark's traced steps): a ``span`` is
+then a ``record_function`` range on the profiler's clock, beside the card's
+kernels, which its launches link to by correlation id. With no profiler it
+is a no-op that costs one attribute read.
 """
 
 from __future__ import annotations
@@ -14,14 +21,74 @@ import json
 import os
 import shutil
 import time
-from typing import Dict, Iterable, Iterator, Optional, Tuple
+from typing import ContextManager, Dict, Iterable, Iterator, Optional, Tuple, TypeVar
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 #: Kineto event categories of the card's work: kernels, and the copy engines'
 #: memcpy and memset
 KERNEL_CATEGORIES = ("kernel",)
 COPY_CATEGORIES = ("gpu_memcpy", "gpu_memset")
+
+_OFF = contextlib.nullcontext()
+T = TypeVar("T")
+
+
+def span(name: str) -> ContextManager:
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler runs, else a shared no-op context (no ``record_function`` is
+    built: building one costs several times the flag read, even with no
+    profiler). The port's names
+    start with ``pangu.``. A range opened inside a block that
+    ``torch.utils.checkpoint`` replays opens again during the replay, on the
+    autograd engine's thread."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+class Spans:
+    """The phases of a loop, one after another. Each ``with spans(phase):``
+    block is a ``pangu.<scope>.<phase>`` range (``span``) on a running
+    profiler's trace and ends with ``mark(phase)``. With ``totals`` (a dict),
+    ``mark`` adds the wall seconds since the previous mark (or since the
+    object was made) to ``totals[phase]``, after a synchronize of ``device``,
+    so that a phase holds the work queued in it. Without ``totals``, ``mark``
+    neither synchronizes nor reads the clock."""
+
+    def __init__(self, scope: str, totals: Optional[Dict[str, float]] = None,
+                 device: Optional[torch.device] = None):
+        self.scope, self.totals, self.device = scope, totals, device
+        self.t = time.perf_counter() if totals is not None else 0.0
+
+    @contextlib.contextmanager
+    def __call__(self, phase: str) -> Iterator[None]:
+        with span(f"pangu.{self.scope}.{phase}"):
+            yield
+        self.mark(phase)
+
+    def mark(self, phase: str) -> None:
+        """End ``phase``: with ``totals``, add its wall seconds."""
+        if self.totals is None:
+            return
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.totals[phase] = self.totals.get(phase, 0.0) + now - self.t
+        self.t = now
+
+    def iterate(self, phase: str, items: Iterable[T]) -> Iterator[T]:
+        """The items of ``items``, each fetch a ``phase``; the fetch that
+        finds the end is a range too, but adds no seconds."""
+        it, end = iter(items), object()
+        while True:
+            with span(f"pangu.{self.scope}.{phase}"):
+                item = next(it, end)
+            if item is end:
+                return
+            self.mark(phase)
+            yield item
 
 
 @contextlib.contextmanager
@@ -84,16 +151,6 @@ def trace_device_busy_split(log_dir: str) -> Optional[Dict[str, float]]:
         return None
     return {"modules_ms": busy_us(spans) / 1e3, "ops_ms": ops_us / 1e3,
             "copy_ms": copy_us / 1e3}
-
-
-def trace_device_busy_ms(log_dir: str, steps: int = 1) -> Optional[float]:
-    """Device-busy time (ms per step): the union of the device intervals,
-    else the kernels' sum; see :func:`trace_device_busy_split`."""
-    split = trace_device_busy_split(log_dir)
-    if split is None:
-        return None
-    total = split["modules_ms"] or split["ops_ms"]
-    return total / max(1, steps)
 
 
 def device_memory_stats() -> Dict[str, Dict[str, int]]:

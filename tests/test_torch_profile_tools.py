@@ -188,8 +188,6 @@ def test_trace_device_busy_split_of_a_kineto_trace(tmp_path):
     _write_trace(tmp_path / "host.123.pt.trace.json.gz", events)
     split = profiling.trace_device_busy_split(str(tmp_path))
     assert split == {"modules_ms": 0.19, "ops_ms": 0.2, "copy_ms": 0.04}
-    assert profiling.trace_device_busy_ms(str(tmp_path)) == 0.19
-    assert profiling.trace_device_busy_ms(str(tmp_path), steps=2) == 0.095
 
 
 def test_trace_device_busy_split_reads_the_newest_trace(tmp_path):
@@ -206,7 +204,6 @@ def test_trace_device_busy_split_is_none_without_device_events(tmp_path):
         {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "pid": 1, "tid": 1, "ts": 0.0,
          "dur": 50.0}])
     assert profiling.trace_device_busy_split(str(tmp_path)) is None
-    assert profiling.trace_device_busy_ms(str(tmp_path)) is None
     assert profiling.trace_device_busy_split(str(tmp_path / "empty")) is None
 
 
