@@ -15,10 +15,14 @@ Phases (any failure exits non-zero before the last line is printed):
 1. the card's name and power limit (nvidia-smi); a CUDA card is required;
 2. build the CUDA sources of pangu_tpu_torch/csrc/ with nvcc (build/kernels/),
    one nvcc per source, all at once;
-3. the block kernel K1 against its plain PyTorch version, bf16, at both
-   flagship stage shapes, unshifted and shifted (with the real shift mask);
-   max|d| / max(1, max|ref|) < 0.04 and RMS(d) / RMS(ref) < 0.01, and the
-   same bits on two runs; per-call times from CUDA events (median of 12);
+3. the block kernel K1 as the forecast step calls it (the block's shift and
+   real lat rows folded into its window gather; junk and NaN in the pad
+   rows) against its plain PyTorch version (re-zero, roll, block, roll
+   back), bf16, at both flagship stage shapes, unshifted and shifted (with
+   the real shift mask); on the real rows max|d| / max(1, max|ref|) < 0.04
+   and RMS(d) / RMS(ref) < 0.01, and the same bits on two runs; per-call
+   times from CUDA events (median of 12), also of the call without a fold
+   on the re-zeroed, rolled input (the slab route's);
 4. the forecast slice: flagship ``pangu_pretrain(24)`` in bf16 with seeded
    synthetic weights and aux constants, 3 autoregressive forecast steps
    through ``make_forecast_step`` (exactly 16 kernel launches per step),
@@ -530,37 +534,55 @@ def block_inputs(stage, c: int, heads: int, shifted: bool, dev, seed: int):
 
 
 def check_kernel(g, dev) -> dict:
-    """Phase 3: the kernel against its plain version at the main path's
-    shapes (``g``, the flagship model's geometry); returns per-shape times."""
+    """Phase 3: the kernel as the main path calls it, with the block's shift
+    and real rows (the folded gather), against its plain version (re-zero,
+    roll, block, roll back) at the main path's shapes (``g``, the flagship
+    model's geometry); the input's pad rows hold junk (large values, NaN in
+    the last row), which the kernel must read as zeros, so the real rows are
+    compared. Per shape also ``unfolded_ms``: the call without a fold (the
+    slab route's) on the re-zeroed, rolled input. Returns per-shape times."""
     shapes = []
     for name, stage, c, heads, per_step in (("outer", g.outer, 192, 6, 2),
                                             ("inner", g.inner, 384, 12, 6)):
         for shifted in (False, True):
+            label = f"K1 {name} {'shifted' if shifted else 'unshifted'}"
             args, statics = block_inputs(stage, c, heads, shifted, dev, seed=len(shapes))
-            got = fba.fused_earth_block(*args, *statics)
+            h, shift = stage.h, [w // 2 if shifted else 0 for w in stage.window]
+            x = args[0]
+            x[:, :, h:] = 3e4
+            x[:, :, -1] = float("nan")
+            fold = dict(shift=shift, h=h)
+            got = fba.fused_earth_block(*args, *statics, **fold)[:, :, :h]
             torch.cuda.synchronize()
-            same = same_bits(f"K1 {name} {'shifted' if shifted else 'unshifted'}", (got,),
-                             (fba.fused_earth_block(*args, *statics),))
-            ref = fba.fused_earth_block_reference(*args, *statics)
+            same = same_bits(label, (got,),
+                             (fba.fused_earth_block(*args, *statics, **fold)[:, :, :h],))
+            ref = fba.fused_earth_block_folded_reference(*args, *statics, shift, h)[:, :, :h]
             d = (got.float() - ref.float())
             max_abs = d.abs().max().item()
             rms = d.pow(2).mean().sqrt().item()
             ref_max = ref.float().abs().max().item()
             ref_rms = ref.float().pow(2).mean().sqrt().item()
             del got, ref, d
-            ms = cuda_times_ms(lambda: fba.fused_earth_block(*args, *statics))
-            plain_ms = cuda_times_ms(lambda: fba.fused_earth_block_reference(*args, *statics))
-            log(f"kernel {name} {'shifted' if shifted else 'unshifted'} x={tuple(args[0].shape)} "
-                f"heads={heads}: max|d|={max_abs:.6g} rms(d)={rms:.6g} max|ref|={ref_max:.6g} "
-                f"rms(ref)={ref_rms:.6g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            ms = cuda_times_ms(lambda: fba.fused_earth_block(*args, *statics, **fold))
+            plain_ms = cuda_times_ms(
+                lambda: fba.fused_earth_block_folded_reference(*args, *statics, shift, h))
+            rezeroed = torch.nn.functional.pad(x[:, :, :h], (0, 0, 0, 0, 0, x.shape[2] - h))
+            rolled = torch.roll(rezeroed, [-s for s in shift], dims=(1, 2, 3))
+            unfolded_ms = cuda_times_ms(lambda: fba.fused_earth_block(rolled, *args[1:], *statics))
+            del rezeroed, rolled
+            log(f"kernel {name} {'shifted' if shifted else 'unshifted'} x={tuple(x.shape)} "
+                f"h={h} shift={shift} heads={heads}: max|d|={max_abs:.6g} rms(d)={rms:.6g} "
+                f"max|ref|={ref_max:.6g} rms(ref)={ref_rms:.6g}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, unfolded call {unfolded_ms:.4f} ms")
             if not max_abs / max(1.0, ref_max) < KERNEL_TOL or not rms / ref_rms < KERNEL_RMS_TOL:
                 raise AssertionError(f"kernel disagrees with its plain version at {name}")
-            shapes.append(dict(stage=name, shifted=shifted, shape=list(args[0].shape),
-                               heads=heads, launches_per_step=per_step, max_abs_err=max_abs,
-                               rms_err=rms, same_bits=same, ms=ms, plain_ms=plain_ms,
-                               **bound("fused_earth_block", args[0].numel() // c, c, heads,
+            shapes.append(dict(stage=name, shifted=shifted, shape=list(x.shape), h=h,
+                               shift=shift, heads=heads, launches_per_step=per_step,
+                               max_abs_err=max_abs, rms_err=rms, same_bits=same, ms=ms,
+                               plain_ms=plain_ms, unfolded_ms=unfolded_ms,
+                               **bound("fused_earth_block", x.numel() // c, c, heads,
                                        stage.n_type_windows, shifted)))
-            del args
+            del args, x
             torch.cuda.empty_cache()
     return {"fused_earth_block": shapes}
 

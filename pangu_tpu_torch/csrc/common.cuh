@@ -1,7 +1,8 @@
 // Device helpers shared by the port's CUDA sources (sm_90a): the window
-// geometry, the GELU, warp reductions, cp.async staging with a two-stage ring, the
-// mma.sync product with its ldmatrix fragment loads, the wmma fragment types,
-// and the reduction of per-CTA f32 partials.
+// geometry (and K1's folded addressing), the GELU, warp reductions, cp.async
+// staging with a two-stage ring, the mma.sync product with its ldmatrix
+// fragment loads, the wmma fragment types, and the reduction of per-CTA f32
+// partials.
 
 #pragma once
 
@@ -33,6 +34,31 @@ __device__ __forceinline__ long long token_row(const Geom& g, int b, int zi, int
   const int dw = r - dh * g.ww;
   return ((long long)(b * g.Z + zi * g.wz + dz) * g.Hp + hi * g.wh + dh) * g.W +
          wi * g.ww + dw;
+}
+
+// K1's fold mode (window_attention.cuh): a shifted block's cyclic shift and the
+// pad rows' re-zero applied in the window gather. The grid is read as if rolled
+// by -(sz, sh, sw) (each shift in [0, its window dim)) with the lat rows >= h
+// zeroed first.
+struct Fold {
+  int sz, sh, sw, h;
+};
+
+// Row, within its batch image, of the grid position that token i of
+// rolled-frame window (zi, hi, wi) reads under fold f: ((zi wz + dz + sz) mod Z,
+// (hi wh + dh + sh) mod Hp, (wi ww + dw + sw) mod W). Bit 31 is set when that
+// lat row is a pad row (>= f.h).
+__device__ __forceinline__ uint32_t folded_row(const Geom& g, const Fold& f, int zi, int hi,
+                                               int wi, int i) {
+  const int dz = i / (g.wh * g.ww);
+  const int r = i - dz * g.wh * g.ww;
+  const int dh = r / g.ww;
+  const int dw = r - dh * g.ww;
+  int z = zi * g.wz + dz + f.sz, y = hi * g.wh + dh + f.sh, w = wi * g.ww + dw + f.sw;
+  if (z >= g.Z) z -= g.Z;
+  if (y >= g.Hp) y -= g.Hp;
+  if (w >= g.W) w -= g.W;
+  return (uint32_t)((z * g.Hp + y) * g.W + w) | (y >= f.h ? 0x80000000u : 0u);
 }
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
@@ -67,6 +93,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gptr) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gptr));
+}
+// the same copy of src_bytes (0 or 16) bytes, the rest of the 16 zero-filled:
+// a row read as zeros without touching its values
+__device__ __forceinline__ void cp_async16_zfill(void* smem_ptr, const void* gptr,
+                                                 uint32_t src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gptr),
+               "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>

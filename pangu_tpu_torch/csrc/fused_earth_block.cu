@@ -2,7 +2,8 @@
 //
 // Replaces pangu_tpu/ops/fused_block_attention.py::fused_earth_block (the Pallas
 // megakernel _block_forward / _make_kernel(with_epilogue=True, with_mlp=True)).
-// One call computes, on the (rolled, window-padded) token grid x (B, Z, Hp, W, C):
+// One call computes, on the window-padded token grid x (B, Z, Hp, W, C) read
+// as the block sees it (see Fold mode below):
 //
 //   qkv = x @ Wqkv + bqkv                                  (per window, bf16)
 //   a   = softmax(q k^T * scale + bias[type, head] (+ mask[type])) @ v   (f32 softmax)
@@ -29,13 +30,14 @@
 // two kernels instead:
 //
 //  * window_attention_kernel (window_attention.cuh, where its design is
-//    described; shared with K2, K2's LN mode, K11 and K12): one CTA per
-//    (batch, window, head), 9 warps. It gathers the window's 144 tokens
-//    straight from the grid by index (no partition transpose), forms that
-//    head's q, k, v (144 x 32 each) on mma.sync from a three-stage cp.async
-//    ring, then each warp keeps its 16 query rows' scores, f32 softmax and
-//    bf16 probabilities in registers and forms P @ v, and stores the head's
-//    32 columns of a bf16 (B, Z, Hp, W, C) attention-output buffer.
+//    described; shared with K2, K2's LN mode, K11 and K12, which run its
+//    unfolded instantiation): one CTA per (batch, window, head), 9 warps. It
+//    gathers the window's 144 tokens straight from the grid by index (no
+//    partition transpose; in fold mode at their shifted, wrapped positions),
+//    forms that head's q, k, v (144 x 32 each) on mma.sync from a three-stage
+//    cp.async ring, then each warp keeps its 16 query rows' scores, f32
+//    softmax and bf16 probabilities in registers and forms P @ v, and stores
+//    the head's 32 columns of a bf16 (B, Z, Hp, W, C) attention-output buffer.
 //    Consecutive CTAs are the heads of one window and then the lon windows of
 //    one type, so a window's x rows and a (type, head) bias tile are reused
 //    from L2 (the bias tile by the 30 or 15 lon windows of its type).
@@ -54,6 +56,22 @@
 //    exists whole; then LN2 and the final residual in f32. The LayerNorm row
 //    statistics add both warpgroups' halves in a fixed order.
 //
+// Fold mode (a whole grid: every block of the forecast step). A shifted block
+// sees its input rolled by -(wz/2, wh/2, ww/2), and every block sees the pad
+// lat rows (>= h, the stage's real rows) as zeros. Both are token addresses,
+// not passes over the grid: the attention kernel's folded instantiation reads
+// token i of rolled-frame window (zi, hi, wi) at ((zi wz + dz + sz) mod Z,
+// (hi wh + dh + sh) mod Hp, (wi ww + dw + sw) mod W), copies a pad row as
+// zeros (cp.async with no source bytes, never a product, so whatever a pad row
+// of x holds does not reach a real row), and stores the token's output at the
+// position it read; the bias and mask tiles are the rolled frame's window
+// type's. The tail then works row by row on the un-rolled x and attention
+// output, so `out` is the block's output in the un-rolled frame. Its real rows
+// are the bits of the unfolded route (re-zero, roll, this call, roll back): the
+// same tokens in the same order within each window. Its pad rows hold values
+// the caller discards (the next block reads them as zeros, the layer crops
+// them).
+//
 // The attention kernel's products are mma.sync m16n8k16 (bf16, f32
 // accumulate) from ldmatrix fragments of tiles staged by cp.async; the tail's
 // are wgmma from TMA tiles; the weights are shared by every CTA and come from
@@ -70,25 +88,31 @@ extern "C" {
 
 // Runs the whole block on `stream`. Returns a cudaError_t: cudaErrorInvalidValue
 // for a geometry the kernels do not take, else the launch status of the last
-// kernel (cudaGetLastError after each launch). `mask` may be null.
+// kernel (cudaGetLastError after each launch). `mask` may be null. (sz, sh, sw)
+// is the block's shift (each in [0, its window dim)) and h its real lat rows
+// (1..Hp); a shift or h < Hp runs the attention folded (see the header).
 int pangu_fused_earth_block(const void* x, const void* wqkv, const void* bqkv,
                             const void* wproj, const void* bproj, const void* bias,
                             const void* mask, const void* ln1_s, const void* ln1_b,
                             const void* w1, const void* b1, const void* w2, const void* b2,
                             const void* ln2_s, const void* ln2_b, void* attn_buf, void* out,
                             int B, int Z, int Hp, int W, int C, int heads, int wz, int wh,
-                            int ww, float scale, void* stream) {
+                            int ww, int sz, int sh, int sw, int h, float scale,
+                            void* stream) {
   if (wz * wh * ww != T || C != heads * D || (C != 192 && C != 384) || B < 1 ||
       Z % wz || Hp % wh || W % ww)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const Geom g{B, Z, Hp, W, C, heads, wz, wh, ww};
   const long long windows = (long long)B * (Z / wz) * (Hp / wh) * (W / ww);
+  const Fold fold{sz, sh, sw, h};
+  const bool folded = sz || sh || sw || h != Hp;
 
   cudaError_t err = launch_window_attention(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(bqkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<bf16*>(attn_buf), g, scale, s);
+      static_cast<const float*>(mask), static_cast<bf16*>(attn_buf), g, scale, s,
+      folded ? &fold : nullptr);
   if (err != cudaSuccess) return (int)err;
 
   const long long rows = windows * T;

@@ -12,6 +12,29 @@
 // block (fused_block_train.cu: K11, and K12's recompute of the attention
 // output), all through launch_window_attention.
 //
+// Two instantiations. window_attention_kernel<false>, which K2, K2 LN, K11 and
+// K12 run, reads window (b, zi, hi, wi) at its own rows. <true>, fold mode,
+// which K1 runs on a whole grid, folds the block's cyclic shift and its pad
+// rows' re-zero into the addressing:
+//
+//  * gather: token i = (dz, dh, dw) of rolled-frame window (b, zi, hi, wi) is
+//    read at ((zi wz + dz + sz) mod Z, (hi wh + dh + sh) mod Hp,
+//    (wi ww + dw + sw) mod W), i.e. from x rolled by -(sz, sh, sw) (the
+//    shifted block's -window/2; zeros for an unshifted block); the bias and
+//    mask are the rolled frame's window type's, as without the fold;
+//  * zero pad rows: a token whose source lat row is >= h is copied as zeros
+//    (cp.async with no source bytes), a select and not a product, so a pad
+//    row of x may hold anything, NaN included;
+//  * store: the token's output row goes to the position it was read from.
+//
+// The rows wrap at the grid's edges, so the unfolded kernel's copy offsets
+// (relative to the window's first row, the same for every window) do not
+// hold. Fold mode forms the window's 144 source rows once a CTA into a 576-B
+// table beside the ring, from which each thread's copy offsets (within the
+// batch image, bit 31 marking a pad row) and its store rows are read. Formed
+// per thread and kept in registers through the scores, they spilled 228 B
+// against the unfolded 36 and cost 10-18% of the kernel (PERF.md).
+//
 // Design. A CTA of 9 warps runs one (window, head):
 //
 //  * the q|k|v product (144 x C) (C x 96) on mma.sync m16n8k16: x and this
@@ -31,8 +54,8 @@
 //    probability goes to shared memory.
 //
 // Shared memory: a ring of three stages of 34,560 B, 103,680 B, the q|k|v
-// tile (29,952 B) written over it; two CTAs (18 warps) per SM, at 96
-// registers a thread (five warps per SM quarter).
+// tile (29,952 B) written over it (fold mode: 576 B more); two CTAs (18
+// warps) per SM, at 96 registers a thread (five warps per SM quarter).
 //
 // What bounds it on an H100: the products, 2 T C 96 + 4 T T 32 FLOP per
 // (window, head) (0.18 / 0.155 ms at the outer / inner stage at the bf16
@@ -66,12 +89,16 @@ static_assert(T * (KC / 8) == 4 * ATT_THREADS && 3 * D * (KC / 8) <= 3 * ATT_THR
               "a thread's copies of a chunk: 4 of x, at most 3 of Wqkv, one column");
 static_assert(QKV_BYTES % 128 == 0 && (ATT_STAGE_ELEMS * 2) % 128 == 0, "aligned tiles");
 static_assert(2 * (ATT_SMEM + 1024) <= 233472, "two CTAs per SM");
+// fold mode: the window's source rows (T x 4 B) beside the ring
+constexpr int ATT_SMEM_FOLDED = ATT_SMEM + T * 4;
+static_assert(2 * (ATT_SMEM_FOLDED + 1024) <= 233472, "two CTAs per SM, folded");
 
+template <bool Folded>
 __global__ void __launch_bounds__(ATT_THREADS, 2)
 window_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                         const bf16* __restrict__ bqkv, const float* __restrict__ bias,
                         const float* __restrict__ mask, bf16* __restrict__ attn_out,
-                        Geom g, float scale) {
+                        Geom g, float scale, Fold f) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   bf16* qkv = ring;  // after the last chunk
@@ -96,10 +123,24 @@ window_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqk
   // checks wz Hp W C < 2^31, which bounds an x row's offset in its window).
   const int cv = (threadIdx.x % (KC / 8)) * 8;
   uint32_t xrel[4], woff[3];
+  // folded: the offsets come from the window's source-row table (see the
+  // header), within the batch image (the caller checks Z Hp W C < 2^31), bit
+  // 31 kept: a pad row is copied as zeros
+  uint32_t* const src_rows = reinterpret_cast<uint32_t*>(smem + ATT_SMEM);
+  if constexpr (Folded) {
+    if (threadIdx.x < T) src_rows[threadIdx.x] = folded_row(g, f, zi, hi, idx % wn, threadIdx.x);
+    __syncthreads();
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
-    xrel[k] = (uint32_t)((token_row(g, 0, 0, 0, 0, (threadIdx.x + ATT_THREADS * k) / (KC / 8)) *
-                          C) + cv);
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t r = src_rows[(threadIdx.x + ATT_THREADS * k) / (KC / 8)];
+      xrel[k] = ((r & 0x7fffffffu) * C + cv) | (r & 0x80000000u);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      xrel[k] = (uint32_t)((token_row(g, 0, 0, 0, 0, (threadIdx.x + ATT_THREADS * k) / (KC / 8)) *
+                            C) + cv);
+  }
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const int r = (threadIdx.x + ATT_THREADS * k) / (KC / 8), sg = r / D;
@@ -107,12 +148,22 @@ window_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqk
   }
   auto load = [&](int chunk, bf16* st) {
     const int k0 = chunk * KC;
-    const int b = win / wn, wi = win - b * wn;
-    const bf16* xw = x + token_row(g, b, zi, hi, wi, 0) * C + k0;  // the window's first row
+    if constexpr (Folded) {
+      const bf16* xb = x + (long long)(win / wn) * g.Z * g.Hp * g.W * C + k0;  // the batch image
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int t = (threadIdx.x + ATT_THREADS * k) / (KC / 8);
-      cp_async16(st + t * XS_LD + cv, xw + xrel[k]);
+      for (int k = 0; k < 4; ++k) {
+        const int t = (threadIdx.x + ATT_THREADS * k) / (KC / 8);
+        cp_async16_zfill(st + t * XS_LD + cv, xb + (xrel[k] & 0x7fffffffu),
+                         (xrel[k] >> 31) ? 0u : 16u);
+      }
+    } else {
+      const int b = win / wn, wi = win - b * wn;
+      const bf16* xw = x + token_row(g, b, zi, hi, wi, 0) * C + k0;  // the window's first row
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int t = (threadIdx.x + ATT_THREADS * k) / (KC / 8);
+        cp_async16(st + t * XS_LD + cv, xw + xrel[k]);
+      }
     }
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -252,7 +303,14 @@ window_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqk
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    bf16* row = attn_out + token_row(g, b, zi, hi, wi, q0 + gq + 8 * h) * C + head * D + 2 * tq;
+    // folded: at the position the token was read from (a pad row too)
+    bf16* row;
+    if constexpr (Folded)
+      row = attn_out +
+            ((long long)b * g.Z * g.Hp * g.W + (src_rows[q0 + gq + 8 * h] & 0x7fffffffu)) * C +
+            head * D + 2 * tq;
+    else
+      row = attn_out + token_row(g, b, zi, hi, wi, q0 + gq + 8 * h) * C + head * D + 2 * tq;
 #pragma unroll
     for (int nn = 0; nn < 4; ++nn)
       *reinterpret_cast<uint32_t*>(row + 8 * nn) = pack_bf16(o[nn][2 * h], o[nn][2 * h + 1]);
@@ -264,23 +322,45 @@ inline long long window_attention_ctas(const Geom& g) {
   return (long long)g.B * (g.Z / g.wz) * (g.Hp / g.wh) * (g.W / g.ww) * g.heads;
 }
 
-// The attention output (rows, C) bf16 of x on `stream` (C a multiple of KC,
-// wz Hp W C below 2^31); `mask` may be null.
-inline cudaError_t launch_window_attention(const bf16* x, const bf16* wqkv, const bf16* bqkv,
-                                           const float* bias, const float* mask, bf16* attn,
-                                           const Geom& g, float scale, cudaStream_t stream) {
-  if (g.C % KC || (long long)g.wz * g.Hp * g.W * g.C >= (1LL << 31))
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
+template <bool Folded>
+inline cudaError_t launch_window_attention_as(const bf16* x, const bf16* wqkv, const bf16* bqkv,
+                                              const float* bias, const float* mask, bf16* attn,
+                                              const Geom& g, float scale, const Fold& f,
+                                              cudaStream_t stream) {
+  constexpr int smem = Folded ? ATT_SMEM_FOLDED : ATT_SMEM;
+  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel<Folded>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(window_attention_kernel,
+  err = cudaFuncSetAttribute(window_attention_kernel<Folded>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  window_attention_kernel<<<(unsigned)window_attention_ctas(g), ATT_THREADS, ATT_SMEM, stream>>>(
-      x, wqkv, bqkv, bias, mask, attn, g, scale);
+  window_attention_kernel<Folded>
+      <<<(unsigned)window_attention_ctas(g), ATT_THREADS, smem, stream>>>(
+          x, wqkv, bqkv, bias, mask, attn, g, scale, f);
   return cudaGetLastError();
+}
+
+// The attention output (rows, C) bf16 of x on `stream` (C a multiple of KC,
+// wz Hp W C below 2^31); `mask` may be null. With `fold` (K1 on a whole grid)
+// the folded instantiation reads x rolled by -(sz, sh, sw) with its lat rows
+// >= h as zeros and stores each token's output where it was read (each shift
+// in [0, its window dim), 1 <= h <= Hp, Z Hp W C below 2^31); without it, the
+// unfolded one, which every other caller runs.
+inline cudaError_t launch_window_attention(const bf16* x, const bf16* wqkv, const bf16* bqkv,
+                                           const float* bias, const float* mask, bf16* attn,
+                                           const Geom& g, float scale, cudaStream_t stream,
+                                           const Fold* fold = nullptr) {
+  if (g.C % KC || (long long)g.wz * g.Hp * g.W * g.C >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  if (!fold)
+    return launch_window_attention_as<false>(x, wqkv, bqkv, bias, mask, attn, g, scale, Fold{},
+                                             stream);
+  const Fold& f = *fold;
+  if ((long long)g.Z * g.Hp * g.W * g.C >= (1LL << 31) || f.sz < 0 || f.sz >= g.wz ||
+      f.sh < 0 || f.sh >= g.wh || f.sw < 0 || f.sw >= g.ww || f.h < 1 || f.h > g.Hp)
+    return cudaErrorInvalidValue;
+  return launch_window_attention_as<true>(x, wqkv, bqkv, bias, mask, attn, g, scale, f, stream);
 }
 
 }  // namespace

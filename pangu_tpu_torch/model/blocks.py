@@ -7,7 +7,12 @@ The route keys on the module's mode, as the JAX package keys on
 
 * eval, bf16, ``use_kernel`` set (``ModelConfig.use_pallas_attention``),
   autograd off: ONE call of ``ops.fused_block_attention.fused_earth_block``
-  (K1) per block -- the CUDA kernel on the card, its plain version on the CPU;
+  (K1) per block -- the CUDA kernel on the card, its plain version on the CPU.
+  On the whole grid K1 takes the block input as it stands, with the block's
+  shift and real rows: the kernel folds the roll and the pad re-zero into its
+  window gather, and its output is already un-rolled. On a spatial slab the
+  block re-zeroes and halo-shifts first and rolls back after, as the other
+  routes do;
 * eval otherwise (f32, or autograd on: K1 has no backward): the plain
   composition ``x + LN1(attn(x))`` then ``+ LN2(MLP(.))``;
 * training: ``x = shortcut + s1 * LN1(attn(x))`` then ``x + s2 * LN2(MLP(x))``
@@ -141,7 +146,8 @@ class Mlp(nn.Module):
 class EarthSpecificBlock(nn.Module):
     """One (optionally shifted) 3D window-attention block with post-norm
     residuals. Pad rows are re-zeroed at entry (the reference's crop and
-    re-pad between blocks)."""
+    re-pad between blocks); K1 on the whole grid reads them as zeros
+    instead, and its output's pad rows hold values nothing reads."""
 
     def __init__(self, stage: StageGeometry, dim: int, heads: int, shifted: bool,
                  mlp_ratio: int = 4, use_kernel: bool = False, dropout_rate: float = 0.0):
@@ -220,11 +226,21 @@ class EarthSpecificBlock(nn.Module):
                 return self._train_fused(x, s1, s2, slab)
             return run_stages(self._train_stages(x, s1, s2, seeds, slab), x, kept)
 
-        shortcut, x = self._enter(x, slab)
-        if (self.use_kernel and x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
-                and not self.adapted()):
-            cdt = x.dtype
+        k1 = (self.use_kernel and x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+              and not self.adapted())
+        # K1 on the whole grid folds the roll and the pad re-zero into its
+        # gather: its shift range stays open, and empty
+        folded = k1 and slab is None
+        if folded:
+            with span("pangu.block.shift"):
+                pass
+        else:
+            shortcut, x = self._enter(x, slab)
+        if k1:
+            cdt, st = x.dtype, self.stage
             attn, mlp = self.attention, self.linear
+            shift, h = (([w // 2 * self.shifted for w in st.window], st.h) if folded
+                        else ((0, 0, 0), x.shape[2]))
             x = fused_earth_block(
                 x,
                 linear_weight(attn.linear1).to(cdt), attn.linear1.bias.to(cdt),
@@ -233,9 +249,9 @@ class EarthSpecificBlock(nn.Module):
                 self.norm1.weight.float(), self.norm1.bias.float(),
                 *mlp.weights(cdt),
                 self.norm2.weight.float(), self.norm2.bias.float(),
-                self.stage.window, self.heads, (self.dim // self.heads) ** -0.5,
+                st.window, self.heads, (self.dim // self.heads) ** -0.5, shift, h,
             )
-            return self._roll_back(x, slab)
+            return x if folded else self._roll_back(x, slab)
 
         bias, mask = self._tables(slab)
         x = self._roll_back(self.attention(x, mask, bias=bias), slab)

@@ -1,11 +1,19 @@
 """The Earth-Specific block kernels (port of
 ``pangu_tpu/ops/fused_block_attention.py``).
 
-``fused_earth_block`` (K1) runs one whole inference block on the (possibly
-rolled) window-padded grid ``x`` (B, Z, Hp, W, C):
+``fused_earth_block`` (K1) runs one whole inference block on the
+window-padded grid ``x`` (B, Z, Hp, W, C):
 
     x1  = x + LN1(attn(x))                  attention with earth bias (+ shift mask)
     out = x1 + LN2(GELU(x1 @ W1 + b1) @ W2 + b2)
+
+Given the block's ``shift`` (sz, sh, sw) and its real lat rows ``h``, it
+runs that block on ``x`` as it stands: the attention sees ``x`` with its
+rows >= h zeroed and rolled by -shift, and the result comes back un-rolled,
+the real rows the bits of re-zero, ``torch.roll``, the call without them and
+the roll back. On the card the kernel folds both into the window gather
+(``FOLDED_LAUNCHES``): no pass over the grid. On the CPU the operator runs
+that route written out (:func:`fused_earth_block_folded_reference`).
 
 ``fused_block_attention`` (K2) is the attention sublayer alone for
 training, ``y = attn(x) @ Wproj^T + bproj``, with a ``torch.autograd``
@@ -28,14 +36,14 @@ exported forecast step calls it as the eager step does.
 Weights use nn.Linear's (out, in) layout, as the block's modules hold them:
 wqkv (3C, C), wproj (C, C), w1 (4C, C), w2 (C, 4C); bias (nT, heads, T, T)
 and mask (nT, T, T) f32; LayerNorm scale/bias f32. Pad rows of the output
-hold values the caller discards (the next block re-zeroes them, the layer
-crops them).
+hold values the caller discards (the next block reads them as zeros, the
+layer crops them).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +56,8 @@ _TRAIN_SOURCE = "block_attention.cu"
 
 #: kernel launches by :func:`fused_earth_block` (K1) in this process
 LAUNCHES = 0
+#: those of them that folded a shift or pad rows into the window gather
+FOLDED_LAUNCHES = 0
 #: launches of the training attention forward (K2) and backward (K3)
 ATTN_FWD_LAUNCHES = 0
 ATTN_BWD_LAUNCHES = 0
@@ -119,6 +129,25 @@ def fused_earth_block_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
     h = F.gelu(dot_f32(x1.to(dt), w1.t()) + b1.float()).to(dt)
     y = layer_norm_f32(dot_f32(h, w2.t()) + b2.float(), ln2_s.float(), ln2_b.float())
     return (x1 + y).to(dt)
+
+
+def fused_earth_block_folded_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                       ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
+                                       window: Tuple[int, int, int], heads: int, scale: float,
+                                       shift: Sequence[int], h: int) -> torch.Tensor:
+    """K1 with a shift and real rows, written out as the block's unfolded
+    route: rows >= ``h`` re-zeroed, ``torch.roll`` by -``shift``,
+    :func:`fused_earth_block_reference`, the roll back."""
+    hp = x.shape[2]
+    if h < hp:
+        x = F.pad(x[:, :, :h], (0, 0, 0, 0, 0, hp - h))
+    if any(shift):
+        x = torch.roll(x, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
+    out = fused_earth_block_reference(x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
+                                      w1, b1, w2, b2, ln2_s, ln2_b, window, heads, scale)
+    if any(shift):
+        out = torch.roll(out, shifts=tuple(shift), dims=(1, 2, 3))
+    return out
 
 
 def fused_block_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
@@ -299,15 +328,15 @@ def _library() -> ctypes.CDLL:
     lib = load_library(_SOURCE)
     fn = lib.pangu_fused_earth_block
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 13
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
 def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
-            w1, b1, w2, b2, ln2_s, ln2_b, window, heads, scale) -> torch.Tensor:
-    global LAUNCHES
+            w1, b1, w2, b2, ln2_s, ln2_b, window, heads, scale, shift, h) -> torch.Tensor:
+    global LAUNCHES, FOLDED_LAUNCHES
     b, z, hp, w, c = x.shape
     tensors = (x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
                w1, b1, w2, b2, ln2_s, ln2_b)
@@ -322,10 +351,12 @@ def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pangu_fused_earth_block(
             *ptrs, attn.data_ptr(), out.data_ptr(),
-            b, z, hp, w, c, heads, *window, ctypes.c_float(scale), stream)
+            b, z, hp, w, c, heads, *window, *shift, h,
+            ctypes.c_float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"fused_earth_block CUDA launch failed: cudaError_t {rc}")
     LAUNCHES += 1
+    FOLDED_LAUNCHES += int(any(shift) or h < hp)
     return out
 
 
@@ -333,15 +364,16 @@ def _launch(x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
 #: the block as a single call (through the fake implementation) and the exported
 #: program runs the same kernel as the eager model: the CUDA implementation is the
 #: hand-written kernel (``_launch``, where the pointer, alignment and device checks run),
-#: the CPU implementation its plain version
+#: the CPU implementation its plain version (the unfolded route written out).
+#: ``shift`` (0, 0, 0) and ``h`` Hp are a call without a fold.
 _LIB = torch.library.Library("pangu_tpu_torch", "DEF")
 _LIB.define(
     "fused_earth_block(Tensor x, Tensor wqkv, Tensor bqkv, Tensor wproj, Tensor bproj, "
     "Tensor bias, Tensor? mask, Tensor ln1_s, Tensor ln1_b, Tensor w1, Tensor b1, "
     "Tensor w2, Tensor b2, Tensor ln2_s, Tensor ln2_b, int[] window, int heads, "
-    "float scale) -> Tensor")
+    "float scale, int[] shift, int h) -> Tensor")
 _LIB.impl("fused_earth_block", _launch, "CUDA")
-_LIB.impl("fused_earth_block", fused_earth_block_reference, "CPU")
+_LIB.impl("fused_earth_block", fused_earth_block_folded_reference, "CPU")
 
 
 @torch.library.register_fake("pangu_tpu_torch::fused_earth_block")
@@ -355,16 +387,24 @@ FUSED_EARTH_BLOCK_OP = torch.ops.pangu_tpu_torch.fused_earth_block.default
 
 def fused_earth_block(x, wqkv, bqkv, wproj, bproj, bias, mask: Optional[torch.Tensor],
                       ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
-                      window: Tuple[int, int, int], heads: int,
-                      scale: float) -> torch.Tensor:
+                      window: Tuple[int, int, int], heads: int, scale: float,
+                      shift: Sequence[int] = (0, 0, 0), h: Optional[int] = None) -> torch.Tensor:
     """One Earth-Specific block, fused (inference only): one call of the
-    operator ``pangu_tpu_torch::fused_earth_block`` on every device. See the
-    module docstring for the layouts; raises ValueError on any argument the
-    kernel does not take."""
+    operator ``pangu_tpu_torch::fused_earth_block`` on every device. With
+    ``shift`` (each in [0, its window dim)) and ``h`` (real lat rows; left
+    out: all Hp) the block runs on ``x`` as it stands, see the module
+    docstring, which also gives the layouts; raises ValueError on any
+    argument the kernel does not take."""
     args = (x, wqkv, bqkv, wproj, bproj, bias, mask, ln1_s, ln1_b,
             w1, b1, w2, b2, ln2_s, ln2_b)
+    shift, h = [int(s) for s in shift], int(x.shape[2] if h is None else h)
     _check(*args, window, heads)
-    return FUSED_EARTH_BLOCK_OP(*args, list(window), heads, float(scale))
+    if len(shift) != 3 or any(not 0 <= s < k for s, k in zip(shift, window)):
+        raise ValueError(f"shift must be 3 ints, each in [0, its window dim {tuple(window)}), "
+                         f"got {tuple(shift)}")
+    if not 1 <= h <= x.shape[2]:
+        raise ValueError(f"h must lie in [1, Hp={x.shape[2]}], got {h}")
+    return FUSED_EARTH_BLOCK_OP(*args, list(window), heads, float(scale), shift, h)
 
 
 # ---- K2 / K3: the training attention and its flash backward --------------------

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card (marker ``gpu``; skips without one):
 the inference block K1 (also for its determinism at both stages, shifted and
-unshifted, at batch 2 and with a partial 64-row tile), the training attention
+unshifted, at batch 2 and with a partial 64-row tile; its folded gather
+against the unfolded route, re-zero, ``torch.roll``, K1, roll back, at both
+flagship stages, the same bits on the real rows), the training attention
 K2/K3 (K3 also for its determinism and its sums over a batch; K1's and K2's
 window attention for the same bits on two runs and, at batch 2 with an odd
 lon-window count, the single-sample calls' bits; K2 refusing a partial
@@ -135,10 +137,11 @@ def test_forecast_step_at_full_width_runs_the_kernel(cuda_device):
     for fused in (True, False):
         model = PanguModel(dataclasses.replace(m, use_pallas_attention=fused)).to(cuda_device)
         init_params(model, seed=0)
-        before = tfba.LAUNCHES
+        before = (tfba.LAUNCHES, tfba.FOLDED_LAUNCHES)
         ou, os_ = make_forecast_step(model, aux)(upper, surface)
         torch.cuda.synchronize()
-        assert tfba.LAUNCHES - before == (sum(m.depths) if fused else 0)
+        assert tfba.LAUNCHES - before[0] == (sum(m.depths) if fused else 0)
+        assert tfba.FOLDED_LAUNCHES - before[1] == tfba.LAUNCHES - before[0]
         outs[fused] = ((ou - aux.upper_mean) / aux.upper_std,
                        (os_ - aux.surface_mean) / aux.surface_std)
     for got, ref in zip(outs[True], outs[False]):
@@ -147,24 +150,55 @@ def test_forecast_step_at_full_width_runs_the_kernel(cuda_device):
         assert d.abs().max().item() < 0.1 and d.pow(2).mean().sqrt().item() < 0.01
 
 
+#: the flagship stages: (Z, Hp, W, C, heads, real lat rows h)
+FLAGSHIP_STAGES = {"outer": (8, 186, 360, 192, 6, 181), "inner": (8, 96, 180, 384, 12, 91)}
+
+
+@pytest.mark.parametrize("junk", ["large", "nan"])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("stage", ["outer", "inner"])
+def test_folded_k1_gives_the_unfolded_routes_bits_on_real_rows(cuda_device, stage, shifted,
+                                                               junk):
+    """K1 given the block's shift and real rows (the folded window gather)
+    against the unfolded route: rows >= h re-zeroed, ``torch.roll`` by
+    -shift, K1 without a fold, the roll back. The folded call's input holds
+    large finite values or NaN in its pad rows, which it must read as zeros
+    (a select, not a product). Real rows: the same bits."""
+    z, hp, w, c, heads, h = FLAGSHIP_STAGES[stage]
+    args, statics = _inputs(42, cuda_device, 1, z, hp, w, c, heads, masked=shifted)
+    x = args[0].clone()
+    x[:, :, h:] = float("nan") if junk == "nan" else 3e4
+    shift = [k // 2 if shifted else 0 for k in WINDOW]
+    before = (tfba.LAUNCHES, tfba.FOLDED_LAUNCHES)
+    got = tfba.fused_earth_block(x, *args[1:], *statics, shift=shift, h=h)
+    xr = torch.nn.functional.pad(x[:, :, :h], (0, 0, 0, 0, 0, hp - h))
+    xr = torch.roll(xr, [-s for s in shift], dims=(1, 2, 3))
+    ref = torch.roll(tfba.fused_earth_block(xr, *args[1:], *statics), shift, dims=(1, 2, 3))
+    torch.cuda.synchronize()
+    assert (tfba.LAUNCHES, tfba.FOLDED_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(got[:, :, :h], ref[:, :, :h])
+    assert bool(torch.isfinite(got[:, :, :h].float()).all())
+
+
 def test_cuda_operator_is_the_kernel_and_checks_its_arguments(cuda_device):
     """K1's operator on CUDA tensors is the hand-written kernel (one launch,
     the wrapper's bits) and refuses, inside its CUDA implementation, what the
     kernel does not take: f32 activations and a tensor on another device."""
     args, (window, heads, scale) = _inputs(9, cuda_device, 1, 2, 6, 24, 192, 6, True)
     before = tfba.LAUNCHES
-    got = tfba.FUSED_EARTH_BLOCK_OP(*args, list(window), heads, scale)
+    no_fold = ([0, 0, 0], args[0].shape[2])
+    got = tfba.FUSED_EARTH_BLOCK_OP(*args, list(window), heads, scale, *no_fold)
     torch.cuda.synchronize()
     assert tfba.LAUNCHES == before + 1
     assert torch.equal(got, tfba.fused_earth_block(*args, window, heads, scale))
     bad = list(args)
     bad[0] = bad[0].float()
     with pytest.raises(ValueError, match="bfloat16"):
-        tfba.FUSED_EARTH_BLOCK_OP(*bad, list(window), heads, scale)
+        tfba.FUSED_EARTH_BLOCK_OP(*bad, list(window), heads, scale, *no_fold)
     bad = list(args)
     bad[6] = bad[6].cpu()
     with pytest.raises(ValueError, match="argument 6"):
-        tfba.FUSED_EARTH_BLOCK_OP(*bad, list(window), heads, scale)
+        tfba.FUSED_EARTH_BLOCK_OP(*bad, list(window), heads, scale, *no_fold)
     assert tfba.LAUNCHES == before + 2
 
 

@@ -69,7 +69,7 @@ LAT2, LON2, LAT2_LON2, DATA2_LAT2 = (dict(lat=2), dict(lon=2), dict(lat=2, lon=2
 #: world -> the [case, mesh] pairs its ranks run, in order
 CASES = {
     2: [["step", LAT2], ["step", LON2], ["halo", LAT2], ["halo", LON2], ["val", LAT2],
-        ["ckpt", LAT2], ["scripts", LAT2]],
+        ["ckpt", LAT2], ["scripts", LAT2], ["k1", LAT2]],
     4: [["step", dict(LAT2_LON2, remat=True)], ["halo", LAT2_LON2], ["jax", LAT2_LON2],
         ["val", LAT2_LON2], ["lora", LAT2_LON2], ["step", DATA2_LAT2]],
 }
@@ -312,6 +312,26 @@ def test_lockstep_validation_is_the_same_on_every_rank(jig, world, axes):
     assert all(g["stats"] == got[0]["stats"] for g in got) and got[0]["stats"][1] == 3
     assert all(g["loss"] == got[0]["loss"] for g in got)
     assert got[0]["loss"] == pytest.approx(jig["eval_loss"], rel=1e-5)
+
+
+def test_k1_on_a_slab_keeps_the_halo_shifts_and_folds_nothing(jig):
+    """On K1's route (bf16, ``use_pallas_attention``) a block on a slab
+    re-zeroes and halo-shifts before the operator and rolls back after it:
+    every call is given no shift and all its rows as real, and no launch folds.
+    On the whole grid the same model gives each block its shift and real
+    rows; the two forecasts agree within bf16 rounding."""
+    m = worker.config().model
+    geo = compute_geometry(m)
+    stages = [geo.outer] * 2 + [geo.inner] * 4 + [geo.outer] * 2
+    for r in jig["res"][2]:
+        got = r[_key("k1", LAT2)]
+        assert got["folded"] == 0
+        assert len(got["slab"]["calls"]) == len(stages)
+        assert all(shift == [0, 0, 0] and h == rows for shift, h, rows in got["slab"]["calls"])
+        assert got["whole"]["calls"] == [([w // 2 if i % 2 else 0 for w in st.window], st.h,
+                                          st.h_pad) for i, st in enumerate(stages)]
+        for slab, whole in zip(got["slab"]["out"], got["whole"]["out"]):
+            assert _rel(slab, whole) < 0.01
 
 
 def test_unmerged_lora_steps_at_lat2_lon2_match_one_process(jig):

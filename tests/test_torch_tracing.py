@@ -85,6 +85,20 @@ def test_a_forecast_step_opens_the_ranges_of_its_plain_ops(tmp_path, steps):
     assert all(any(holds(w, e) for w in windows) for e in named(events, "pangu.block.shift"))
 
 
+@pytest.mark.parametrize("steps", [1, 2])
+def test_on_the_k1_route_each_block_opens_one_shift_range_a_step(tmp_path, steps):
+    """bf16 with ``use_kernel``: K1 takes the shift and the pad re-zero, so a
+    shifted block opens no second range for a roll back."""
+    _, aux, net, upper, surface = build(compute_dtype="bfloat16", use_pallas_attention=True)
+    step = make_forecast_step(net, aux)
+    step(upper, surface)
+    events = traced(lambda: step(upper, surface), steps, tmp_path / "t.json")
+    shifts = named(events, "pangu.block.shift")
+    assert len(shifts) == sum(DEPTHS) * steps
+    windows = named(events, STEP)
+    assert all(any(holds(w, e) for w in windows) for e in shifts)
+
+
 @pytest.mark.parametrize("remat,accum", [(True, 1), (False, 1), (True, 2)])
 def test_a_train_step_splits_into_forward_backward_and_recompute(tmp_path, remat, accum):
     cfg, aux, net, upper, surface = build(remat=remat)

@@ -10,6 +10,7 @@ and ``cases``: [case, mesh] pairs run in order, ``mesh`` the
 the same gloo world). It imports nothing of jax or the JAX package.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -92,6 +93,39 @@ def case_val(spec, cfg, mesh, aux):
     stats = sharded_val_stats(make_eval_step(model, cfg), val, aux, torch.device("cpu"),
                               count=mesh.data)
     return dict(stats=stats, loss=make_eval_step(model, cfg)(_batch(spec, mesh), aux).item())
+
+
+def case_k1(spec, cfg, mesh, aux):
+    """A forecast step on K1's route (bf16, ``use_pallas_attention``; the
+    plain version on the CPU) on the rank's slabs, then with no mesh on the
+    whole grid: the output, the shift, the real rows and the rows of each
+    operator call, and the launches that folded them."""
+    from pangu_tpu_torch.ops import fused_block_attention as fba
+    from pangu_tpu_torch.rollout import make_forecast_step
+
+    cfg = config(drop_path=0.0, **spec_mesh(cfg))
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16",
+                                                use_pallas_attention=True))
+    model = model_from(os.path.join(spec["dir"], "w0.pt"), cfg)
+    upper, surface = torch.load(os.path.join(spec["dir"], "batch.pt"))[:2]
+    op, calls = fba.FUSED_EARTH_BLOCK_OP, []
+
+    def spy(*args):
+        calls.append((list(args[-2]), args[-1], args[0].shape[2]))
+        return op(*args)
+
+    res, folded = {}, fba.FOLDED_LAUNCHES
+    fba.FUSED_EARTH_BLOCK_OP = spy
+    try:
+        for name, m in (("slab", mesh), ("whole", None)):
+            with activate_mesh(m):
+                out = make_forecast_step(model, aux)(upper[:1], surface[:1])
+            res[name] = dict(out=out, calls=list(calls))
+            calls.clear()
+    finally:
+        fba.FUSED_EARTH_BLOCK_OP = op
+    res["folded"] = fba.FOLDED_LAUNCHES - folded
+    return res
 
 
 def case_ckpt(spec, cfg, mesh, aux):
@@ -215,7 +249,7 @@ def spec_mesh(cfg) -> dict:
 
 
 CASES = {"step": case_step, "jax": case_jax, "val": case_val, "ckpt": case_ckpt,
-         "halo": case_halo, "lora": case_lora, "scripts": case_scripts}
+         "halo": case_halo, "lora": case_lora, "scripts": case_scripts, "k1": case_k1}
 
 
 def main() -> None:
