@@ -1,10 +1,10 @@
 """The comparisons that decide ``correct``: the numbers compared, each later
 held to its limit in ``limits/<cell>.json``.
 
-Forecast: a served step's fields against the reference's from the same
-input, in normalized units (a field's deviation over its statistics'
-spread): ``rel_rms`` the RMS of the difference over the RMS of the
-reference's fields, ``max_abs`` the widest difference.
+Forecast: a served step's next state against the reference's from the same
+input, by the architecture module's ``forecast_gaps``: ``rel_rms`` the RMS
+of the difference over the RMS of the reference's, ``max_abs`` the widest
+difference.
 
 Training: ``loss_gap`` the widest relative gap of a step's loss over the
 first steps; ``grad_norm_gap`` and ``update_norm_gap`` the worst leaf's gap
@@ -23,22 +23,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from benchmark.reference.pangu import Constants
-
 NEGLIGIBLE_GRADIENT = 1e-3
-
-
-@torch.no_grad()
-def forecast_gaps(prog_u: torch.Tensor, prog_s: torch.Tensor, ref_u: torch.Tensor,
-                  ref_s: torch.Tensor, k: Constants) -> Dict[str, float]:
-    """``prog_*`` physical fields of the program, ``ref_*`` the reference's
-    normalized fields."""
-    du = (prog_u - k.upper_mean) / k.upper_std - ref_u
-    ds = (prog_s - k.surface_mean) / k.surface_std - ref_s
-    num = du.double().square().sum() + ds.double().square().sum()
-    den = ref_u.double().square().sum() + ref_s.double().square().sum()
-    return {"rel_rms": math.sqrt(float(num / den)),
-            "max_abs": max(float(du.abs().max()), float(ds.abs().max()))}
 
 
 def leaf_norms(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:

@@ -26,51 +26,53 @@ import sys
 
 import torch
 
-from benchmark import compare, harness, inputs, program
-from benchmark.loops import train as train_loop
-from benchmark.reference import pangu as reference
+from benchmark import arch as contract
+from benchmark import compare, harness
 
 
 def rollout_readings(cell, seed: int, device, precision: str) -> dict:
-    m, t = cell.config["model"], cell.traffic
-    k = inputs.constants(m, cell.config["train"], seed, device)
-    pool = inputs.states(m, k, seed, device, t["pool"], t["batch"])
-    params = inputs.weights(m, seed, device)
+    config, t = cell.config, cell.traffic
+    arch = harness.architecture(config)
+    k = arch.constants(config, seed, device)
+    pool = arch.states(config, k, seed, device, t["pool"], t["batch"])
+    params = arch.weights(config, seed, device)
     readings, starts = [], list(pool)
     with torch.no_grad():
-        for i, (u, s) in enumerate(starts):
-            ref = reference.forward(params, m, u, s, k)
-            ctl = reference.to_physical(*reference.forward(params, m, u, s, k, precision), k)
-            readings.append(compare.forecast_gaps(*ctl, *ref, k))
+        for i, state in enumerate(starts):
+            ref = arch.reference_step(params, config, state, k)
+            ctl = arch.to_state(arch.reference_step(params, config, state, k, precision), k)
+            readings.append(arch.forecast_gaps(ctl, ref, k))
             if i == 0:
-                starts.append(reference.to_physical(*ref, k))
+                starts.append(arch.to_state(ref, k))
     out = {"reference_" + precision: readings}
-    if (device.type == "cuda" and not cell.config["allow_tf32"]
-            and cell.config["model"]["compute_dtype"] == "float32"):
+    if (device.type == "cuda" and not config["allow_tf32"]
+            and config["model"]["compute_dtype"] == "float32"):
         out["program_tf32"] = program_tf32(cell, seed, device, params, k, pool)
     return out
 
 
 def program_tf32(cell, seed, device, params, k, pool) -> dict:
     """The program's own forecast step with TF32 on against the reference."""
+    arch = harness.architecture(cell.config)
     with torch.no_grad():
-        refs = [reference.forward(params, cell.config["model"], u, s, k) for u, s in pool]
-    _, model = program.build_model(cell, seed, device)
-    step = program.forecast_step(model, program.aux_constants(k))
+        refs = [arch.reference_step(params, cell.config, state, k) for state in pool]
+    _, model = arch.build_model(cell, seed, device)
+    step = arch.forecast_step(model, arch.aux_constants(k))
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
-        return [compare.forecast_gaps(*step(u, s), *ref, k) for (u, s), ref in zip(pool, refs)]
+        return [arch.forecast_gaps(step(*state), ref, k) for state, ref in zip(pool, refs)]
     finally:
         harness.set_precision(cell.config)
 
 
 def train_readings(cell, seed: int, device, precision: str) -> dict:
-    m, t = cell.config["model"], cell.traffic
-    k = inputs.constants(m, cell.config["train"], seed, device)
-    pool = train_loop.pairs(m, k, seed, device, t)[:t["first_steps"]]
-    ref = train_loop.reference_steps(cell.config, k, pool, seed, device)
-    ctl = train_loop.reference_steps(cell.config, k, pool, seed, device, precision)
+    config, t = cell.config, cell.traffic
+    arch = harness.architecture(config, contract.TRAINING)
+    k = arch.constants(config, seed, device)
+    pool = arch.pairs(config, k, seed, device, t)[:t["first_steps"]]
+    ref = arch.reference_steps(config, k, pool, seed, device)
+    ctl = arch.reference_steps(config, k, pool, seed, device, precision)
     return {"reference_" + precision: [compare.train_gaps(ctl, ref)]}
 
 
@@ -90,7 +92,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
-    p.add_argument("--precision", choices=reference.PRECISIONS[1:], default=None,
+    p.add_argument("--precision", choices=contract.PRECISIONS[1:], default=None,
                    help="default: fp8 below bf16, tf32 below f32")
     args = p.parse_args(argv)
     root = os.getcwd()

@@ -1,19 +1,18 @@
 """What every cell shares: finding a cell's files by the names in
-``BENCHMARK.json``, the program's configuration built from the
+``BENCHMARK.json`` and its architecture module by the name in its
 configuration file, the measured window, the record the metric readers
 read, and the comparison's verdict.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import importlib.util
 import json
 import math
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -58,17 +57,23 @@ def load_cell(spec: dict, name: str, root: str = ".") -> Cell:
                 per_layer=[m for m in spec["per_layer"] if _reported(m, name)])
 
 
-def program_config(config: dict):
-    """The program's ``PanguConfig`` of a configuration file."""
-    from pangu_tpu_torch.config import ModelConfig, PanguConfig, TrainConfig
+def architecture(config: dict, parts: Sequence[str] = ()):
+    """The module ``arch/<name>.py`` of the configuration's ``architecture``
+    ("pangu" where the file names none), holding the contract's forecast
+    part (``arch.FORECAST``) and ``parts`` (``arch.TRAINING`` for a train
+    cell)."""
+    from benchmark import arch
 
-    def build(cls, values: dict):
-        names = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: tuple(v) if isinstance(v, list) else v
-                      for k, v in values.items() if k in names})
-
-    return PanguConfig(model=build(ModelConfig, config["model"]),
-                       train=build(TrainConfig, config["train"]), horizon=config["horizon"])
+    name = config.get("architecture", "pangu")
+    path = os.path.join(HERE, "arch", f"{name}.py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no architecture {name!r} under {HERE}/arch")
+    mod = importlib.import_module(f"benchmark.arch.{name}")
+    missing = [f for f in arch.FORECAST + tuple(parts) if not hasattr(mod, f)]
+    if missing:
+        raise AttributeError(f"architecture {name!r} ({path}) has no {', '.join(missing)} "
+                             "of the contract in benchmark/arch/__init__.py")
+    return mod
 
 
 def set_precision(config: dict) -> None:

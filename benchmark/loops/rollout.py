@@ -1,5 +1,5 @@
 """Rollout traffic: a closed loop of one client that runs forecasts of
-``lead_steps`` 24 h steps back to back, each from the next of ``pool``
+``lead_steps`` steps back to back, each from the next of ``pool``
 seeded initial states on the card, every step's output fed to the next step
 and nothing copied to the host.
 
@@ -11,6 +11,9 @@ and output aside on the card (slots allocated in set-up, which
 step from each input and the program's output is compared with it. A later
 lead starts from the program's own state (the reference follows the program
 step by step); the first steps start from the seeded states alone.
+
+The model, its states, the reference and the gaps are the architecture
+module's (``harness.architecture``); a state is a tuple of any length.
 """
 
 from __future__ import annotations
@@ -19,8 +22,7 @@ import time
 
 import torch
 
-from benchmark import compare, harness, inputs, program, trace, work
-from benchmark.reference import pangu as reference
+from benchmark import harness, inputs, trace
 
 
 def checked(traffic: dict, seed: int) -> list:
@@ -35,29 +37,30 @@ def checked(traffic: dict, seed: int) -> list:
 
 def run(ctx) -> harness.Record:
     cell, seed, device = ctx.cell, ctx.seed, ctx.device
-    m, t = cell.config["model"], cell.traffic
-    harness.set_precision(cell.config)
-    _, model = program.build_model(cell, seed, device)
-    k = inputs.constants(m, cell.config["train"], seed, device)
-    pool = inputs.states(m, k, seed, device, t["pool"], t["batch"])
-    forecast = program.forecast_step(model, program.aux_constants(k))
-    lead = t["lead_steps"]
+    config, t = cell.config, cell.traffic
+    arch = harness.architecture(config)
+    harness.set_precision(config)
+    _, model = arch.build_model(cell, seed, device)
+    k = arch.constants(config, seed, device)
+    pool = arch.states(config, k, seed, device, t["pool"], t["batch"])
+    forecast = arch.forecast_step(model, arch.aux_constants(k))
+    lead, n = t["lead_steps"], len(pool[0])
     slots = {i: tuple(torch.empty_like(x) for x in pool[0] + pool[0])
              for i in checked(t, seed)}
     state = [pool[0]]
 
     def step(i: int) -> None:
-        f, n = divmod(i, lead)
-        if n == 0:
+        f, j = divmod(i, lead)
+        if j == 0:
             state[0] = pool[f % len(pool)]
         slot = slots.get(i)
         if slot is not None:
-            slot[0].copy_(state[0][0])
-            slot[1].copy_(state[0][1])
+            for dst, x in zip(slot, state[0]):
+                dst.copy_(x)
         state[0] = forecast(*state[0])
         if slot is not None:
-            slot[2].copy_(state[0][0])
-            slot[3].copy_(state[0][1])
+            for dst, x in zip(slot[n:], state[0]):
+                dst.copy_(x)
 
     for _ in range(t["warmup_steps"]):
         forecast(*pool[0])
@@ -75,17 +78,17 @@ def run(ctx) -> harness.Record:
     del model, forecast, state
     harness.release(device)
 
-    params = inputs.weights(m, seed, device)
+    params = arch.weights(config, seed, device)
     readings = []
     with torch.no_grad():
-        for i, (in_u, in_s, out_u, out_s) in slots.items():
+        for i, slot in slots.items():
             if i >= window.steps:
                 continue
-            ref_u, ref_s = reference.forward(params, m, in_u, in_s, k)
-            readings.append(compare.forecast_gaps(out_u, out_s, ref_u, ref_s, k))
+            out = arch.reference_step(params, config, slot[:n], k)
+            readings.append(arch.forecast_gaps(slot[n:], out, k))
     rec = harness.Record(cell=cell, setup_s=setup_s, window=window,
                          samples_per_step=t["batch"],
-                         flops_per_step=work.forward_matmul_flops(m, t["batch"]),
+                         flops_per_step=arch.forward_matmul_flops(config, t["batch"]),
                          window_peak_bytes=window_peak, setup_peak_bytes=setup_peak,
                          held_bytes=sum(x.nbytes for s in slots.values() for x in s),
                          peaks=ctx.peaks, profile=profile, dispatch_ms=dispatch)

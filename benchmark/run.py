@@ -2,13 +2,14 @@
 
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-From the root of a checkout. Finds the cell in ``BENCHMARK.json`` and its
-configuration, traffic and limits files by name; makes weights, constants
-and inputs on the card from the seed; builds the program's kernels into the
-checkout (``build/``); warms up the cell's shapes; measures for
-``--seconds``; compares what the window produced with the plain reference;
-prints each number compared beside its limit as the last lines of standard
-error, and one JSON line as the last line of standard output. With
+From the root of a checkout. Finds the cell in ``BENCHMARK.json``, its
+configuration, traffic and limits files and its architecture module
+(``arch/<name>.py``) by name; builds the program's kernels into the
+checkout (``build/``); makes weights, constants and inputs on the card from
+the seed; warms up the cell's shapes; measures for ``--seconds``; compares
+what the window produced with the plain reference; prints each number
+compared beside its limit as the last lines of standard error, and one JSON
+line as the last line of standard output. With
 ``--trace 1`` it also profiles a few steps after the window and reports the
 cell's per-layer metrics instead of its end-to-end ones.
 
@@ -115,9 +116,7 @@ def main(argv=None) -> int:
     torch.cuda.set_device(device)
     name = torch.cuda.get_device_name(device)
     peaks = work.peaks(name)
-    from pangu_tpu_torch.ops import _build
-
-    _build.build_all([s for s in _build.SOURCES if not s.startswith("bench_")])
+    harness.architecture(cell.config).build_kernels()
     rec = execute(cell, args.seed, args.seconds, bool(args.trace), device, peaks, T0)
     print(f"benchmark: set-up {rec.setup_s:.3f} s, window {rec.window.seconds:.3f} s of "
           f"{rec.window.steps} steps, whole run {time.perf_counter() - T0:.3f} s",

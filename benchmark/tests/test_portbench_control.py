@@ -6,7 +6,8 @@ underneath, once for each fault a cell of one card can have."""
 import pytest
 import torch
 
-from benchmark import control, program
+from benchmark import control
+from benchmark.arch import pangu
 from benchmark.tests import tiny
 
 CPU = torch.device("cpu")
@@ -42,7 +43,7 @@ def _unchanged_forecast(model, aux):
 
 
 def _altered_forecast(model, aux):
-    real = program.__dict__["_real_forecast_step"](model, aux)
+    real = pangu.__dict__["_real_forecast_step"](model, aux)
 
     def step(u, s):
         u, s = real(u, s)
@@ -56,14 +57,14 @@ def _altered_forecast(model, aux):
 @pytest.mark.parametrize("name", ["forecast_b1", "forecast_f32_b1"])
 @pytest.mark.parametrize("fault", [_unchanged_forecast, _altered_forecast])
 def test_a_broken_forecast_is_not_correct(monkeypatch, name, fault):
-    monkeypatch.setitem(program.__dict__, "_real_forecast_step", program.forecast_step)
-    monkeypatch.setattr(program, "forecast_step", fault)
+    monkeypatch.setitem(pangu.__dict__, "_real_forecast_step", pangu.forecast_step)
+    monkeypatch.setattr(pangu, "forecast_step", fault)
     rec = tiny.run(tiny.cell(name), seed=11)
     assert rec.compared >= 1 and not rec.correct, rec.checks
 
 
 def _unchanged_train(model, cfg, steps_per_epoch):
-    step, optimizer = program.__dict__["_real_train_step"](model, cfg, steps_per_epoch)
+    step, optimizer = pangu.__dict__["_real_train_step"](model, cfg, steps_per_epoch)
 
     def frozen(batch, aux, generator=None):
         before = [p.detach().clone() for p in model.parameters()]
@@ -78,7 +79,7 @@ def _unchanged_train(model, cfg, steps_per_epoch):
 
 def _altered_train(model, cfg, steps_per_epoch):
     """One parameter moved double by each update."""
-    step, optimizer = program.__dict__["_real_train_step"](model, cfg, steps_per_epoch)
+    step, optimizer = pangu.__dict__["_real_train_step"](model, cfg, steps_per_epoch)
     leaf = next(model.parameters())
 
     def doubled(batch, aux, generator=None):
@@ -93,7 +94,7 @@ def _altered_train(model, cfg, steps_per_epoch):
 
 @pytest.mark.parametrize("fault", [_unchanged_train, _altered_train])
 def test_a_broken_train_step_is_not_correct(monkeypatch, fault):
-    monkeypatch.setitem(program.__dict__, "_real_train_step", program.train_step)
-    monkeypatch.setattr(program, "train_step", fault)
+    monkeypatch.setitem(pangu.__dict__, "_real_train_step", pangu.train_step)
+    monkeypatch.setattr(pangu, "train_step", fault)
     rec = tiny.run(_sound("finetune_b1"), seed=11)
     assert rec.compared == 1 and not rec.correct, rec.checks

@@ -6,6 +6,7 @@ import statistics
 import pytest
 
 from benchmark import harness, kernels, trace, work
+from benchmark.arch import pangu
 from benchmark.tests import tiny
 
 PEAKS = {"bfloat16": 989e12, "float32": 67e12, "bytes_per_s": 3.35e12}
@@ -107,9 +108,8 @@ def test_dispatch_times_each_call_and_not_the_card():
 
 def test_a_roofline_reads_100_at_exactly_the_bound():
     rec = record(profile=trace.Profile([], 2, 1.0, {"K1": 32}))
-    m = rec.model
     bound = sum(work.bound_s(kernels.load("K1").work(st, c, h, sh, 1), PEAKS)
-                for st, c, h, sh in work.blocks(m))
+                for st, c, h, sh in pangu.blocks(rec.cell.config))
     half = bound * 1e6  # us per step, as two kernels of one step each
     rec.profile.events = [kern("window_attention_kernel", 0, half, 1),
                           kern("mlp_tail_kernel", 0, half, 2), kern("roll_cuda_kernel", 0, 5, 3)]
@@ -121,7 +121,7 @@ def test_a_roofline_reads_100_at_exactly_the_bound():
 
 def test_kernel_work_counts_no_recompute():
     """A backward counts twice its forward's products."""
-    st, c, h, sh = work.blocks(tiny.cell("finetune_b1").config["model"])[1]
+    st, c, h, sh = pangu.blocks(tiny.cell("finetune_b1").config)[1]
     mm = {n: kernels.load(n).work(st, c, h, sh, 1)[0] for n in ("K2", "K3", "K6", "K7")}
     assert mm["K3"] == 2 * mm["K2"] and mm["K7"] == 2 * mm["K6"]
     assert kernels.load("K1").work(st, c, h, sh, 1)[0] == mm["K2"] + mm["K6"]
@@ -132,10 +132,10 @@ def test_flops_are_the_programs_count():
     from pangu_tpu_torch.utils.flops import forward_matmul_flops, train_matmul_flops
 
     cfg = pangu_pretrain(24).model
-    flagship = harness.load_cell(tiny.spec(), "forecast_b1", tiny.ROOT).config["model"]
-    assert work.forward_matmul_flops(flagship, 2) == forward_matmul_flops(cfg, 2)["total"]
-    assert work.train_matmul_flops(flagship) == train_matmul_flops(cfg)
-    assert math.isclose(work.forward_matmul_flops(flagship) / 1e12, 8.659, rel_tol=1e-3)
+    flagship = harness.load_cell(tiny.spec(), "forecast_b1", tiny.ROOT).config
+    assert pangu.forward_matmul_flops(flagship, 2) == forward_matmul_flops(cfg, 2)["total"]
+    assert pangu.train_matmul_flops(flagship) == train_matmul_flops(cfg)
+    assert math.isclose(pangu.forward_matmul_flops(flagship) / 1e12, 8.659, rel_tol=1e-3)
 
 
 def test_unknown_card_has_no_peaks():

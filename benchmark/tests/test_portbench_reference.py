@@ -5,8 +5,8 @@ Both sides get the benchmark's seeded weights, constants and inputs."""
 import pytest
 import torch
 
-from benchmark import compare, inputs, program
-from benchmark.loops import train as train_loop
+from benchmark import inputs
+from benchmark.arch import pangu
 from benchmark.reference import pangu as reference
 from benchmark.tests import tiny
 
@@ -19,7 +19,7 @@ def _f32_cell(name):
 
 def test_param_shapes_are_the_programs_state_dict():
     c = _f32_cell("forecast_b1")
-    _, model = program.build_model(c, 3, CPU)
+    _, model = pangu.build_model(c, 3, CPU)
     shapes = reference.param_shapes(c.config["model"])
     assert sorted(shapes) == sorted(model.state_dict())
     assert all(tuple(model.state_dict()[n].shape) == s for n, s in shapes.items())
@@ -28,29 +28,27 @@ def test_param_shapes_are_the_programs_state_dict():
 @pytest.mark.parametrize("batch", [1, 2])
 def test_forward_matches_the_plain_route(batch):
     c = _f32_cell("forecast_b1")
-    m = c.config["model"]
-    _, model = program.build_model(c, 3, CPU)
-    k = inputs.constants(m, c.config["train"], 3, CPU)
-    (u, s), = inputs.states(m, k, 3, CPU, 1, batch)
-    out = program.forecast_step(model, program.aux_constants(k))(u, s)
+    _, model = pangu.build_model(c, 3, CPU)
+    k = pangu.constants(c.config, 3, CPU)
+    (state,) = pangu.states(c.config, k, 3, CPU, 1, batch)
+    out = pangu.forecast_step(model, pangu.aux_constants(k))(*state)
     with torch.no_grad():
-        ref = reference.forward(inputs.weights(m, 3, CPU), m, u, s, k)
-    gaps = compare.forecast_gaps(*out, *ref, k)
+        ref = pangu.reference_step(pangu.weights(c.config, 3, CPU), c.config, state, k)
+    gaps = pangu.forecast_gaps(out, ref, k)
     assert gaps["rel_rms"] < 1e-5 and gaps["max_abs"] < 1e-4, gaps
 
 
 def test_loss_and_adam_step_match_the_plain_route():
     c = _f32_cell("finetune_b1")
-    m = c.config["model"]
-    cfg, model = program.build_model(c, 5, CPU)
-    k = inputs.constants(m, c.config["train"], 5, CPU)
-    sample = train_loop.pairs(m, k, 5, CPU, c.traffic)[0]
-    step, optimizer = program.train_step(model, cfg, 1826)
-    loss = float(step(program.batch(*sample), program.aux_constants(k),
+    cfg, model = pangu.build_model(c, 5, CPU)
+    k = pangu.constants(c.config, 5, CPU)
+    sample = pangu.pairs(c.config, k, 5, CPU, c.traffic)[0]
+    step, optimizer = pangu.train_step(model, cfg, 1826)
+    loss = float(step(pangu.batch(*sample), pangu.aux_constants(k),
                       inputs.generator(5, "drop_path", CPU)))
-    ref = train_loop.reference_steps(c.config, k, [sample], 5, CPU)
+    ref = pangu.reference_steps(c.config, k, [sample], 5, CPU)
     assert abs(loss - ref["losses"][0]) <= 1e-6 * abs(ref["losses"][0])
-    start = inputs.weights(m, 5, CPU)
+    start = pangu.weights(c.config, 5, CPU)
     updated = reference_params_after_one_step(c, k, sample)
     for n, p in model.named_parameters():
         moved = (updated[n] - start[n]).norm()
@@ -59,7 +57,7 @@ def test_loss_and_adam_step_match_the_plain_route():
 
 def reference_params_after_one_step(c, k, sample):
     m, tr = c.config["model"], c.config["train"]
-    params = inputs.weights(m, 5, CPU)
+    params = pangu.weights(c.config, 5, CPU)
     for p in params.values():
         p.requires_grad_(True)
     scales = reference.drop_path_scales(m, 1, inputs.generator(5, "drop_path", CPU), CPU)

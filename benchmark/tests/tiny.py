@@ -1,7 +1,5 @@
-"""A cell of the benchmark cut to a geometry the CPU runs in seconds, with
-every pad, crop and shifted-window branch of the real one (odd latitude,
-levels needing a pad, latitude needing a window pad after the embedding and
-after the downsampling, two blocks a layer)."""
+"""A cell of the benchmark cut to a geometry the CPU runs in seconds: its
+architecture module's ``TINY``."""
 
 from __future__ import annotations
 
@@ -16,8 +14,6 @@ import torch
 from benchmark import harness
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-TINY = dict(lat=49, lon=96, levels=5, depths=[2, 2, 2, 2], heads=[2, 4, 4, 2],
-            dims=[16, 32, 32, 16])
 
 
 def spec() -> dict:
@@ -26,11 +22,11 @@ def spec() -> dict:
 
 
 def cell(name: str, **model) -> harness.Cell:
-    """The cell ``name`` at the tiny geometry (``model`` overrides more),
-    its forecasts cut to 2 steps so that a short window holds the checked
-    steps."""
+    """The cell ``name`` at its architecture's tiny geometry (``model``
+    overrides more), its forecasts cut to 2 steps so that a short window
+    holds the checked steps."""
     c = copy.deepcopy(harness.load_cell(spec(), name, ROOT))
-    c.config["model"].update(TINY, **model)
+    c.config["model"].update(harness.architecture(c.config).TINY, **model)
     if "lead_steps" in c.traffic:
         c.traffic["lead_steps"] = 2
     return c
