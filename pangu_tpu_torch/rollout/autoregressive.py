@@ -3,7 +3,8 @@
 
 The forecast step maps physical fields at t to physical fields at
 t + horizon: the model forward, then ``norm_back_data``. Every rollout, eval
-and serving path is built on it.
+and serving path is built on it. A model of two input states (FuXi,
+``model.fuxi``) steps ``(x_{t-1}, x_t) -> (x_t, x_{t+1})`` instead.
 """
 
 from __future__ import annotations
@@ -25,7 +26,12 @@ def make_forecast_step(model: nn.Module, aux: AuxConstants) -> Callable[[torch.T
     under ``torch.inference_mode`` with the model in eval mode (the JAX
     package's ``deterministic=True``). On the card it first checks that the
     kernels take the model's widths (``check_kernel_widths``). Under a
-    running profiler ``norm_back_data`` is a ``pangu.norm_back`` range."""
+    running profiler ``norm_back_data`` is a ``pangu.norm_back`` range.
+
+    A model that takes two states (``model.input_states == 2``: FuXi, with
+    ``aux`` its ``FuxiConstants``) gives :func:`_two_state_step` instead."""
+    if getattr(model, "input_states", 1) == 2:
+        return _two_state_step(model, aux)
     if next(model.parameters()).is_cuda:
         check_kernel_widths(model.cfg)
 
@@ -39,18 +45,35 @@ def make_forecast_step(model: nn.Module, aux: AuxConstants) -> Callable[[torch.T
     return step
 
 
-def rollout(model: nn.Module, upper: torch.Tensor, surface: torch.Tensor,
-            aux: AuxConstants, steps: int, keep_trajectory: bool = True) -> Fields:
-    """``steps`` autoregressive steps. Returns the stacked (steps, ...)
-    trajectories when ``keep_trajectory``, else the final fields (as
+def _two_state_step(model: nn.Module, aux) -> Callable[[torch.Tensor, torch.Tensor], Fields]:
+    """``step(x_prev, x_cur) -> (x_cur, x_next)``, physical f32 states, under
+    ``torch.inference_mode``; ``x_cur`` comes back as the same tensor. The
+    model's weights are cast to its compute dtype here, once and in place
+    (``freeze``), so the model serves forecasts only after this. No kernel
+    of the port runs, so the kernels' widths are not checked."""
+    model.eval()
+    model.freeze()
+
+    @torch.inference_mode()
+    def step(x_prev: torch.Tensor, x_cur: torch.Tensor) -> Fields:
+        return x_cur, model(x_prev, x_cur, aux)
+
+    return step
+
+
+def rollout(model: nn.Module, state: Tuple[torch.Tensor, ...], aux: AuxConstants, steps: int,
+            keep_trajectory: bool = True) -> Tuple[torch.Tensor, ...]:
+    """``steps`` autoregressive steps from ``state`` ((upper, surface), or
+    FuXi's (x_prev, x_cur)). Returns each field's stacked (steps, ...)
+    trajectory when ``keep_trajectory`` (for FuXi the second holds the
+    forecasts), else the final state (as
     ``pangu_tpu.rollout.autoregressive.rollout_scan``)."""
     step = make_forecast_step(model, aux)
-    traj_u, traj_s = [], []
+    traj = []
     for _ in range(steps):
-        upper, surface = step(upper, surface)
+        state = step(*state)
         if keep_trajectory:
-            traj_u.append(upper)
-            traj_s.append(surface)
+            traj.append(state)
     if keep_trajectory:
-        return torch.stack(traj_u), torch.stack(traj_s)
-    return upper, surface
+        return tuple(torch.stack(field) for field in zip(*traj))
+    return tuple(state)

@@ -74,8 +74,8 @@ def _rel(got, ref) -> float:
 def test_two_step_rollout_matches_rollout_scan(setup):
     ref_u, ref_s = rollout_scan(setup["jmodel"], setup["params"], setup["upper"],
                                 setup["surface"], setup["jaux"], 2)
-    got_u, got_s = rollout(_port(setup), torch.from_numpy(setup["upper"]),
-                           torch.from_numpy(setup["surface"]), setup["aux"], 2)
+    got_u, got_s = rollout(_port(setup), (torch.from_numpy(setup["upper"]),
+                                          torch.from_numpy(setup["surface"])), setup["aux"], 2)
     assert got_u.shape[0] == 2 and got_s.shape[0] == 2
     assert _rel(got_u, ref_u) < 1e-4
     assert _rel(got_s, ref_s) < 1e-4
@@ -84,8 +84,8 @@ def test_two_step_rollout_matches_rollout_scan(setup):
 def test_rollout_without_trajectory_returns_the_last_step(setup):
     model = _port(setup)
     u, s = torch.from_numpy(setup["upper"]), torch.from_numpy(setup["surface"])
-    traj_u, traj_s = rollout(model, u, s, setup["aux"], 2)
-    last_u, last_s = rollout(model, u, s, setup["aux"], 2, keep_trajectory=False)
+    traj_u, traj_s = rollout(model, (u, s), setup["aux"], 2)
+    last_u, last_s = rollout(model, (u, s), setup["aux"], 2, keep_trajectory=False)
     torch.testing.assert_close(last_u, traj_u[-1], rtol=0, atol=0)
     torch.testing.assert_close(last_s, traj_s[-1], rtol=0, atol=0)
 
@@ -135,7 +135,7 @@ FORECAST_AND_SCORE = [
     "pangu_tpu_torch.eval", "pangu_tpu_torch.eval.csv_io", "pangu_tpu_torch.eval.evaluate",
     "pangu_tpu_torch.eval.visualize", "pangu_tpu_torch.interop.npz_io",
     "pangu_tpu_torch.interop.onnx_import", "pangu_tpu_torch.interop.onnx_wire",
-    "pangu_tpu_torch.metrics", "pangu_tpu_torch.rollout.aggregate",
+    "pangu_tpu_torch.metrics", "pangu_tpu_torch.model.fuxi", "pangu_tpu_torch.rollout.aggregate",
     "pangu_tpu_torch.rollout.engines", "pangu_tpu_torch.scripts.convert_weights",
     "pangu_tpu_torch.scripts.rollout", "pangu_tpu_torch.scripts.test",
     "pangu_tpu_torch.utils.logger",
