@@ -235,7 +235,20 @@ Phases (any failure exits non-zero before the last line is printed):
    in rank 0's process; one profiled step a rank (NCCL time and launches,
    idle share), peak memory and parameter + Adam bytes a rank, the bubble
    (S-1)/(M+S-1). With one card, 22b prints that it did not run and why.
-   Then a ``pipeline:`` line with both.
+   Then a ``pipeline:`` line with both;
+23. FuXi's cosine window attention kernel (``ops/cosine_attention.py``) at
+   FuXi-Short's shape (a 90x180 token grid of 9x9 windows, C 1536, 48 heads
+   of 32, batch 1), unshifted and shifted (the region labels), against its
+   plain version (the chain of PyTorch calls around SDPA) under phase 3's
+   bounds, and the same bits on two runs; per call the card ms (CUDA
+   events around one call), the device ms (CUDA events around 20 calls
+   back to back, over 20: the card never waits for the host; torch.profiler
+   this late in the process has recorded none of its launches), the bound
+   by bytes,
+   the plain version's ms and ``library_ms``, SDPA alone on the gathered,
+   normalized windows with their bias; then one bf16 FuXi-Short step with
+   seeded weights (exactly 48 launches, a finite state) and a ``fuxi
+   attention:`` line.
 
 A ``detail:`` line holds the per-shape kernel results and the slices'
 numbers as JSON. The second-to-last line is a JSON object with one entry per
@@ -247,13 +260,16 @@ its variants; phase 21a's launches on slabs and phase 22's on stages are
 reported apart, under ``detail.slabs.launches`` and ``detail.pipeline``);
 ``ms``, ``plain_ms`` and ``bound_ms`` the mean per launch over one step's
 mix of 2 + 2 outer and 6 + 6 inner blocks (the scripts: per call at their
-one shape; the micro-bench: per sweep). ``bound_ms`` is the larger
+one shape; the micro-bench: per sweep; FuXi's attention: the mean of its
+unshifted and shifted calls, a FuXi step's even mix, launches over one
+FuXi-Short step). ``bound_ms`` is the larger
 of the bytes the function must move over 3.35 TB/s and its operations over
 the card's peak for their type (989 TFLOP/s for the bf16 products, 1,979
 TOP/s for int8; 67 TFLOP/s for the f32 elementwise work of K4/K5), computed
 from the shapes; ``library_ms`` is the time of the micro-bench variants'
-one PyTorch call (``torch.einsum``, ``torch._int_mm``) and null elsewhere: no
-single PyTorch call computes the other functions. The last line is ``{"ok": true, "device": {...}}``.
+one PyTorch call (``torch.einsum``, ``torch._int_mm``), for FuXi's attention
+SDPA's call alone (a yardstick: it leaves out the norms and the gathers),
+and null elsewhere: no single PyTorch call computes the other functions. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -294,6 +310,7 @@ from pangu_tpu_torch.ops import fused_block_attention as fba
 from pangu_tpu_torch.ops import fused_block_train as fbt
 from pangu_tpu_torch.ops import fused_epilogue as fep
 from pangu_tpu_torch.ops import fused_mlp as fmlp
+from pangu_tpu_torch.ops import cosine_attention as fca
 from pangu_tpu_torch.rollout import make_forecast_step
 from pangu_tpu_torch import serving
 from pangu_tpu_torch.scripts import (bench_attn_bwd_ab, bench_attn_fwd_ab, bench_mxu_micro,
@@ -304,6 +321,7 @@ from pangu_tpu_torch.scripts import stats as stats_script
 from pangu_tpu_torch.scripts import test as test_script
 from pangu_tpu_torch.scripts.ab_common import (KERNEL_RMS_TOL, KERNEL_TOL, PEAK_BF16, PEAK_BYTES,
                                                compare, cuda_times_ms)
+from pangu_tpu_torch.scripts.ab_common import bound as ab_bound
 from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
 from pangu_tpu_torch.train import checkpoint as ckpt
 from pangu_tpu_torch.train.lora import (LoraConfig, attach_lora, changed_param_report,
@@ -451,6 +469,8 @@ KERNELS = {
     **{f"bench_attn_fwd_ab:{v}": ("scripts/bench_attn_fwd_ab.py:165", "bench_attn_fwd_ab.cu")
        for v in ("batched", "dbl", "quad")},
     "bench_attn_bwd_ab:local_accum": ("scripts/bench_attn_bwd_ab.py:355", "bench_attn_bwd_ab.cu"),
+    "cosine_window_attention": ("none: the JAX package has no FuXi; the port's SDPA chain in "
+                                "model/fuxi.py", "cosine_window_attention.cu"),
 }
 
 
@@ -2785,6 +2805,103 @@ def check_pipeline(dev, worlds=None, tiny: bool = False) -> list | None:
     return lines
 
 
+def fuxi_attention_inputs(dev, shifted: bool, seed: int, b: int = 1, cfg=None):
+    """The attention inputs of a FuXi block at ``cfg``'s widths (FuXi-Short's
+    by default: qkv (B, 90, 180, 3 x 1536)), seeded: unit-normal qkv,
+    temperatures in [1, 100], a position bias of 16 sigmoid less its row
+    maxima (bf16); the model's order, inverse and labels."""
+    from pangu_tpu_torch.model import fuxi
+
+    cfg = cfg or fuxi.fuxi_short()
+    (h, w), heads, t = cfg.tokens, cfg.heads, cfg.window[0] * cfg.window[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, h, w, 3 * cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    temp = torch.exp(torch.rand((heads,), generator=gen, device=dev) * math.log(100.0))
+    scale = torch.stack([temp, torch.ones_like(temp)]).view(2, heads, 1)
+    bias = 16 * torch.sigmoid(torch.randn((heads, t, t), generator=gen, device=dev))
+    bias = (bias - bias.amax(-1, keepdim=True))[None].to(torch.bfloat16)
+    order = fuxi.window_order(h, w, cfg.window, shifted).to(dev)
+    labels = fuxi.shift_labels(h, w, cfg.window).to(dev) if shifted else None
+    return qkv, (scale, bias, order.int(), torch.argsort(order), labels)
+
+
+def sdpa_alone(qkv, scale, bias, order, inverse, labels):
+    """The yardstick's one library call: ``scaled_dot_product_attention`` on
+    the gathered windows of ``qkv`` with their bias (+ mask), formed here
+    outside the timed call."""
+    b, h, w, c3 = qkv.shape
+    heads, t = scale.shape[1], bias.shape[-1]
+    work = qkv.clone()
+    fca.cosine_(work.view(b, h * w, 3, heads, -1), scale)
+    win = work.view(b, h * w, c3).index_select(1, order)
+    q, k, v = win.view(-1, t, 3, heads, c3 // 3 // heads).permute(2, 0, 3, 1, 4).unbind(0)
+    if labels is not None:
+        bias = fca._shifted_bias(bias, fca.label_mask(labels, t, bias.dtype), b)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                                    scale=1.0)
+
+
+def check_fuxi_attention(dev) -> dict:
+    """Phase 23: FuXi's attention kernel against its plain version at
+    FuXi-Short's shape, timed beside its bound, the plain version and SDPA;
+    then one FuXi-Short step on the kernel (48 launches)."""
+    from pangu_tpu_torch.model import FuxiConstants, FuxiModel, fuxi_short
+
+    shapes = []
+    for shifted in (False, True):
+        label = f"fuxi attention {'shifted' if shifted else 'unshifted'}"
+        qkv, args = fuxi_attention_inputs(dev, shifted, seed=23 + shifted)
+        got = fca.cosine_window_attention(qkv, *args)
+        torch.cuda.synchronize()
+        same = same_bits(label, (got,), (fca.cosine_window_attention(qkv, *args),))
+        r = compare(got, fca.cosine_window_attention_reference(qkv.clone(), *args))
+        del got
+        if not r["ok"]:
+            raise AssertionError(f"{label} disagrees with its plain version: {r}")
+        work = qkv.clone()
+        call = lambda: fca.cosine_window_attention(qkv, *args)  # noqa: E731
+        n, c3 = qkv.shape[1] * qkv.shape[2], qkv.shape[-1]
+        heads, t = args[0].shape[1], args[1].shape[-1]
+        nbytes = (qkv.numel() * 2 + n * c3 // 3 * 2 + args[1].numel() * 2 + 4 * n
+                  + (n if shifted else 0) + args[0].numel() * 4)
+        shapes.append(dict(
+            shifted=shifted, shape=list(qkv.shape), heads=heads, tokens=t,
+            max_abs_err=r["max_abs"], rms_err=r["rms"], ref_max=r["ref_max"],
+            ref_rms=r["ref_rms"], same_bits=same, ms=cuda_times_ms(call),
+            device_ms=cuda_times_ms(lambda: [call() for _ in range(20)]) / 20,
+            plain_ms=cuda_times_ms(lambda: fca.cosine_window_attention_reference(work, *args)),
+            library_ms=cuda_times_ms(sdpa_alone(qkv, *args)),
+            **ab_bound(4 * t * t * (c3 // 3 // heads) * heads * (n // t), nbytes)))
+        log(f"{label}: " + json.dumps(shapes[-1]))
+        del qkv, work, args, call
+        torch.cuda.empty_cache()
+
+    cfg = fuxi_short()
+    with torch.random.fork_rng(devices=[dev]), torch.device(dev):
+        torch.manual_seed(23)
+        model = FuxiModel(cfg)
+    v = cfg.variables
+    k = FuxiConstants(torch.zeros((1, v, 1, 1), device=dev), torch.ones((1, v, 1, 1), device=dev))
+    gen = torch.Generator(device=dev).manual_seed(23)
+    state = [torch.randn((1, v, cfg.lat, cfg.lon), generator=gen, device=dev) for _ in range(2)]
+    step = make_forecast_step(model, k)
+    before = fca.LAUNCHES
+    t0 = time.perf_counter()
+    out = step(*state)[1]
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = fca.LAUNCHES - before
+    finite = bool(torch.isfinite(out).all())
+    del model, step, state, out
+    torch.cuda.empty_cache()
+    if launches != cfg.depth or not finite:
+        raise AssertionError(f"the FuXi step launched {launches} (want {cfg.depth}), "
+                             f"finite {finite}")
+    res = dict(shapes=shapes, step_launches=launches, first_step_s=step_s, card=card_line())
+    log("fuxi attention: " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     card()
     dev = torch.device("cuda:0")
@@ -2847,19 +2964,24 @@ def main() -> int:
     pipe["worlds"] = check_pipeline(dev)
     log(f"phase 22b (pipeline over cards): {time.perf_counter() - t0:.3f} s")
     log("pipeline: " + json.dumps({**pipe, "card": card_line()}))
+    t0 = time.perf_counter()
+    fuxi_attn = check_fuxi_attention(dev)
+    log(f"phase 23 (FuXi's attention): {time.perf_counter() - t0:.3f} s")
 
     log("detail: " + json.dumps({"slice": sl, **shapes, "products": products, "train": tr,
                                  "ab": ab, "two_kernel_path": tail_path, "mxu_micro": micro,
                                  "attn_fwd_ab": fwd_ab, "attn_bwd_ab": bwd_ab,
                                  "forecast_and_score": score, "finetune": finetune,
                                  "serving": serve, "data": data, "multi_gpu": multi,
-                                 "slabs": slabs, "spatial": spatial, "pipeline": pipe}))
+                                 "slabs": slabs, "spatial": spatial, "pipeline": pipe,
+                                 "fuxi_attention": fuxi_attn}))
     # launches over the run of each kernel's path
     launches = {"fused_earth_block": sl["launches"], **tr["launches"],
                 **{k: ab["unfused_tail"]["launches"][k] for k in ("fused_mlp", "fused_mlp_bwd")},
                 **{k: ab["fused_block"]["launches"][k]
                    for k in ("fused_earth_block_train", "fused_earth_block_train_bwd")},
-                **tail_path["launches"], **micro_counts, **fwd_counts, **bwd_counts}
+                **tail_path["launches"], **micro_counts, **fwd_counts, **bwd_counts,
+                "cosine_window_attention": fuxi_attn["step_launches"]}
     scripts = {**{f"bench_mxu_micro:{v}": r for v, r in micro.items()},
                **{f"bench_attn_fwd_ab:{v}": r for v, r in fwd_ab.items()},
                **{f"bench_attn_bwd_ab:{v}": r for v, r in bwd_ab.items()}}
@@ -2867,7 +2989,13 @@ def main() -> int:
     for name, (replaces, source) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": "pangu_tpu_torch/csrc/" + source,
                  "replaces": replaces, "launches": launches.get(name, 0)}
-        if name in scripts:
+        if name == "cosine_window_attention":
+            sh = fuxi_attn["shapes"]
+            entry.update(max_abs_err=max(x["max_abs_err"] for x in sh),
+                         **{k: sum(x[k] for x in sh) / len(sh)
+                            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
+                         bound_by=sh[0]["bound_by"])
+        elif name in scripts:
             r = scripts[name]
             entry.update(max_abs_err=r.get("max_abs_err", r.get("max_abs")), ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],

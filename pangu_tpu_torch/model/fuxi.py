@@ -32,9 +32,11 @@ groups, the residual and Up Blocks above, the embedding dropping the last
 latitude row, the head above, and no inputs beside the two states.
 
 Numerics in ``compute_dtype`` bf16: products in bf16 with f32 accumulation
-(cuBLAS, cuDNN and ``scaled_dot_product_attention``); the LayerNorm and
+(cuBLAS and cuDNN; the window attention, on the card, the cosine window
+attention kernel of ``ops/cosine_attention.py``); the LayerNorm and
 GroupNorm statistics, the cosine normalization and the softmax in f32; the
-state in f32 and physical units. :meth:`FuxiModel.freeze` casts the weights
+state in f32 and physical units. In f32 the attention is the plain chain of
+PyTorch calls (``scaled_dot_product_attention`` on gathered windows). :meth:`FuxiModel.freeze` casts the weights
 that enter products and LayerNorms to the compute dtype once and computes
 the position-bias tables once (they depend on the weights alone), so a
 step casts and tabulates nothing. Under a running profiler the step is
@@ -55,18 +57,17 @@ from torch import nn
 
 from pangu_tpu_torch import dtype_of
 from pangu_tpu_torch.model.blocks import Mlp
+from pangu_tpu_torch.ops.cosine_attention import (MASKED, cosine_window_attention,
+                                                  cosine_window_attention_reference)
 from pangu_tpu_torch.ops.windows import window_partition
 from pangu_tpu_torch.utils.profiling import span
 
 #: Swin V2's bounds: the largest logit scale, the reach of the scaled
-#: offsets, the position bias's range and the shift mask's value
+#: offsets and the position bias's range (the shift mask's value is
+#: ``MASKED``)
 LOGIT_SCALE_MAX = math.log(100.0)
 OFFSET_REACH = 8.0
 BIAS_RANGE = 16.0
-MASKED = -100.0
-#: the attention bias's rows are laid out with a stride of a whole number of
-#: these elements, as the memory-efficient attention kernel reads them
-_BIAS_ALIGN = 16
 
 
 @dataclass(frozen=True)
@@ -185,6 +186,20 @@ def shift_mask(h: int, w: int, window: Tuple[int, int]) -> torch.Tensor:
             n += 1
     lab = window_partition(label.view(1, 1, h, w, 1), (1, *window)).reshape(-1, wh * ww)
     return torch.where(lab[:, :, None] != lab[:, None, :], MASKED, 0.0)
+
+
+def shift_labels(h: int, w: int, window: Tuple[int, int]) -> torch.Tensor:
+    """(h * w,) int8 in :func:`window_order`'s places: the region of the
+    rolled grid each place lies in, ``3 * lat region + lon region``, a
+    region of an axis of n positions ``0`` below ``n - window``, ``1``
+    below ``n - shift``, else ``2``. Two places of a window are masked
+    (:func:`shift_mask`) exactly where their labels differ."""
+    def region(n, k):
+        i = torch.arange(n)
+        return (i >= n - k).to(torch.int8) + (i >= n - k // 2).to(torch.int8)
+
+    label = 3 * region(h, window[0])[:, None] + region(w, window[1])[None, :]
+    return window_partition(label.view(1, 1, h, w, 1), (1, *window)).reshape(-1)
 
 
 # ---- layers ----------------------------------------------------------------------------
@@ -332,33 +347,14 @@ class BlockTables(NamedTuple):
 
 class Tables(NamedTuple):
     """What a step reads beside the weights: per shift (unshifted, shifted)
-    the window order and its inverse, the shift mask (nW, 1, T, T) in the
-    compute dtype, and each block's :class:`BlockTables`."""
+    the window order (int32) and its inverse (int64), the shift's region
+    labels (int8, :func:`shift_labels`), and each block's
+    :class:`BlockTables`."""
 
     order: Tuple[torch.Tensor, torch.Tensor]
     inverse: Tuple[torch.Tensor, torch.Tensor]
-    mask: torch.Tensor
+    labels: torch.Tensor
     blocks: List[BlockTables]
-
-
-def _shifted_bias(bias: torch.Tensor, mask: torch.Tensor, batch: int) -> torch.Tensor:
-    """(batch * nW, heads, T, T): the block's bias plus the shift mask, its
-    rows laid out at an aligned stride (so the attention kernel reads it in
-    place)."""
-    nw, _, t, _ = mask.shape
-    stride = -(-t // _BIAS_ALIGN) * _BIAS_ALIGN
-    out = bias.new_empty((batch, nw, bias.shape[1], t, stride))[..., :t]
-    torch.add(bias[None].expand(batch, -1, -1, -1, -1), mask[None], out=out)
-    return out.flatten(0, 1)
-
-
-def cosine_(qkv: torch.Tensor, scale: torch.Tensor) -> None:
-    """q and k of ``qkv`` (B, N, 3, heads, d) in place: ``temp * q / |q|``
-    and ``k / |k|`` (``F.normalize``'s eps), ``scale`` (2, heads, 1) holding
-    (temp, 1); the norms and the products in f32, rounded once."""
-    qk = qkv[:, :, :2]
-    norms = torch.linalg.vector_norm(qk, dim=-1, keepdim=True, dtype=torch.float32)
-    qk.mul_(scale / norms.clamp_min(1e-12))
 
 
 class SwinV2Block(nn.Module):
@@ -366,27 +362,22 @@ class SwinV2Block(nn.Module):
 
     def __init__(self, cfg: FuxiConfig):
         super().__init__()
-        self.heads = cfg.heads
         self.attn = CosineWindowAttention(cfg.dim, cfg.heads, cfg.cpb_hidden)
         self.norm1 = nn.LayerNorm(cfg.dim)
         self.mlp = Mlp(cfg.dim, cfg.mlp_ratio)
         self.norm2 = nn.LayerNorm(cfg.dim)
 
     def forward(self, x: torch.Tensor, bt: BlockTables, order: torch.Tensor,
-                inverse: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        b, h, w, c = x.shape
-        heads, d, dt = self.heads, c // self.heads, x.dtype
+                inverse: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
+        """``labels`` the shift's region labels on a shifted block, else
+        None. A bf16 block goes to ``cosine_window_attention`` (the kernel on
+        the card), any other dtype to its plain version."""
+        dt = x.dtype
         qkv = F.linear(x, self.attn.qkv.weight.to(dt), bt.qkv_bias)
+        attend = (cosine_window_attention if dt == torch.bfloat16
+                  else cosine_window_attention_reference)
         with span("fuxi.block.attention"):
-            n, tokens = h * w, bt.bias.shape[-1]
-            cosine_(qkv.view(b, n, 3, heads, d), bt.scale)
-            win = qkv.view(b, n, 3 * c).index_select(1, order)
-            q, k, v = win.view(-1, tokens, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
-            bias = bt.bias if mask is None else _shifted_bias(bt.bias, mask, b)
-            # softmax(q k^T + bias) v of every window and head: the scale is in q
-            o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0)
-            o = o.transpose(1, 2).reshape(b, n, c)
-            o = o.index_select(1, inverse).view(b, h, w, c)
+            o = attend(qkv, bt.scale, bt.bias, order, inverse, labels)
         x = x + layer_norm(F.linear(o, self.attn.proj.weight.to(dt), self.attn.proj.bias.to(dt)),
                            self.norm1)
         w1, b1, w2, b2 = self.mlp.weights(dt)
@@ -414,14 +405,16 @@ class FuxiModel(nn.Module):
         self._frozen: Optional[Tables] = None
 
     def tables(self) -> Tables:
-        """The window orders, the shift mask and every block's tables, from
-        the weights as they are."""
+        """The window orders, the shift's labels and every block's tables,
+        from the weights as they are."""
         cfg, dev, dt = self.cfg, self.head.weight.device, self.compute_dtype
         h, w = cfg.tokens
-        order = tuple(window_order(h, w, cfg.window, s).to(dev) for s in (False, True))
+        order = tuple(window_order(h, w, cfg.window, s).to(dev, torch.int32)
+                      for s in (False, True))
         inverse = tuple(torch.argsort(o) for o in order)
-        mask = shift_mask(h, w, cfg.window)[:, None].to(dev, dt)
-        return Tables(order, inverse, mask, [b.attn.tables(cfg.window, dt) for b in self.blocks])
+        labels = shift_labels(h, w, cfg.window).to(dev)
+        return Tables(order, inverse, labels, [b.attn.tables(cfg.window, dt)
+                                               for b in self.blocks])
 
     def freeze(self) -> None:
         """Cast the weights of the products and the LayerNorms to the
@@ -454,7 +447,7 @@ class FuxiModel(nn.Module):
         for i, block in enumerate(self.blocks):
             s = i % 2
             with span("fuxi.block"):
-                x = block(x, t.blocks[i], t.order[s], t.inverse[s], t.mask if s else None)
+                x = block(x, t.blocks[i], t.order[s], t.inverse[s], t.labels if s else None)
         with span("fuxi.up"):
             x = self.up(torch.cat([skip, x], dim=-1))
         with span("fuxi.head"):

@@ -1011,13 +1011,131 @@ def test_cuda_local_accum_over_batches_with_the_same_bits(cuda_device):
     assert bw.LAUNCHES == before + 2  # the checked call and the second run
 
 
+FUXI_GRID = (90, 180)
+
+
+def _fuxi_attention_inputs(device, b, shifted, seed):
+    """FuXi-Short's attention inputs, seeded (``chip_smoke``'s phase 23)."""
+    from chip_smoke import fuxi_attention_inputs
+
+    return fuxi_attention_inputs(device, shifted, seed, b)
+
+
+@pytest.mark.parametrize("b,shifted", [(1, False), (1, True), (2, False), (2, True)])
+def test_cuda_cosine_window_attention_matches_plain_version(cuda_device, b, shifted):
+    """FuXi's attention kernel against its plain version (the chain of
+    PyTorch calls with SDPA) at FuXi-Short's shape. Both keep the chain's
+    rounding points (q and k rounded once to bf16 after f32 norms, f32
+    scores and softmax, bf16 P, f32 sums of P v); they differ in the order of
+    the f32 sums, in where P is normalized (SDPA's flash kernel after P v,
+    the kernel before) and in the mask, which the kernel adds in f32 and the
+    plain version in bf16 with the bias: the repo's kernel bound, max|d| /
+    max(1, max|ref|) < 0.04 and RMS(d) / RMS(ref) < 0.01."""
+    from pangu_tpu_torch.ops import cosine_attention as tca
+
+    qkv, args = _fuxi_attention_inputs(cuda_device, b, shifted, seed=3 + b)
+    before = tca.LAUNCHES
+    got = tca.cosine_window_attention(qkv, *args)
+    torch.cuda.synchronize()
+    assert tca.LAUNCHES == before + 1
+    assert got.shape == (b, *FUXI_GRID, 1536) and got.dtype == torch.bfloat16
+    ref = tca.cosine_window_attention_reference(qkv.clone(), *args)
+    assert torch.isfinite(got).all()
+    assert _bounded(got, ref)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_cuda_cosine_window_attention_at_96_places(cuda_device, shifted):
+    """Windows of 8 x 12 = 96 places, the most the kernel takes (its twelfth
+    tile of keys holds real keys), on a 16 x 24 token grid, C 64 in two
+    heads of 32, batch 2: the bound above."""
+    from chip_smoke import fuxi_attention_inputs
+    from pangu_tpu_torch.model import fuxi_tiny
+    from pangu_tpu_torch.ops import cosine_attention as tca
+
+    cfg = fuxi_tiny(lat=129, lon=192, dim=64, heads=2, window=(8, 12))
+    assert cfg.tokens == (16, 24)
+    qkv, args = fuxi_attention_inputs(cuda_device, shifted, 5, 2, cfg)
+    got = tca.cosine_window_attention(qkv, *args)
+    assert _bounded(got, tca.cosine_window_attention_reference(qkv.clone(), *args))
+
+
+def test_cuda_cosine_window_attention_gives_the_same_bits_twice(cuda_device):
+    from pangu_tpu_torch.ops import cosine_attention as tca
+
+    qkv, args = _fuxi_attention_inputs(cuda_device, 2, True, seed=9)
+    first = tca.cosine_window_attention(qkv, *args)
+    second = tca.cosine_window_attention(qkv, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_cuda_cosine_window_attention_refuses_before_any_launch(cuda_device):
+    """f32 qkv, heads of 64, windows of 100 places, a strided qkv, an int64
+    order: ValueError, and no launch."""
+    from pangu_tpu_torch.model import fuxi
+    from pangu_tpu_torch.ops import cosine_attention as tca
+
+    qkv, (scale, bias, order, inverse, labels) = _fuxi_attention_inputs(
+        cuda_device, 1, True, seed=1)
+    big = torch.zeros((1, 20, 40, 3 * 64), dtype=torch.bfloat16, device=cuda_device)
+    order10 = fuxi.window_order(20, 40, (10, 10), False).to(cuda_device)
+    cases = [
+        (qkv.float(), scale, bias, order, inverse, labels),
+        (qkv, scale[:, :24], bias[:, :24], order, inverse, labels),
+        (big, scale[:, :2], torch.zeros((1, 2, 100, 100), dtype=torch.bfloat16,
+                                        device=cuda_device), order10.int(), order10, None),
+        (qkv[:, :, :90], scale, bias, order[:8100], inverse, None),
+        (qkv, scale, bias, order.long(), inverse, labels),
+    ]
+    before = tca.LAUNCHES
+    for case in cases:
+        with pytest.raises(ValueError):
+            tca.cosine_window_attention(*case)
+    assert tca.LAUNCHES == before
+
+
+def test_cuda_fuxi_step_launches_the_kernel_once_a_block(cuda_device, monkeypatch):
+    """A bf16 FuXi step on a small grid (18x36 tokens of 9x9 windows, C 64
+    in two heads of 32, four blocks): one launch a block, and the output of
+    the step with every block on the plain version within RMS 0.01 of its
+    own RMS in normalized units (the bf16 rounding of the attention outputs
+    carried through four blocks, the Up Block and the head)."""
+    from pangu_tpu_torch.model import FuxiConstants, FuxiModel, fuxi, fuxi_tiny
+    from pangu_tpu_torch.ops import cosine_attention as tca
+
+    cfg = fuxi_tiny(lat=145, lon=288, dim=64, heads=2, window=(9, 9),
+                    compute_dtype="bfloat16")
+    torch.manual_seed(0)
+    with torch.device(cuda_device):
+        model, plain = FuxiModel(cfg), FuxiModel(cfg)
+    plain.load_state_dict(model.state_dict())
+    v = cfg.variables
+    k = FuxiConstants(torch.zeros((1, v, 1, 1), device=cuda_device),
+                      torch.ones((1, v, 1, 1), device=cuda_device))
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    a, b = (torch.randn((1, v, cfg.lat, cfg.lon), generator=gen, device=cuda_device)
+            for _ in range(2))
+    before = tca.LAUNCHES
+    got = make_forecast_step(model, k)(a, b)[1]
+    torch.cuda.synchronize()
+    assert tca.LAUNCHES == before + cfg.depth
+    monkeypatch.setattr(fuxi, "cosine_window_attention", tca.cosine_window_attention_reference)
+    want = make_forecast_step(plain, k)(a, b)[1]
+    assert tca.LAUNCHES == before + cfg.depth
+    d = (got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()
+    assert torch.isfinite(got).all() and d.item() < 0.01
+
+
 def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
-    """``python3 chip_smoke.py`` exits 0; the line before the last lists K1-K12,
-    K2's LN mode and the script kernels with their launches over the run of
-    their path: the forecast (K1), the 3 timed default train steps (K2-K7),
-    the 3 timed steps of ``unfused_tail`` (K8/K9) and of ``fused_block``
-    (K11/K12), the two-kernel block at one forecast step's mix (K10, K2 LN),
-    and each script's timed run (2 warm-up + 10 or 12 timed calls). Phase
+    """``python3 chip_smoke.py`` exits 0; the line before the last lists the
+    22 kernels, K1-K12, K2's LN mode, the script kernels and FuXi's cosine
+    window attention, with their launches over the run of their path: the
+    forecast (K1), the 3 timed default train steps (K2-K7), the 3 timed
+    steps of ``unfused_tail`` (K8/K9) and of ``fused_block`` (K11/K12), the
+    two-kernel block at one forecast step's mix (K10, K2 LN), each script's
+    timed run (2 warm-up + 10 or 12 timed calls) and one FuXi-Short step
+    (48 blocks). Phase
     18's served steps launch K1 16 times each with the eager bits, the
     flagship bf16 bound is printed, phase 19 prints its ``data:`` line
     (the npy store's write, read rates and evaluate / finetune splits),
@@ -1040,12 +1158,15 @@ def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
         "bench_mxu_micro:loop": 12, "bench_mxu_micro:blockdiag": 12,
         "bench_mxu_micro:qblockdiag": 12, "bench_mxu_micro:loop_int8": 12,
         "bench_attn_fwd_ab:batched": 14, "bench_attn_fwd_ab:dbl": 14,
-        "bench_attn_fwd_ab:quad": 14, "bench_attn_bwd_ab:local_accum": 14}
+        "bench_attn_fwd_ab:quad": 14, "bench_attn_bwd_ab:local_accum": 14,
+        "cosine_window_attention": 48}
     assert all(k["route"] == "cuda" and k["ms"] > 0 and k["plain_ms"] > 0
                and 0 < k["bound_ms"] < k["ms"] and k["bound_by"] in ("bytes", "operations")
                and "library_ms" in k for k in kernels.values())
     assert all(kernels[f"bench_mxu_micro:{v}"]["library_ms"] > 0
                for v in ("loop", "blockdiag", "qblockdiag", "loop_int8"))
+    fuxi_attn = kernels["cosine_window_attention"]
+    assert fuxi_attn["library_ms"] > 0 and 0 < fuxi_attn["bound_ms"] < fuxi_attn["device_ms"]
     score = [ln for ln in lines if ln.startswith("forecast and score: ")]
     assert len(score) == 1
     assert set(json.loads(score[0].split(": ", 1)[1])["eval_per_sample_s"]) == {
