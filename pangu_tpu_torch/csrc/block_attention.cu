@@ -48,7 +48,7 @@
 // Rounding: as the Pallas body, except D. The body forms rowsum(dP p) from
 // the f32 probabilities; here D = rowsum(dO O) with O = P v from the bf16 P
 // of the acc slab, equal up to P's rounding (an f32 sum of 144 terms each
-// off by at most 2^-9 relative): within the kernel bounds of chip_smoke.py.
+// off by at most 2^-9 relative): within the kernel bounds of tests/test_torch_gpu.py.
 //
 // What bounds it on an H100: the backward of an outer block is ~1.2 TFLOP of
 // products (the recomputed forward, dO, the four score-sized products and the

@@ -63,7 +63,7 @@
 //
 // Rounding: as the Pallas body, except two sums. D = rowsum(dP p) is formed by
 // K3's kernel as rowsum(dO O) with O = P v from the bf16 P (equal up to P's
-// rounding; K3's departure, within the kernel bounds of chip_smoke.py), and
+// rounding; K3's departure, within the kernel bounds of tests/test_torch_gpu.py), and
 // dbproj is the column sum of the bf16 da that feeds the attention backward
 // rather than of the f32 da.
 //

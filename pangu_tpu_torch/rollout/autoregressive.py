@@ -49,8 +49,9 @@ def _two_state_step(model: nn.Module, aux) -> Callable[[torch.Tensor, torch.Tens
     """``step(x_prev, x_cur) -> (x_cur, x_next)``, physical f32 states, under
     ``torch.inference_mode``; ``x_cur`` comes back as the same tensor. The
     model's weights are cast to its compute dtype here, once and in place
-    (``freeze``), so the model serves forecasts only after this. No kernel
-    of the port runs, so the kernels' widths are not checked."""
+    (``freeze``), so the model serves forecasts only after this. Its blocks
+    run the cosine window attention kernel on the card, whose wrapper checks
+    its own widths before any launch; nothing is checked here."""
     model.eval()
     model.freeze()
 

@@ -19,7 +19,7 @@ weights in nn.Linear's (out, in) layout:
 The other JAX variants are refused (:data:`REFUSED`, ValueError before
 anything runs). The inputs are the JAX script's draws from
 ``np.random.default_rng(0)``. Each variant is held against its plain version
-(the phase-3 bounds of ``chip_smoke.py``, all six outputs), ``local_accum``
+(the kernel bounds of tests/test_torch_gpu.py, all six outputs), ``local_accum``
 against ``shipped`` with the JAX script's metric (max of |d dx| and |d dwqkv|
 / max|dwqkv| <= 0.05) and against itself (the same bits on a second run),
 then timed (ms per call, CUDA events). One JSON line per variant, then

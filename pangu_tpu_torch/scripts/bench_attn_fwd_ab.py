@@ -19,8 +19,8 @@ outer-stage grid (1, 8, 186, 360, 192), 6 heads, window (2, 6, 12):
 
 The inputs are the JAX script's draws from ``np.random.default_rng(0)``, the
 weights in nn.Linear's (out, in) layout (the transpose of its Dense layout).
-Each variant is held against its plain version (the phase-3 bounds of
-``chip_smoke.py``) and against ``shipped`` with the JAX script's metric
+Each variant is held against its plain version (the kernel bounds of
+tests/test_torch_gpu.py) and against ``shipped`` with the JAX script's metric
 (max|d| <= 0.05), then timed (ms per call, CUDA events). One JSON line per
 variant, then ``{"attn_fwd_ab_ms": {...}, "device_kind": ...}``.
 """

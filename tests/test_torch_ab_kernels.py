@@ -21,8 +21,7 @@ its plain version, held here to
 
 The JAX scripts are loaded from ``scripts/`` with their geometry globals set
 to their own ``--smoke`` values, as their ``smoke()`` does. The CUDA kernels
-are compared with the plain versions on the card by tests/test_torch_gpu.py
-and chip_smoke.py.
+are compared with the plain versions on the card by tests/test_torch_gpu.py.
 """
 
 import importlib.util

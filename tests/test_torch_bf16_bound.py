@@ -3,7 +3,7 @@ the twin of ``scripts/parity_bf16_bound.py``) at tiny geometry on the CPU:
 the JAX script's JSON keys, finite values, and a deviation of the bf16
 route from the f32 path inside the flagship bound of docs/PARITY.md (max
 0.026, RMS 0.005 in normalized units). The flagship reading needs the card
-(chip_smoke.py phase 18).
+(``python -m pangu_tpu_torch.scripts.parity_bf16_bound`` there).
 """
 
 import importlib.util

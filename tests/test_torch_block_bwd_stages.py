@@ -19,7 +19,7 @@ f32 sums in another order; the chain rounds dbproj's summands, da, to bf16
 where the Pallas body sums f32 da), and in f32, where no rounding is left, to
 the plain K12 at max|d| / max|ref| < 1e-4 (only the order of f32 sums
 differs). The CUDA chain itself is compared with the plain K12 on the card
-(tests/test_torch_gpu.py, chip_smoke.py).
+(tests/test_torch_gpu.py).
 """
 
 import pytest

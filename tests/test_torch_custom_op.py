@@ -20,7 +20,7 @@
   blocks driven through the unfolded route: the same bits.
 
 The CUDA implementation, the hand-written kernel, is compared with the plain
-version on the card by tests/test_torch_gpu.py and chip_smoke.py.
+version on the card by tests/test_torch_gpu.py.
 """
 
 import jax.numpy as jnp

@@ -250,30 +250,37 @@ def test_rollout_script_mix24_needs_the_24h_weights(setup, tmp_path):
                            "--out", str(tmp_path), *SCRIPT_DATES], device="cpu")
 
 
-def test_chip_smoke_forecast_and_score_phase_runs_at_tiny_geometry(monkeypatch):
-    """chip_smoke.py's phase 16 end to end on the CPU: the tiny preset on
-    the plain route (the kernels take only the flagship widths), so no
-    kernel launches and the kernel-vs-plain check compares the plain route
-    with itself; the card-only calls are stubbed."""
+def test_test_script_csvs_hold_the_score_steps_scores(setup, tmp_path):
+    """What the deleted on-card smoke script's forecast-and-score phase held
+    of the ``test`` script, at the tiny preset on the CPU: over 3 samples
+    the 8 ``rmse_*`` and 6 ``acc_*`` CSVs hold one row per target time and
+    exactly the float32 scores that the score step gives on the same
+    weights and samples."""
     import torch
 
-    sys.path.insert(0, REPO)
-    try:
-        import chip_smoke as cs
-    finally:
-        sys.path.remove(REPO)
-    launches = []
-    monkeypatch.setattr(cs, "KERNEL_ROUTE", ["--preset", "tiny"])
-    monkeypatch.setattr(cs, "ERA5_UPPER_LEVELS", [str(i) for i in range(pangu_tiny().model.levels)])
-    monkeypatch.setattr(cs, "only_k1", lambda label, want: launches.append(
-        (label, want, {k: v for k, v in cs.launch_counts().items() if v})))
-    monkeypatch.setattr(cs, "card_line", lambda: "cpu")
-    for name in ("reset_peak_memory_stats", "synchronize"):
-        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
-    res = cs.check_forecast_and_score(torch.device("cpu"))
-    depth = sum(pangu_tiny().model.depths)
-    assert launches == [("test script", depth * 3, {}), ("rollout script", depth * 6, {})]
-    assert sorted(res["eval_per_sample_s"]) == ["forecast", "h2d", "load", "score", "total"]
-    assert res["kernel_vs_plain"] == dict(worst_rmse_gap_over_norm=0.0, max_acc_diff=0.0)
-    assert np.isfinite(res["test_loss"])
+    from pangu_tpu_torch.eval.csv_io import load_error_scores
+    from pangu_tpu_torch.eval.evaluate import ACC_FAMILIES, RMSE_FAMILIES, make_score_step
+    from pangu_tpu_torch.scripts import test as port_test
+    from pangu_tpu_torch.train import Batch
+
+    dates = dict(store="synthetic", test_start="20240101", test_end="20240105",
+                 test_freq="24h")
+    port_test.main(["--preset", "tiny", "--weights", setup["paths"][0], "--out",
+                    str(tmp_path), *[f"--set=data.{k}={v}" for k, v in dates.items()]],
+                   device="cpu")
+    csv_dir = tmp_path / "test" / "24" / "csv"
+    files = [(e, f) for e, fams in (("rmse", RMSE_FAMILIES), ("acc", ACC_FAMILIES))
+             for f in fams]
+    assert sorted(os.listdir(csv_dir)) == sorted(f"{e}_{f}.csv" for e, f in files)
+    tables = {f"{e}_{f}": load_error_scores(str(csv_dir), e, f) for e, f in files}
+    cfg = setup["cfg"].replace(data=DataConfig(**dates))
+    step = make_score_step(setup["models"][0], cfg)
+    rows = []
+    for host, periods in make_loader(cfg.data, cfg.model, "test", cfg.horizon, 1):
+        scores = step(Batch(*(torch.from_numpy(x) for x in host)), setup["aux"])
+        rows.append(periods[0][1])
+        for k, (index, _, values) in tables.items():
+            np.testing.assert_array_equal(values[index.index(periods[0][1])],
+                                          scores[k][0].numpy().astype(np.float32), err_msg=k)
+    assert rows == ["2024010200", "2024010300", "2024010400"]
+    assert all(index == rows for index, _, _ in tables.values())

@@ -232,46 +232,96 @@ def test_stats_script_matches_jax(pt_root, tmp_path, monkeypatch, split, extra):
     assert port[f"stats_{tag}.txt"] == jax[f"stats_{tag}.txt"]
 
 
-def test_chip_smoke_data_phase_runs_at_tiny_geometry(monkeypatch):
-    """chip_smoke.py's phase 19 end to end on the CPU, after phases 16 and 17
-    whose tables and losses it must reproduce over the npy store: the tiny
-    preset (phase 16 on the plain route, phase 17 on the kernel route, whose
-    wrappers run their plain versions on CPU tensors, so no launch is
-    counted and the launch checks are recorded, not held), the card-only
-    calls stubbed. The native reader must feed every batch, as on the card."""
+# ---- an npy store written by convert_range, read by the native reader ------------------
+
+#: the synthetic store's frames written to the npy store (7 at 24 h), its scored range (3
+#: samples) and train range (2 samples: 2 steps an epoch at batch 1)
+DATA_RANGE = ("20240101", "20240107", "24h")
+SCORE_RANGE = dict(test_start="20240101", test_end="20240105", test_freq="24h")
+TRAIN_RANGE = dict(train_start="20240101", train_end="20240104", train_freq="24h")
+
+
+@pytest.fixture(scope="module")
+def npy_from_synthetic(tmp_path_factory):
+    """The tiny synthetic store's DATA_RANGE written through the port's
+    ``convert_range`` into an npy store (the native reader built first)."""
     from test_torch_native_loader import build_locked
 
     build_locked()
-    sys.path.insert(0, REPO)
-    try:
-        import chip_smoke as cs
-    finally:
-        sys.path.remove(REPO)
-    k1, launches = [], []
-    monkeypatch.setattr(cs, "KERNEL_ROUTE", ["--preset", "tiny"])
-    monkeypatch.setattr(cs, "ERA5_UPPER_LEVELS", [str(i) for i in range(pangu_tiny().model.levels)])
-    monkeypatch.setattr(cs, "pangu_pretrain", lambda horizon, **kw: pangu_tiny(**kw))
-    monkeypatch.setattr(cs, "only_k1", lambda label, want: k1.append((label, want)))
-    monkeypatch.setattr(cs, "check_launches", lambda label, want: launches.append(label) or {})
-    monkeypatch.setattr(cs, "card_line", lambda: "cpu")
-    for name in ("reset_peak_memory_stats", "synchronize"):
-        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
-    dev = torch.device("cpu")
-    score, finetune = cs.check_forecast_and_score(dev), cs.check_finetune(dev)
-    before = dict(tds.BATCH_READS)
-    res = cs.check_data(dev, score, finetune)
-    depth = sum(pangu_tiny().model.depths)
-    assert k1[-1] == ("test script over the npy store", depth * 3)
-    assert launches[-1] == "finetune epoch over the npy store (2 steps)"
-    # load_batch, the 3 test samples and the 2 train steps through the native reader;
-    # the synthetic store's reference batch sample by sample
-    assert {k: tds.BATCH_READS[k] - before[k] for k in before} == {"native": 6, "per_sample": 1}
-    assert res["step_losses"] == finetune["step_losses"][:2] and len(res["step_losses"]) == 2
-    m = pangu_tiny().model
-    assert res["write_bytes"] == 7 * 4 * (m.upper_vars * m.levels + m.surface_vars) * m.lat * \
-        m.lon + 14 * 128  # the .npy headers
-    assert sorted(res["read_batch_gbps"]) == ["1", "8"]
-    assert sorted(res["eval_per_sample_s"]) == ["forecast", "h2d", "load", "score", "total"]
-    assert sorted(res["fit_per_step_s"]) == ["h2d", "load", "step", "total"]
-    assert res["synthetic"]["fit_per_step_s"] == finetune["fit_per_step_s"]
+    root = str(tmp_path_factory.mktemp("from_synthetic"))
+    store = tds.SyntheticStore(pangu_tiny().model, pangu_tiny().data.seed)
+    assert tconv.convert_range(store, root, *DATA_RANGE, log=None) == 7
+    return root
+
+
+def _fit_losses(data: dict, out: str) -> list:
+    """Each step's loss of one ``Trainer.fit`` epoch of the tiny preset, batch
+    1, seeded weights, over the train range of ``data``'s store."""
+    import dataclasses
+
+    from pangu_tpu_torch.aux import synthetic_aux_constants
+    from pangu_tpu_torch.config import DataConfig
+    from pangu_tpu_torch.data import make_loader
+    from pangu_tpu_torch.interop.from_jax import init_params
+    from pangu_tpu_torch.model import PanguModel
+    from pangu_tpu_torch.train.trainer import Trainer
+
+    cfg = pangu_tiny()
+    cfg = cfg.replace(data=DataConfig(**TRAIN_RANGE, **data),
+                      train=dataclasses.replace(cfg.train, epochs=1, batch_size=1))
+    model = PanguModel(cfg.model)
+    init_params(model, seed=0)
+    train = make_loader(cfg.data, cfg.model, "train", cfg.horizon, 1)
+    trainer = Trainer(cfg, model, synthetic_aux_constants(cfg.model, cfg.train, device="cpu"),
+                      out, steps_per_epoch=len(train))
+    losses, step = [], trainer.train_step
+
+    def recorded(batch, aux, gen):
+        loss = step(batch, aux, gen)
+        losses.append(loss.item())
+        return loss
+
+    trainer.train_step = recorded
+    trainer.fit(train)
+    return losses
+
+
+@pytest.mark.parametrize("reader", ["load_batch", "test_script", "fit_epoch"])
+def test_an_npy_store_from_convert_range_feeds_the_synthetic_stores_bits(npy_from_synthetic,
+                                                                         tmp_path, reader):
+    """What the deleted on-card smoke script's data phase held, at the tiny
+    preset on the CPU: the synthetic store written through
+    ``convert_range`` and read back by the native batch reader, never the
+    per-sample path (``BATCH_READS``), gives the synthetic store's own bits
+    to ``load_batch``, the same score CSVs (bytes) to the ``test`` script,
+    and the same step losses to a ``Trainer.fit`` epoch."""
+    from pangu_tpu_torch.scripts import test as test_script
+    from test_torch_data import _reads
+
+    npy = dict(store="npy", root=npy_from_synthetic)
+    if reader == "load_batch":
+        ds = tds.Era5Dataset(tds.NpyStore(npy_from_synthetic), *DATA_RANGE, 24)
+        indices = [len(ds) - 1, 0]
+        (got, periods), reads = _reads(lambda: ds.load_batch(indices))
+        ref, ref_periods = tds.Era5Dataset(
+            tds.SyntheticStore(pangu_tiny().model, pangu_tiny().data.seed), *DATA_RANGE,
+            24).load_batch(indices)
+        assert reads == {"native": 1, "per_sample": 0} and periods == ref_periods
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b)
+    elif reader == "test_script":
+        csvs, reads = {}, {}
+        for name, data in (("synthetic", dict(store="synthetic")), ("npy", npy)):
+            out = str(tmp_path / name)
+            argv = ["--preset", "tiny", "--out", out,
+                    *[f"--set=data.{k}={v}" for k, v in {**SCORE_RANGE, **data}.items()]]
+            _, reads[name] = _reads(lambda: test_script.main(argv, device="cpu"))
+            csvs[name] = _files(os.path.join(out, "test", "24", "csv"))
+        batches = -(-3 // pangu_tiny().eval.batch_size)
+        assert reads["npy"] == {"native": batches, "per_sample": 0}
+        assert len(csvs["npy"]) == 14 and csvs["npy"] == csvs["synthetic"]
+    else:
+        got, reads = _reads(lambda: _fit_losses(npy, str(tmp_path / "npy")))
+        assert reads == {"native": 2, "per_sample": 0}
+        assert len(got) == 2 and got == _fit_losses(dict(store="synthetic"),
+                                                    str(tmp_path / "synthetic"))

@@ -1,25 +1,34 @@
-"""The port's CUDA kernels on the card (marker ``gpu``; skips without one):
-the inference block K1 (also for its determinism at both stages, shifted and
-unshifted, at batch 2 and with a partial 64-row tile; its folded gather
-against the unfolded route, re-zero, ``torch.roll``, K1, roll back, at both
-flagship stages, the same bits on the real rows), the training attention
-K2/K3 (K3 also for its determinism and its sums over a batch; K1's and K2's
-window attention for the same bits on two runs and, at batch 2 with an odd
-lon-window count, the single-sample calls' bits; K2 refusing a partial
-projection tile before launch), the post-norm
-residual K4/K5, the MLP tail K6/K7 (both, and K10, also for their determinism
-and a partial 64-row tile), the
-raw MLP K8/K9 (K8 also with a partial 64-row tile and for its determinism),
-the training block K11/K12 (K12 also for its determinism), K1-K7 against the
-bits of the tree before K8 and K12 moved to the Hopper engines, the inference
-MLP tail K10, K2's
-LN-epilogue mode (and the two-kernel block they make, against K1) and the
-A/B kernels of the three scripts S1-S3
-against their plain versions, K1's operator (the kernel, its checks inside the
-CUDA implementation) and an exported step at flagship widths (K1 launches and
-the eager bits), the forecast step and flagship train steps on
-the default route and the two A/B routes through the kernels, and the width
-check of the entry points on a model the kernels do not take.
+"""The port's one on-card check (marker ``gpu``; every test skips without a
+CUDA card):
+
+* every kernel source builds (nvcc, one library a source);
+* each kernel against its plain version: the inference block K1 (also
+  for its determinism at both stages, shifted and unshifted, at batch 2
+  and with a partial 64-row tile; its folded gather against the unfolded
+  route, re-zero, ``torch.roll``, K1, roll back, at both flagship stages,
+  the same bits on the real rows), the training attention K2/K3 (K3 also
+  for its determinism and its sums over a batch; K1's and K2's window
+  attention for the same bits on two runs and, at batch 2 with an odd
+  lon-window count, the single-sample calls' bits; K2 refusing a partial
+  projection tile before launch), the post-norm residual K4/K5, the MLP
+  tail K6/K7 (both, and K10, also for their determinism and a partial
+  64-row tile), the raw MLP K8/K9, the training block K11/K12, the
+  inference MLP tail K10 and K2's LN-epilogue mode (and the two-kernel
+  block they make, against K1), the A/B kernels of the three scripts
+  S1-S3, and FuXi's cosine window attention; K1-K7 against the bits of the
+  tree before K8 and K12 moved to the Hopper engines;
+* the block and row kernels at the flagship stage shapes, and on the slabs
+  of the flagship lat=2 x lon=2 plane;
+* K1's operator and the exported step (in this process on a small grid,
+  and at flagship geometry served by a fresh process);
+* the flagship forecast steps and train steps (the default route and the
+  three A/B routes) against the plain bf16 steps, merged and unmerged LoRA,
+  ``Trainer.fit`` with its resume, the ``test`` and ``rollout`` scripts,
+  an npy store read by the native reader, the pipeline's stages on one
+  card, a FuXi-Short step;
+* on a host with several cards, the rank workers of the data-parallel,
+  spatial and pipeline tests over NCCL (``tests/torch_*_worker.py``'s
+  ``card`` cases); each skips, saying why, where the host has too few.
 
 Imports torch and numpy only, so it runs where jax is absent; the repo's
 conftest imports jax, so on such a machine run it as
@@ -29,15 +38,19 @@ conftest imports jax, so on such a machine run it as
 Tolerances: a kernel against its plain version, both bf16 with the same
 rounding points, atol 0.04 after scaling by max(1, max|ref|) (the bound of
 tests/test_kernel_interpret.py: bf16 activations, f32 sums in another
-order; 0.05 for gradients), and for K2-K5 also RMS(d) / RMS(ref) < 0.01. The model step on the kernel path against the plain composition
-(use_pallas_attention off, different rounding points): RMS 0.01 and max 0.1
-in normalized output units, twice and four times the bf16-vs-f32 deviation
-of docs/PARITY.md (RMS 0.005, max 0.026).
+order; 0.05 for gradients), and for K2-K5 also RMS(d) / RMS(ref) < 0.01;
+at the flagship stage shapes every output and gradient is held to 0.04 and
+0.01 both (``ab_common.compare``). The model step on the kernel path
+against the plain composition (use_pallas_attention off, different rounding
+points): RMS 0.01 and max 0.1 in normalized output units, twice and four
+times the bf16-vs-f32 deviation of docs/PARITY.md (RMS 0.005, max 0.026).
+A flagship train step against the plain bf16 step: ``torch_card.TRAIN_BOUNDS``.
 """
 
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,12 +59,14 @@ import numpy as np
 import pytest
 import torch
 
+import torch_card as card
 from pangu_tpu_torch.config import pangu_tiny
 from pangu_tpu_torch.aux import synthetic_aux_constants
 from pangu_tpu_torch.interop.from_jax import init_params
 from pangu_tpu_torch.model import PanguModel
 from pangu_tpu_torch.ops import fused_block_attention as tfba
 from pangu_tpu_torch.rollout import make_forecast_step
+from pangu_tpu_torch.train import make_optimizer, make_train_step
 
 pytestmark = pytest.mark.gpu
 WINDOW = (2, 6, 12)
@@ -371,8 +386,8 @@ def test_cuda_window_attention_through_k1_and_k2_matches_plain_with_the_same_bit
         cuda_device, c, heads, masked):
     """The window-attention kernel (scores and probabilities in mma.sync
     registers) through K1 and K2 (its projection on wgmma) at both stage
-    widths, shifted and unshifted: against their plain versions with
-    chip_smoke.py's bounds, and the same bits on a second call."""
+    widths, shifted and unshifted: against their plain versions with the
+    kernel bounds, and the same bits on a second call."""
     args, statics = _inputs(51, cuda_device, 1, 4, 12, 48, c, heads, masked)
     before = (tfba.LAUNCHES, tfba.ATTN_FWD_LAUNCHES)
     with torch.no_grad():
@@ -590,41 +605,74 @@ def test_cuda_training_wrappers_reject_what_the_kernels_do_not_take(cuda_device)
     assert (tfm.FWD_LAUNCHES, tfm.BWD_LAUNCHES) == before
 
 
-def test_flagship_train_step_launches_the_training_kernels(cuda_device):
-    """One flagship train step (remat on, the config's flags keep the
-    attention and MLP outputs): K2 and K6 run 16 times, K4 32 times (the
-    checkpoint recompute runs it again), K3, K5 and K7 16 times; loss and
-    gradients finite."""
-    from pangu_tpu_torch import pangu_pretrain
-    from pangu_tpu_torch.ops import fused_epilogue as tfep
-    from pangu_tpu_torch.ops import fused_mlp as tfm
-    from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step
+#: a flagship train step's launches on the default route and the three A/B routes
+ROUTE_LAUNCHES = {
+    "base": card.TRAIN_LAUNCHES, "bf16_grads": card.TRAIN_LAUNCHES,
+    "fused_block": {"fused_earth_block_train": 16, "fused_earth_block_train_bwd": 16},
+    "unfused_tail": {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
+                     "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
+                     "fused_mlp": 16, "fused_mlp_bwd": 16}}
 
-    cfg = pangu_pretrain(24, compute_dtype="bfloat16", matmul_precision="default",
-                         use_pallas_attention=True)
-    m = cfg.model
-    model = PanguModel(m).to(cuda_device)
+
+@pytest.fixture(scope="module")
+def plain_flagship_train_step():
+    """One plain bf16 flagship train step (no kernel) from seeded weights,
+    batch and drop-path draws: the kernel routes' reference (its weights,
+    aux constants, batch, loss and f32 gradients)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = card.flagship()
+    with dev:
+        model = PanguModel(dataclasses.replace(cfg.model, use_pallas_attention=False)).to(dev)
     init_params(model, seed=0)
-    aux = synthetic_aux_constants(m, cfg.train, device=cuda_device)
-    gen = torch.Generator(cuda_device).manual_seed(3)
-    fields = [aux.upper_mean + aux.upper_std * torch.randn(
-        (1, m.upper_vars, m.levels, m.lat, m.lon), generator=gen, device=cuda_device),
-              aux.surface_mean + aux.surface_std * torch.randn(
-        (1, m.surface_vars, m.lat, m.lon), generator=gen, device=cuda_device)]
-    batch = Batch(*fields, *(f + 0.1 * torch.randn(f.shape, generator=gen, device=cuda_device)
-                             for f in fields))
-    step = make_train_step(model, cfg, make_optimizer(model, cfg))
+    w0 = {k: v.clone() for k, v in model.state_dict().items()}
+    aux = synthetic_aux_constants(cfg.model, cfg.train, device=dev)
+    batch = card.seeded_batch(aux, cfg.model, dev)
+    before = card.launches()
+    loss = make_train_step(model, cfg, make_optimizer(model, cfg))(
+        batch, aux, torch.Generator(dev).manual_seed(3)).item()
+    assert card.launched(before) == {}
+    grads = {k: p.grad.float() for k, p in model.named_parameters()}
+    return dict(cfg=cfg, w0=w0, aux=aux, batch=batch, loss=loss, grads=grads)
 
-    def counts():
-        return (tfba.ATTN_FWD_LAUNCHES, tfba.ATTN_BWD_LAUNCHES, tfep.FWD_LAUNCHES,
-                tfep.BWD_LAUNCHES, tfm.FWD_LAUNCHES, tfm.BWD_LAUNCHES)
 
-    before = counts()
-    loss = step(batch, aux, torch.Generator(cuda_device).manual_seed(4))
-    torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(counts(), before)) == (16, 16, 32, 16, 16, 16)
-    assert bool(torch.isfinite(loss))
-    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+@pytest.mark.parametrize("route", list(ROUTE_LAUNCHES))
+def test_flagship_train_route_matches_the_plain_bf16_step(cuda_device, plain_flagship_train_step,
+                                                          route):
+    """One flagship train step (remat on, the config's flags keep the
+    attention and MLP outputs) on the default route (``base``) and each A/B
+    route of ``scripts.bench_train_ab`` from the plain step's weights, batch
+    and drop-path draws: exactly the route's launches (K4 twice a block on
+    the checkpointed routes: the recompute runs it again; K11 is not
+    checkpointed); a finite loss and finite gradients; every parameter with
+    a gradient updated (a branch that drop path drops has none); against
+    the plain bf16 step the loss within 1%, the gradient's global relative
+    L2 < 1%, each earth-specific bias's relative L2 < 10% and every other
+    parameter's < 2% (``torch_card.TRAIN_BOUNDS``)."""
+    from pangu_tpu_torch.scripts import bench_train_ab
+
+    ref = plain_flagship_train_step
+    with bench_train_ab.variant_flags(route):
+        cfg = ref["cfg"].replace(model=dataclasses.replace(
+            ref["cfg"].model, grads_dtype=bench_train_ab.variant_config(route).model.grads_dtype))
+        with cuda_device:
+            model = PanguModel(cfg.model).to(cuda_device)
+        model.load_state_dict(ref["w0"])
+        before = card.launches()
+        loss = make_train_step(model, cfg, make_optimizer(model, cfg))(
+            ref["batch"], ref["aux"], torch.Generator(cuda_device).manual_seed(3)).item()
+        torch.cuda.synchronize()
+        assert card.launched(before) == ROUTE_LAUNCHES[route]
+    named = dict(model.named_parameters())
+    assert math.isfinite(loss) and all(bool(torch.isfinite(p.grad).all()) for p in named.values())
+    assert not [k for k, p in named.items()
+                if bool(p.grad.any()) and torch.equal(p.detach(), ref["w0"][k])]
+    d = card.train_deviation(loss, {k: p.grad for k, p in named.items()}, ref["loss"],
+                             ref["grads"])
+    assert card.within_train_bounds(d), d
 
 
 def test_cuda_entry_points_check_the_widths_before_any_launch(cuda_device):
@@ -674,18 +722,12 @@ def _flagship(cuda_device, **kw):
     return cfg, model, synthetic_aux_constants(cfg.model, cfg.train, device=cuda_device)
 
 
-def _training_counts():
-    from pangu_tpu_torch.scripts.bench_train_ab import launch_counts
-
-    return {"fused_earth_block": tfba.LAUNCHES, **launch_counts()}
-
-
-def test_merged_lora_kernel_step_matches_the_plain_bf16_step(cuda_device):
-    """One flagship LoRA step (rank 16, alpha 16, B drawn nonzero) with the
-    merged weights: K2, K3, K5, K6 and K7 16 launches and K4 32; the loss
-    within 1% and the adapters' and heads' gradient within 1% relative L2
-    of the plain bf16 step (chip_smoke.py's phase 8 bounds)."""
-    from pangu_tpu_torch.train import Batch
+def _lora_step_against_plain(cuda_device, unmerged: bool):
+    """One flagship LoRA step (rank 16, alpha 16, dropout 0, B drawn
+    nonzero) in the merged or unmerged form, on the kernel route and on the
+    plain bf16 route from the same weights, tree, batch and drop-path
+    draws: (the kernel route's launches, the loss's relative deviation, the
+    relative L2 of the adapters' and heads' gradient)."""
     from pangu_tpu_torch.train.lora import (LoraConfig, attach_lora, flatten_trainable,
                                             init_lora_params)
     from pangu_tpu_torch.train.step import loss_fn
@@ -693,13 +735,7 @@ def test_merged_lora_kernel_step_matches_the_plain_bf16_step(cuda_device):
     cfg, model, aux = _flagship(cuda_device)
     m = cfg.model
     lcfg = LoraConfig(rank=16, alpha=16.0, dropout=0.0)
-    gen = torch.Generator(cuda_device).manual_seed(5)
-    fields = [aux.upper_mean + aux.upper_std * torch.randn(
-        (1, m.upper_vars, m.levels, m.lat, m.lon), generator=gen, device=cuda_device),
-              aux.surface_mean + aux.surface_std * torch.randn(
-        (1, m.surface_vars, m.lat, m.lon), generator=gen, device=cuda_device)]
-    batch = Batch(*fields, *(f + 0.1 * torch.randn(f.shape, generator=gen, device=cuda_device)
-                             for f in fields))
+    batch = card.seeded_batch(aux, m, cuda_device)
     base = {k: v.clone() for k, v in model.state_dict().items()}
     results = []
     for kernel in (True, False):
@@ -712,24 +748,38 @@ def test_merged_lora_kernel_step_matches_the_plain_bf16_step(cuda_device):
         with torch.no_grad():
             for ab in tree["lora"].values():
                 ab["b"].normal_(0.0, 0.02, generator=torch.Generator(cuda_device).manual_seed(2))
-        attach_lora(model, tree, lcfg)
-        before = _training_counts()
+        attach_lora(model, tree, lcfg, unmerged=unmerged)
+        before = card.launches()
         model.train()
         loss = loss_fn(model, batch, aux, cfg, torch.Generator(cuda_device).manual_seed(3))
         loss.backward()
         torch.cuda.synchronize()
-        launched = {k: v - before[k] for k, v in _training_counts().items() if v != before[k]}
-        assert launched == ({"fused_block_attention": 16, "fused_block_attention_bwd": 16,
-                             "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
-                             "fused_mlp_postnorm": 16, "fused_mlp_postnorm_bwd": 16}
-                            if kernel else {})
-        results.append((loss.item(), {k: t.grad.float() for k, t in
-                                      flatten_trainable(tree).items()}))
-    (loss_k, g_k), (loss_p, g_p) = results
-    assert abs(loss_k - loss_p) / abs(loss_p) < 0.01
+        results.append((card.launched(before), loss.item(),
+                        {k: t.grad.float() for k, t in flatten_trainable(tree).items()}))
+    (launched, loss_k, g_k), (plain, loss_p, g_p) = results
+    assert plain == {}
     d2 = sum(float((g_k[k] - g_p[k]).pow(2).sum()) for k in g_p)
     n2 = sum(float(g.pow(2).sum()) for g in g_p.values())
-    assert (d2 / n2) ** 0.5 < 0.01
+    return launched, abs(loss_k - loss_p) / abs(loss_p), (d2 / n2) ** 0.5
+
+
+def test_merged_lora_kernel_step_matches_the_plain_bf16_step(cuda_device):
+    """The merged form: K2, K3, K5, K6 and K7 16 launches and K4 32; the
+    loss within 1% and the adapters' and heads' gradient within 1% relative
+    L2 of the plain bf16 step (the flagship train step's bounds)."""
+    launched, loss_dev, rel_l2 = _lora_step_against_plain(cuda_device, unmerged=False)
+    assert launched == card.TRAIN_LAUNCHES
+    assert loss_dev < 0.01 and rel_l2 < 0.01
+
+
+def test_unmerged_lora_kernel_step_matches_the_plain_bf16_unmerged_step(cuda_device):
+    """The unmerged form, whose adapter taps leave the attention and MLP
+    kernels for the plain route: only K4 (32) and K5 (16) run; the loss
+    within 1% and the gradient within 1% relative L2 of the plain bf16
+    unmerged step."""
+    launched, loss_dev, rel_l2 = _lora_step_against_plain(cuda_device, unmerged=True)
+    assert launched == {"fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16}
+    assert loss_dev < 0.01 and rel_l2 < 0.01
 
 
 def test_trainer_fit_launches_the_training_kernels(cuda_device, tmp_path):
@@ -755,11 +805,10 @@ def test_trainer_fit_launches_the_training_kernels(cuda_device, tmp_path):
         def add_scalars(self, tag, values, epoch):
             losses.append(values)
 
-    before = _training_counts()
+    before = card.launches()
     best, state = Trainer(cfg, model, aux, str(tmp_path), writer=Writer()).fit(train, val)
     torch.cuda.synchronize()
-    launched = {k: v - before[k] for k, v in _training_counts().items() if v != before[k]}
-    assert launched == {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
+    assert card.launched(before) == {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
                         "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
                         "fused_mlp_postnorm": 16, "fused_mlp_postnorm_bwd": 16,
                         "fused_earth_block": 16}
@@ -1011,14 +1060,774 @@ def test_cuda_local_accum_over_batches_with_the_same_bits(cuda_device):
     assert bw.LAUNCHES == before + 2  # the checked call and the second run
 
 
+# ---- the build and the flagship stage shapes --------------------------------------------------
+
+
+def test_every_kernel_source_builds(cuda_device):
+    """Every CUDA source of ``ops._build.SOURCES`` compiles with nvcc (one
+    process a source, all at once) and loads as a library of its own."""
+    from pangu_tpu_torch.ops import _build
+
+    _build.build_all()
+    assert set(_build.SOURCES) <= set(_build._LIBS)
+    paths = {_build._lib_path(s) for s in _build.SOURCES}
+    assert len(paths) == len(_build.SOURCES) and all(os.path.isfile(p) for p in paths)
+
+
+def _flagship_stages() -> dict:
+    """The flagship model's two stages: name -> (StageGeometry, C, heads)."""
+    from pangu_tpu_torch import pangu_pretrain
+    from pangu_tpu_torch.geometry import compute_geometry
+
+    g = compute_geometry(pangu_pretrain(24).model)
+    return {"outer": (g.outer, 192, 6), "inner": (g.inner, 384, 12)}
+
+
+def _block_inputs(stage, c: int, heads: int, shifted: bool, dev, seed: int, gy_seed: int = 0):
+    """Seeded bf16 block inputs at one stage's full shape: unit-scale x,
+    fan-in-scaled (out, in) weights, a unit earth bias (softmax far from
+    uniform) and, shifted, the stage's shift mask; and a unit-normal
+    output gradient from ``gy_seed``."""
+    from pangu_tpu_torch.model.attention import shift_attention_mask
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, std=1.0, mean=0.0, dtype=bf):
+        return (mean + std * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    mask = torch.from_numpy(shift_attention_mask(stage)).to(dev) if shifted else None
+    args = (rn(1, stage.z, stage.h_pad, stage.w, c),
+            rn(3 * c, c, std=c ** -0.5), rn(3 * c, std=0.02),
+            rn(c, c, std=c ** -0.5), rn(c, std=0.02),
+            rn(stage.n_type_windows, heads, T, T, dtype=f32), mask,
+            rn(c, mean=1.0, std=0.1, dtype=f32), rn(c, std=0.1, dtype=f32),
+            rn(4 * c, c, std=c ** -0.5), rn(4 * c, std=0.02),
+            rn(c, 4 * c, std=(4 * c) ** -0.5), rn(c, std=0.02),
+            rn(c, mean=1.0, std=0.1, dtype=f32), rn(c, std=0.1, dtype=f32))
+    gy = torch.randn(args[0].shape, generator=torch.Generator(device=dev).manual_seed(gy_seed),
+                     device=dev).to(bf)
+    return args, (stage.window, heads, (c // heads) ** -0.5), gy
+
+
+def _held(label: str, got, ref) -> None:
+    """Every output of ``got`` within the kernel bounds of its ``ref``:
+    max|d| / max(1, max|ref|) < 0.04 and RMS(d) / RMS(ref) < 0.01."""
+    from pangu_tpu_torch.scripts.ab_common import compare
+
+    for i, (a, b) in enumerate(zip(got, ref, strict=True)):
+        c = compare(a, b)
+        assert c["ok"], (label, i, c)
+
+
+def _twice(fn) -> tuple:
+    """``fn()``'s outputs, as a tuple, after checking that a second call
+    gives the same bits."""
+    first, second = ((t,) if torch.is_tensor(t) else tuple(t) for t in (fn(), fn()))
+    assert all(torch.equal(a, b) for a, b in zip(first, second, strict=True))
+    return first
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("stage_name", ["outer", "inner"])
+def test_block_kernels_at_the_flagship_stage_shapes(cuda_device, stage_name, shifted):
+    """The block kernels at each flagship stage's full shape (1 x 8 x 186 x
+    360 x 192 in 6 heads, 1 x 8 x 96 x 180 x 384 in 12), unshifted and
+    shifted with the stage's shift mask, from fan-in-scaled weights and a
+    unit earth bias, against their plain versions under the kernel bounds
+    (``_held``, every gradient too): K1 as the forecast step calls it, the
+    block's shift and real lat rows folded into its gather, junk and NaN in
+    the pad rows (the real rows compared); K2 and its flash backward K3;
+    K11 at branch scales 1.25 and 0.8 and its backward K12, and K11 at unit
+    scales against K1; K2's LN-epilogue mode; the two-kernel inference
+    block (``EarthAttention3D(..., epilogue=)`` then ``Mlp(..., fused=True)``)
+    against K1, one launch of each of its kernels. K1, K2, K3 and K12 give
+    the same bits on a second call. Each group draws its inputs from the
+    seeds the retired smoke script's phases used (K1 0-3, K2/K3 10-13 and
+    20-23, K11/K12 60-63 and 70-73, K2 LN 80-83): a per-sample scale's
+    gradient of K12 is one sum over the stage's tokens that cancels far
+    below the rounding noise of its summands, so its RMS bound, which for a
+    scalar is its max bound, holds on these draws and not on every draw
+    (PERF.md section 7)."""
+    from pangu_tpu_torch.model.attention import EarthAttention3D
+    from pangu_tpu_torch.model.blocks import Mlp
+    from pangu_tpu_torch.ops import fused_block_train as tfbt
+
+    stage, c, heads = _flagship_stages()[stage_name]
+    i = 2 * (stage_name == "inner") + shifted
+
+    def inputs(seed, gy_seed=0):
+        return _block_inputs(stage, c, heads, shifted, cuda_device, seed, gy_seed)
+
+    h, shift = stage.h, [w // 2 if shifted else 0 for w in stage.window]
+    s1, s2 = torch.full((1,), 1.25, device=cuda_device), torch.full((1,), 0.8, device=cuda_device)
+    one = torch.ones(1, device=cuda_device)
+    with torch.no_grad():
+        args, statics, _ = inputs(i)
+        junk = args[0].clone()
+        junk[:, :, h:] = 3e4
+        junk[:, :, -1] = float("nan")
+        got = _twice(lambda: tfba.fused_earth_block(junk, *args[1:], *statics, shift=shift,
+                                                    h=h)[:, :, :h])
+        _held("K1", got, [tfba.fused_earth_block_folded_reference(
+            junk, *args[1:], *statics, shift, h)[:, :, :h]])
+        del got, junk
+        args, statics, gy = inputs(10 + i, 20 + i)
+        _held("K2", _twice(lambda: tfba.fused_block_attention(*args[:7], None, None, *statics)),
+              [tfba.fused_block_attention_reference(*args[:7], *statics)])
+        bargs = (args[0], *args[1:4], *args[5:7], gy, *statics)
+        _held("K3", _twice(lambda: tfba.fused_block_attention_bwd(*bargs)),
+              tfba.fused_block_attention_bwd_reference(*bargs))
+        args, statics, gy = inputs(60 + i, 70 + i)
+        _held("K11", [tfbt.fused_earth_block_train(*args, s1, s2, *statics)],
+              [tfbt.fused_earth_block_train_reference(*args, s1, s2, *statics)])
+        _held("K11 at unit scales", [tfbt.fused_earth_block_train(*args, one, one, *statics)],
+              [tfba.fused_earth_block(*args, *statics)])
+        bargs = (*args, s1, s2, gy, *statics)
+        _held("K12", _twice(lambda: tfbt.fused_earth_block_train_bwd(*bargs)),
+              tfbt.fused_earth_block_train_bwd_reference(*bargs))
+        args, statics, _ = inputs(80 + i)
+        x, mask = args[0], args[6]
+        _held("K2 LN", [tfba.fused_block_attention(*args[:9], *statics)],
+              [tfba.fused_block_attention_reference(*args[:7], *statics, args[7], args[8])])
+        attn = EarthAttention3D(c, heads, stage, use_kernel=True).to(cuda_device).eval()
+        mlp = Mlp(c).to(cuda_device).eval()
+        for p, a in ((attn.linear1.weight, args[1]), (attn.linear1.bias, args[2]),
+                     (attn.linear2.weight, args[3]), (attn.linear2.bias, args[4]),
+                     (attn.earth_specific_bias, args[5][None]), (mlp.linear1.weight, args[9]),
+                     (mlp.linear1.bias, args[10]), (mlp.linear2.weight, args[11]),
+                     (mlp.linear2.bias, args[12])):
+            p.copy_(a.float())
+        before = card.launches()
+        two = mlp(attn(x, mask, epilogue=(args[7], args[8])), ln=(args[13], args[14]), fused=True)
+        torch.cuda.synchronize()
+        assert card.launched(before) == {"fused_block_attention_ln": 1, "fused_mlp_block": 1}
+        _held("two-kernel block", [two], [tfba.fused_earth_block(*args, *statics)])
+
+
+@pytest.mark.parametrize("stage_name", ["outer", "inner"])
+def test_row_kernels_at_the_flagship_stage_rows(cuda_device, stage_name):
+    """The row kernels at each flagship stage's row count (535,680 at C 192,
+    138,240 at C 384) with one sample's drop-path keep scale, 1.25, against
+    their plain versions under the kernel bounds, every gradient too: the
+    post-norm residual K4 and its backward K5, the MLP tail K6 and K7, the
+    raw MLP K8 and K9, and the inference MLP tail K10; K6, K7 and K8 give
+    the same bits on a second call."""
+    from pangu_tpu_torch.ops import fused_epilogue as tfep
+    from pangu_tpu_torch.ops import fused_mlp as tfm
+
+    stage, c, _ = _flagship_stages()[stage_name]
+    rows = stage.z * stage.h_pad * stage.w
+    gen = torch.Generator(device=cuda_device).manual_seed(30)
+
+    def rn(*shape, dtype=torch.bfloat16, mean=0.0, std=1.0):
+        return (mean + std * torch.randn(shape, generator=gen, device=cuda_device)).to(dtype)
+
+    shortcut, x, gy = rn(rows, c), rn(rows, c), rn(rows, c)
+    ln = (rn(c, dtype=torch.float32, mean=1.0, std=0.1), rn(c, dtype=torch.float32, std=0.1))
+    w = (rn(4 * c, c, std=c ** -0.5), rn(4 * c, std=0.02), rn(c, 4 * c, std=(4 * c) ** -0.5),
+         rn(c, std=0.02))
+    s = torch.full((rows,), 1.25, device=cuda_device)
+    with torch.no_grad():
+        _held("K4", [tfep.fused_residual_postnorm(shortcut, x, *ln, s[:, None])],
+              [tfep.fused_residual_postnorm_reference(shortcut, x, *ln, s)])
+        _held("K5", tfep.fused_residual_postnorm_bwd(x, gy, *ln, s),
+              tfep.fused_residual_postnorm_bwd_reference(x, gy, *ln, s))
+        _held("K6", _twice(lambda: tfm.fused_mlp_postnorm(x, *w, *ln, s[:, None])),
+              [tfm.fused_mlp_postnorm_reference(x, *w, *ln, s)])
+        _held("K7", _twice(lambda: tfm.fused_mlp_postnorm_bwd(x, gy, *w, *ln, s)),
+              tfm.fused_mlp_postnorm_bwd_reference(x, gy, *w, *ln, s))
+        _held("K8", _twice(lambda: tfm.fused_mlp(x, *w)), [tfm.fused_mlp_reference(x, *w)])
+        _held("K9", tfm.fused_mlp_bwd(x, gy, *w), tfm.fused_mlp_bwd_reference(x, gy, *w))
+        _held("K10", [tfm.fused_mlp_block(x, *w, *ln)],
+              [tfm.fused_mlp_block_reference(x, *w, *ln)])
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("stage_name", ["outer", "inner"])
+def test_block_kernels_on_the_slabs_of_the_flagship_plane(cuda_device, stage_name, shifted):
+    """K1, K2, K3, K11 and K12 (``torch_card.block_calls``) on each slab of
+    the flagship lat=2 x lon=2 plane (``spatial.slab_of``: whole windows,
+    the earth bias and the shift mask cut by ``Slab.cut_types``) against
+    the same windows of the whole-grid launch: the forward outputs and dx
+    the same bits, or else within the kernel bounds; the weight and bias
+    gradients summed over the four slabs, and the earth bias's placed at
+    each slab's window types and summed, within the kernel bounds of the
+    whole grid's."""
+    from pangu_tpu_torch.parallel.mesh import Mesh
+    from pangu_tpu_torch.parallel.spatial import slab_of
+    from pangu_tpu_torch.scripts.ab_common import compare
+
+    stage, c, heads = _flagship_stages()[stage_name]
+    i = 2 * (stage_name == "inner") + shifted
+    args, statics, gy = _block_inputs(stage, c, heads, shifted, cuda_device, 90 + i, 95 + i)
+    slabs = [slab_of(stage, Mesh(None, 1, r, 2, 2)) for r in range(4)]
+    with torch.no_grad():
+        for route in ("attention", "block"):
+            whole = card.block_calls(route, args, statics, gy)
+            sums = {k: [None] * len(grads) for k, (_, grads, _) in whole.items()}
+            for slab in slabs:
+                (r0, r1), (c0, c1) = slab.rows, slab.cols
+                for k, (outs, grads, names) in card.block_calls(route, args, statics, gy,
+                                                                slab).items():
+                    for got, want in zip([*outs, *grads[:1]], [*whole[k][0], *whole[k][1][:1]]):
+                        want = want[:, :, r0:r1, c0:c1]
+                        assert torch.equal(got, want) or compare(got, want)["ok"], (k, slab.rows,
+                                                                                   slab.cols)
+                    for i in range(1, len(grads)):
+                        t = grads[i].float()
+                        if names[i] == "dbias":
+                            t = card.place_types(t, slab, whole[k][1][i])
+                        sums[k][i] = t if sums[k][i] is None else sums[k][i] + t
+            for k, (_, grads, _) in whole.items():
+                _held(f"{k} summed over the slabs", sums[k][1:], grads[1:])
+            del whole, sums
+
+
+# ---- the flagship steps on one card -----------------------------------------------------------
+
+
+def _within_step_bounds(got, ref, aux) -> bool:
+    """Two forecast steps' (upper, surface) outputs within max|d| < 0.1 and
+    RMS(d) < 0.01 of each other in normalized units."""
+    d = [((a - b) / std).float() for a, b, std in zip(got, ref, (aux.upper_std,
+                                                                 aux.surface_std))]
+    rms = ((d[0].pow(2).sum() + d[1].pow(2).sum()) / (d[0].numel() + d[1].numel())).sqrt()
+    return max(t.abs().max().item() for t in d) < 0.1 and rms.item() < 0.01
+
+
+def test_flagship_forecast_steps_launch_k1_per_block_within_the_plain_steps_bounds(cuda_device):
+    """Three autoregressive flagship bf16 forecast steps from seeded
+    weights, aux constants and fields: 16 K1 launches a step, the last
+    step's outputs (1, 5, 13, 721, 1440) and (1, 4, 721, 1440) and finite;
+    the first step against the plain bf16 composition and against the f32
+    step on the same weights and inputs, neither of which launches K1:
+    max|d| < 0.1 and RMS(d) < 0.01 in normalized units."""
+    cfg, model, aux = _flagship(cuda_device)
+    m = cfg.model
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    upper = aux.upper_mean + aux.upper_std * torch.randn(
+        (1, m.upper_vars, m.levels, m.lat, m.lon), generator=gen, device=cuda_device)
+    surface = aux.surface_mean + aux.surface_std * torch.randn(
+        (1, m.surface_vars, m.lat, m.lon), generator=gen, device=cuda_device)
+    step = make_forecast_step(model, aux)
+    before = tfba.LAUNCHES
+    first = last = step(upper, surface)
+    for _ in range(2):
+        last = step(*last)
+    torch.cuda.synchronize()
+    assert tfba.LAUNCHES - before == 3 * sum(m.depths) == 48
+    for out, shape in zip(last, ((1, 5, 13, 721, 1440), (1, 4, 721, 1440))):
+        assert tuple(out.shape) == shape and bool(torch.isfinite(out).all())
+    for kw in (dict(use_pallas_attention=False),
+               dict(compute_dtype="float32", use_pallas_attention=False)):
+        with cuda_device:
+            other = PanguModel(dataclasses.replace(m, **kw)).to(cuda_device)
+        other.load_state_dict(model.state_dict())
+        before = tfba.LAUNCHES
+        ref = make_forecast_step(other, aux)(upper, surface)
+        assert tfba.LAUNCHES == before
+        assert _within_step_bounds(first, ref, aux), kw
+        del other, ref
+
+
+#: the kernel route's overrides and the synthetic store's scored range (3 samples at 24 h)
+KERNEL_ROUTE = ["--set", "model.compute_dtype=bfloat16",
+                "--set", "model.use_pallas_attention=true"]
+SCORE_DATES = dict(store="synthetic", test_start="20240101", test_end="20240105", test_freq="24h")
+SCORE_TARGETS = ["2024010200", "2024010300", "2024010400"]
+
+
+def _sets(data: dict) -> list:
+    return [f"--set=data.{k}={v}" for k, v in data.items()]
+
+
+def _score_tables(csv_dir: str, rows: list) -> dict:
+    """The 8 rmse_* and 6 acc_* tables of ``csv_dir`` (and nothing else
+    there), each with the rows ``rows``, the ERA5 level or surface-variable
+    columns and finite values."""
+    from pangu_tpu_torch.config import ERA5_SURFACE_VARIABLES, ERA5_UPPER_LEVELS
+    from pangu_tpu_torch.eval.csv_io import load_error_scores
+    from pangu_tpu_torch.eval.evaluate import ACC_FAMILIES, RMSE_FAMILIES
+
+    tables = {}
+    for error, families in (("rmse", RMSE_FAMILIES), ("acc", ACC_FAMILIES)):
+        for f in families:
+            index, columns, values = load_error_scores(csv_dir, error, f)
+            want = (list(ERA5_SURFACE_VARIABLES) if f == "surface" else
+                    ["wind_speed"] if f == "surface_wind_speed" else list(ERA5_UPPER_LEVELS))
+            assert (index, columns) == (rows, want) and np.isfinite(values).all(), (error, f)
+            tables[f"{error}_{f}"] = values
+    assert sorted(os.listdir(csv_dir)) == sorted(f"{k}.csv" for k in tables)
+    return tables
+
+
+def test_flagship_test_and_rollout_scripts_score_on_the_kernel_route(cuda_device, tmp_path):
+    """The ``test`` script over the synthetic store's 3 samples at 24 h and
+    the ``rollout`` script's ``--mode multi --lead-days 2`` over the same
+    range (3 inits of 2 steps), flagship bf16 on the kernel route from the
+    config's seeded weights: 16 K1 launches a forecast step and no other
+    kernel; every CSV of both held by ``_score_tables``; the test script's
+    values those of the score step on the same weights and samples; on the
+    first sample the kernel route against the plain bf16 route: per channel
+    |RMSE_kernel - RMSE_plain| <= RMSE(pred_kernel, pred_plain) x (1 + 1e-4)
+    (the weighted RMSE is a norm) and |dACC| <= 0.02."""
+    import argparse
+    from datetime import datetime, timedelta
+
+    from pangu_tpu_torch.aux import load_aux_constants
+    from pangu_tpu_torch.cli import base_parser, build_config, load_model_and_params
+    from pangu_tpu_torch.data import make_loader
+    from pangu_tpu_torch.eval.evaluate import (ACC_FAMILIES, RMSE_FAMILIES, make_field_scorer,
+                                               make_score_step, to_device)
+    from pangu_tpu_torch.scripts import rollout as rollout_script
+    from pangu_tpu_torch.scripts import test as test_script
+    from pangu_tpu_torch.train import Batch
+
+    argv = ["--out", str(tmp_path), *KERNEL_ROUTE, *_sets(SCORE_DATES)]
+    cfg = build_config(base_parser("").parse_args(argv))
+    before = card.launches()
+    test_script.main(argv, device=cuda_device)
+    assert card.launched(before) == {"fused_earth_block": 16 * 3}
+    tables = _score_tables(str(tmp_path / "test" / "24" / "csv"), SCORE_TARGETS)
+    before = card.launches()
+    out = rollout_script.main([*argv, "--mode", "multi", "--lead-days", "2"], device=cuda_device)
+    assert card.launched(before) == {"fused_earth_block": 16 * 6}
+    inits = ["2024010100", "2024010200", "2024010300"]
+    assert sorted(d for d in os.listdir(out) if os.path.isdir(os.path.join(out, d))) == inits
+    for init in inits:
+        t = datetime.strptime(init, "%Y%m%d%H")
+        _score_tables(os.path.join(out, init, "csv"),
+                      [(t + timedelta(days=d + 1)).strftime("%Y%m%d%H") for d in range(2)])
+
+    aux = load_aux_constants(cfg.model, cfg.train, None, cfg.horizon, device=cuda_device)
+    model = load_model_and_params(cfg, argparse.Namespace(weights=None), aux, device=cuda_device)
+    step = make_score_step(model, cfg, return_fields=True)
+    first = None
+    for host, periods in make_loader(cfg.data, cfg.model, "test", cfg.horizon, 1):
+        batch = Batch(*(to_device(x, cuda_device) for x in host))
+        scores = {k: v.cpu().numpy() for k, v in step(batch, aux).items()
+                  if not k.startswith("output")}
+        for k, table in tables.items():
+            np.testing.assert_array_equal(table[SCORE_TARGETS.index(periods[0][1])],
+                                          scores[k][0].astype(np.float32), err_msg=k)
+        first = first or (batch, scores)
+    batch, kernel = first
+    kout = step(batch, aux)
+    with cuda_device:
+        plain = PanguModel(dataclasses.replace(cfg.model, use_pallas_attention=False)).to(
+            cuda_device)
+    plain.load_state_dict(model.state_dict())
+    pout = make_score_step(plain, cfg, return_fields=True)(batch, aux)
+    between = make_field_scorer(cfg)(kout["output_upper"], kout["output_surface"],
+                                     pout["output_upper"], pout["output_surface"], aux)
+    for f in RMSE_FAMILIES:
+        gap = np.abs(kernel[f"rmse_{f}"][0].astype(np.float64)
+                     - pout[f"rmse_{f}"][0].cpu().numpy().astype(np.float64))
+        norm = between[f"rmse_{f}"][0].cpu().numpy().astype(np.float64)
+        assert (gap <= norm * (1 + 1e-4)).all(), f
+    for f in ACC_FAMILIES:
+        assert np.abs(kernel[f"acc_{f}"][0] - pout[f"acc_{f}"][0].cpu().numpy()).max() <= 0.02, f
+
+
+#: the synthetic store's train (2 samples at 24 h) and validation (1 sample) ranges
+FINETUNE_DATES = dict(store="synthetic", train_start="20240101", train_end="20240104",
+                      train_freq="24h", val_start="20240105", val_end="20240107",
+                      val_freq="24h")
+
+
+class _Scalars:
+    """A writer for the Trainer: its scalars by epoch."""
+
+    def __init__(self):
+        self.by_epoch = {}
+
+    def add_scalars(self, tag, values, epoch):
+        self.by_epoch[epoch] = dict(values)
+
+
+def test_flagship_trainer_resume_gives_the_uninterrupted_bits(cuda_device, tmp_path):
+    """``Trainer.fit`` at flagship widths on the kernel route, batch 1: 2
+    epochs of 2 steps over the synthetic store, a train-state checkpoint
+    each epoch and one validation pass at epoch 2: the default route's
+    launches a step, 16 K1 launches for the validation forward and no other
+    kernel, finite losses, ``best`` the final parameters; then
+    ``Trainer.resume`` from ``train_1`` and epoch 2 again: the same losses
+    and the same parameter bits."""
+    from pangu_tpu_torch.config import DataConfig
+    from pangu_tpu_torch.data import make_loader
+    from pangu_tpu_torch.train.trainer import Trainer
+
+    cfg, model, aux = _flagship(cuda_device)
+    cfg = cfg.replace(data=DataConfig(**FINETUNE_DATES), train=dataclasses.replace(
+        cfg.train, epochs=2, batch_size=1, save_interval=1, val_interval=2))
+    train = make_loader(cfg.data, cfg.model, "train", cfg.horizon, 1)
+    val = make_loader(cfg.data, cfg.model, "val", cfg.horizon, 1)
+    assert (len(train), len(val)) == (2, 1)
+    writer = _Scalars()
+    before = card.launches()
+    best, state = Trainer(cfg, model, aux, str(tmp_path), writer=writer,
+                          steps_per_epoch=2).fit(train, val)
+    torch.cuda.synchronize()
+    assert card.launched(before) == {**{k: 4 * v for k, v in card.TRAIN_LAUNCHES.items()},
+                                     "fused_earth_block": 16}
+    assert state.step == 4 and all(map(math.isfinite, writer.by_epoch[2].values()))
+    assert sorted(os.listdir(tmp_path / "models")) == ["best", "train_1", "train_2"]
+    named = dict(model.named_parameters())
+    assert all(torch.equal(best[k], named[k]) for k in best)
+    final = {k: p.detach().clone() for k, p in named.items()}
+    again = _Scalars()
+    no_saves = cfg.replace(train=dataclasses.replace(cfg.train, save_interval=3))
+    trainer = Trainer(no_saves, model, aux, str(tmp_path), writer=again, steps_per_epoch=2)
+    state, start = trainer.resume(epoch=1)
+    trainer.fit(train, val, start_epoch=start, state=state)
+    assert start == 2 and again.by_epoch[2] == writer.by_epoch[2]
+    assert not [k for k, p in model.named_parameters() if not torch.equal(p, final[k])]
+
+
+#: the process that serves an exported step: it imports the serving module and the
+#: profiling tools, never the model; argv: artifact, input fields, output path, trace
+#: directory. Prints one JSON line.
+SERVE = r"""
+import json, sys
+import torch
+from pangu_tpu_torch import serving
+from pangu_tpu_torch.ops import fused_block_attention as fba
+from pangu_tpu_torch.utils import profiling
+
+path, inputs, outputs, trace_dir = sys.argv[1:]
+step = serving.load_forecast_step(path)
+fields = torch.load(inputs)
+u, s = fields["upper"].cuda(), fields["surface"].cuda()
+launches = []
+for i in range(3):
+    before = fba.LAUNCHES
+    u, s = step(u, s)
+    torch.cuda.synchronize()
+    launches.append(fba.LAUNCHES - before)
+    if i == 0:
+        torch.save({"upper": u.cpu(), "surface": s.cpu()}, outputs)
+with profiling.trace(trace_dir):
+    step(u, s)
+    torch.cuda.synchronize()
+program = step.program
+print(json.dumps(dict(
+    launches=launches, busy=profiling.trace_device_busy_split(trace_dir),
+    graph_ops=dict(serving.graph_ops(program)),
+    devices=sorted({str(t.device) for t in (*program.state_dict.values(),
+                                            *program.constants.values())}),
+    finite=bool(torch.isfinite(u).all() and torch.isfinite(s).all()),
+    model_modules=sorted(m for m in sys.modules if m.startswith("pangu_tpu_torch.model")))))
+"""
+
+
+def test_exported_flagship_step_serves_in_a_fresh_process_with_the_eager_bits(cuda_device,
+                                                                             tmp_path):
+    """The flagship bf16 step exported to a ``.pt2`` holds 16 calls of K1's
+    operator and no other op outside aten. A fresh process that imports
+    ``pangu_tpu_torch.serving`` and no module of ``pangu_tpu_torch.model``
+    loads it and runs 3 autoregressive steps: 16 K1 launches each, the
+    loaded graph's 16 calls, every tensor of the artifact on the card,
+    finite fields, a traced step with device time (``profiling.trace``); its
+    first step has the bits of the eager step, which launches K1 16 times."""
+    from pangu_tpu_torch import serving
+
+    cfg, model, aux = _flagship(cuda_device)
+    m = cfg.model
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    upper = aux.upper_mean + aux.upper_std * torch.randn(
+        (1, m.upper_vars, m.levels, m.lat, m.lon), generator=gen, device=cuda_device)
+    surface = aux.surface_mean + aux.surface_std * torch.randn(
+        (1, m.surface_vars, m.lat, m.lon), generator=gen, device=cuda_device)
+    path = str(tmp_path / "pangu24.pt2")
+    ops = serving.graph_ops(serving.export_forecast_step(model, aux, path))
+    assert ops[serving.K1_OP] == 16
+    assert not [k for k in ops if k != serving.K1_OP and not k.startswith("aten::")]
+    before = card.launches()
+    eager = make_forecast_step(model, aux)(upper, surface)
+    torch.cuda.synchronize()
+    assert card.launched(before) == {"fused_earth_block": 16}
+    torch.save({"upper": upper.cpu(), "surface": surface.cpu()}, tmp_path / "inputs.pt")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE, path, str(tmp_path / "inputs.pt"),
+         str(tmp_path / "served.pt"), str(tmp_path / "trace")], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert served["model_modules"] == [] and served["launches"] == [16, 16, 16]
+    assert served["graph_ops"][serving.K1_OP] == 16 and served["devices"] == ["cuda:0"]
+    assert served["finite"] and served["busy"] and served["busy"]["modules_ms"] > 0
+    got = torch.load(tmp_path / "served.pt")
+    assert torch.equal(got["upper"].to(cuda_device), eager[0])
+    assert torch.equal(got["surface"].to(cuda_device), eager[1])
+
+
+def _batch_reads(fn):
+    from pangu_tpu_torch.data import dataset as tds
+
+    before = dict(tds.BATCH_READS)
+    out = fn()
+    return out, {k: tds.BATCH_READS[k] - before[k] for k in before}
+
+
+def _fit_epoch(cuda_device, data: dict, out: str) -> tuple:
+    """One ``Trainer.fit`` epoch (2 steps) at flagship widths on the kernel
+    route from seeded weights over the train range of ``data``'s store:
+    (each step's loss, the launches)."""
+    from pangu_tpu_torch.config import DataConfig
+    from pangu_tpu_torch.data import make_loader
+    from pangu_tpu_torch.train.trainer import Trainer
+
+    cfg, model, aux = _flagship(cuda_device)
+    cfg = cfg.replace(data=DataConfig(**{**FINETUNE_DATES, **data}), train=dataclasses.replace(
+        cfg.train, epochs=1, batch_size=1))
+    train = make_loader(cfg.data, cfg.model, "train", cfg.horizon, 1)
+    trainer = Trainer(cfg, model, aux, out, steps_per_epoch=len(train))
+    losses, step = [], trainer.train_step
+
+    def recorded(batch, aux, gen):
+        loss = step(batch, aux, gen)
+        losses.append(loss.item())
+        return loss
+
+    trainer.train_step = recorded
+    before = card.launches()
+    trainer.fit(train)
+    return losses, card.launched(before)
+
+
+def test_flagship_npy_store_feeds_the_scripts_the_synthetic_stores_bits(cuda_device, tmp_path):
+    """The native batch reader builds. The synthetic store's 2024-01-01..07
+    at 24 h (7 flagship frames, about 2.0 GB) written through
+    ``convert_range`` into an npy store: ``load_batch`` there gives the
+    synthetic store's arrays bit for bit; the ``test`` script over it on the
+    kernel route launches K1 16 times a step and writes the CSVs that it
+    writes over the synthetic store, byte for byte; one ``Trainer.fit``
+    epoch over it (2 steps) launches the default route's kernels a step and
+    gives the synthetic store's losses to the bit; the native reader, never
+    the per-sample path, assembles every batch (``BATCH_READS``); the
+    ``stats`` script reads the store."""
+    from pangu_tpu_torch.data import native_loader
+    from pangu_tpu_torch.data.convert import convert_range
+    from pangu_tpu_torch.data.dataset import Era5Dataset, NpyStore, SyntheticStore
+    from pangu_tpu_torch.scripts import stats as stats_script
+    from pangu_tpu_torch.scripts import test as test_script
+
+    assert native_loader.native_available()
+    cfg = card.flagship()
+    root, days = str(tmp_path / "npy"), ("20240101", "20240107", "24h")
+    synthetic = SyntheticStore(cfg.model, cfg.data.seed)
+    assert convert_range(synthetic, root, *days, log=None) == 7
+    ds = Era5Dataset(NpyStore(root), *days, cfg.horizon)
+    (got, periods), reads = _batch_reads(lambda: ds.load_batch([len(ds) - 1, 0]))
+    ref, ref_periods = Era5Dataset(synthetic, *days, cfg.horizon).load_batch([len(ds) - 1, 0])
+    assert reads == {"native": 1, "per_sample": 0} and periods == ref_periods
+    assert all(np.array_equal(a, b) for a, b in zip(got, ref))
+    del got, ref
+    npy = dict(store="npy", root=root)
+    csvs = {}
+    for name, data in (("synthetic", {}), ("npy", npy)):
+        out = tmp_path / name
+        before = card.launches()
+        _, reads = _batch_reads(lambda: test_script.main(
+            ["--out", str(out), *KERNEL_ROUTE, *_sets({**SCORE_DATES, **data})],
+            device=cuda_device))
+        assert card.launched(before) == {"fused_earth_block": 16 * 3}
+        csvs[name] = {f: (out / "test" / "24" / "csv" / f).read_bytes()
+                      for f in os.listdir(out / "test" / "24" / "csv")}
+    assert reads == {"native": -(-3 // cfg.eval.batch_size), "per_sample": 0}
+    assert len(csvs["npy"]) == 14 and csvs["npy"] == csvs["synthetic"]
+    (losses, launched), reads = _batch_reads(
+        lambda: _fit_epoch(cuda_device, npy, str(tmp_path / "fit_npy")))
+    assert reads == {"native": 2, "per_sample": 0}
+    assert launched == {k: 2 * v for k, v in card.TRAIN_LAUNCHES.items()}
+    assert len(losses) == 2 and losses == _fit_epoch(cuda_device, {},
+                                                     str(tmp_path / "fit_synthetic"))[0]
+    report = stats_script.main([*_sets({**SCORE_DATES, **npy}), "--out",
+                                str(tmp_path / "stats"), "--limit", "2"])
+    with open(report) as f:
+        assert "2 samples" in f.readline()
+
+
+def test_pipeline_stages_on_one_card_match_the_one_process_model(cuda_device):
+    """The default 4-way split's stages (``parallel.pipeline``) at flagship
+    widths on one card, drop path off, fed one another's outputs in the
+    transport dtype by ``stage_forward`` / ``stage_backward`` in GPipe order
+    over 2 microbatches of one sample: each sample's eval forward within
+    max|d| < 0.1 and RMS < 0.01 (normalized) of the one-process forecast
+    step, K1 launched once a block of each stage a sample; the train step's
+    loss and gradients within ``torch_card.TRAIN_BOUNDS`` of the
+    one-process step with ``accumulation_steps`` = 2, each stage launching
+    the default route's kernels for its blocks, each microbatch."""
+    from pangu_tpu_torch import dtype_of
+    from pangu_tpu_torch.aux import norm_back_data
+    from pangu_tpu_torch.parallel import pipeline
+    from pangu_tpu_torch.train import Batch
+    from pangu_tpu_torch.train.step import output_loss
+
+    micro = 2
+    cfg, model, aux = _flagship(cuda_device, drop_path_max=0.0)
+    m = cfg.model
+    transport = dtype_of(m.compute_dtype)
+    batch = card.seeded_batch(aux, m, cuda_device, rows=micro)
+    stages = []
+    for ops, part in zip(pipeline.DEFAULT_STAGES, pipeline.split_stage_params(
+            model.state_dict(), pipeline.DEFAULT_STAGES)):
+        with cuda_device:
+            stages.append(pipeline.PanguStage(m, ops).to(cuda_device))
+        stages[-1].load_state_dict(part)
+    blocks = [sum(len(st.get_submodule(pipeline.MODULE_NAMES[op]).blocks)
+                  for op in st.ops if op.startswith("layer")) for st in stages]
+    rows = [slice(i, i + 1) for i in range(micro)]
+
+    def counted(i, fn):
+        before = card.launches()
+        out = fn()
+        for k, v in card.launched(before).items():
+            launches[i][k] = launches[i].get(k, 0) + v
+        return out
+
+    launches = [{} for _ in stages]
+    forecast = make_forecast_step(model, aux)
+    for r in rows:
+        ref = forecast(batch.upper[r], batch.surface[r])
+        payload = (batch.upper[r], batch.surface[r])
+        with torch.no_grad():
+            for i, stage in enumerate(stages):
+                run = counted(i, lambda: pipeline.stage_forward(stage.eval(), payload, aux,
+                                                                grad=False))
+                payload = run.outputs if i == len(stages) - 1 else tuple(
+                    o.to(transport) for o in run.outputs)
+        assert _within_step_bounds(norm_back_data(*payload, aux), ref, aux)
+    assert launches == [{"fused_earth_block": n * micro} if n else {} for n in blocks]
+
+    acc_cfg = cfg.replace(train=dataclasses.replace(cfg.train, accumulation_steps=micro))
+    model.train()
+    ref_loss = make_train_step(model, acc_cfg, make_optimizer(model, acc_cfg))(
+        Batch(*(t.reshape(micro, 1, *t.shape[1:]) for t in batch)), aux).item()
+    ref_grads = {k: p.grad.float() for k, p in model.named_parameters()}
+    del forecast, model
+    launches = [{} for _ in stages]
+    runs = [[None] * micro for _ in stages]
+    loss_sum = 0.0
+    for j, r in enumerate(rows):  # every forward, microbatch by microbatch
+        payload = (batch.upper[r], batch.surface[r])
+        for i, stage in enumerate(stages):
+            run = counted(i, lambda: pipeline.stage_forward(stage.train(), payload, aux))
+            if i == len(stages) - 1:
+                loss = output_loss(*run.outputs, batch.target_upper[r], batch.target_surface[r],
+                                   aux, cfg)
+                run = run._replace(outputs=(loss,))
+                loss_sum += loss.item()
+            else:
+                payload = tuple(o.detach().to(transport) for o in run.outputs)
+            runs[i][j] = run
+    for j in range(micro):  # then every backward, in the same microbatch order
+        grads = None
+        for i in reversed(range(len(stages))):
+            grads = counted(i, lambda: pipeline.stage_backward(runs[i][j], grads))
+            runs[i][j] = None
+    got = {k: p.grad / micro for st in stages for k, p in st.named_parameters()}
+    d = card.train_deviation(loss_sum / micro, got, ref_loss, ref_grads)
+    assert card.within_train_bounds(d), d
+    assert launches == [{k: v // 16 * n * micro for k, v in card.TRAIN_LAUNCHES.items()}
+                        if n else {} for n in blocks]
+
+
+# ---- several cards over NCCL: the rank workers of the CPU tests, on the card ------------------
+
+
+def _ranks(worker: str, world: int, cases: list, tmp_path) -> list:
+    """The results of ``world`` ranks of ``tests/torch_<worker>_worker.py``,
+    one process a card joined over NCCL, given ``cases``; skips on a host
+    with fewer cards."""
+    have = torch.cuda.device_count()
+    if have < world:
+        pytest.skip(f"needs {world} cards, one process a card over NCCL; this host has {have}")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return card.spawn(world, dict(dir=str(tmp_path), cases=cases, device="cuda"),
+                      str(tmp_path / "ranks"),
+                      os.path.join(repo, "tests", f"torch_{worker}_worker.py"), 900)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_zero2_steps_over_nccl_keep_every_rank_on_the_same_bits(cuda_device, tmp_path, world):
+    """``torch_parallel_worker.case_card``, data = world, ZeRO-2, flagship
+    bf16 on the kernel route: every step of every rank launches the default
+    route's kernels; after each step every rank holds the same loss and
+    parameter bits; the step resumed from ``train_1`` has the bits of the
+    uninterrupted step; in a world of one the mesh step has the bits of the
+    one-process step."""
+    ranks = [r["card"] for r in _ranks("parallel", world, ["card"], tmp_path)]
+    runs = [[(x["loss"], x["params"]) for x in r["runs"]] for r in ranks]
+    for r in ranks:
+        assert [x["launches"] for x in r["runs"]] == [card.TRAIN_LAUNCHES] * len(r["runs"])
+        assert r["epoch"] == 1
+    assert all(r[:3] == runs[0][:3] for r in runs)
+    assert runs[0][2] == runs[0][1]
+    if world == 1:
+        assert runs[0][3] == runs[0][0]
+
+
+@pytest.mark.parametrize("world,axes", [(2, dict(lat=2)), (4, dict(lat=2, lon=2))])
+def test_spatial_steps_over_nccl_match_the_one_process_step(cuda_device, tmp_path, world, axes):
+    """``torch_spatial_worker.case_card``, ZeRO-2 on the mesh's plane,
+    flagship bf16 on the kernel route: every one of 3 steps of every rank
+    launches the default route's kernels, every rank holds the same loss
+    and parameter bits after each; the validation value is the same on
+    every rank, with 16 K1 launches a sample; the first step's loss and
+    gradients within ``torch_card.TRAIN_BOUNDS`` of the one-process step."""
+    key = "card:" + ",".join(f"{k}={v}" for k, v in sorted(axes.items()))
+    ranks = [r[key] for r in _ranks("spatial", world, [["card", axes]], tmp_path)]
+    for r in ranks:
+        assert [x["launches"] for x in r["runs"]] == [card.TRAIN_LAUNCHES] * 3
+        assert [(x["loss"], x["params"]) for x in r["runs"]] == [
+            (x["loss"], x["params"]) for x in ranks[0]["runs"]]
+        assert r["val"] == ranks[0]["val"]
+        assert r["val_launches"] == {"fused_earth_block": 16 * ranks[0]["val"][1]}
+    assert card.within_train_bounds(ranks[0]["one_process"]), ranks[0]["one_process"]
+
+
+@pytest.mark.parametrize("world,axes", [(2, dict(pipe=2, micro=2)), (4, dict(pipe=4, micro=4)),
+                                        (4, dict(data=2, pipe=2, micro=2))])
+def test_pipeline_steps_over_nccl_match_the_one_process_accumulation_step(cuda_device, tmp_path,
+                                                                         world, axes):
+    """``torch_pipeline_worker.case_card``, flagship bf16 on the kernel
+    route, drop path off: in each of 3 steps every rank launches what its
+    stage's blocks launch on the default route, each microbatch, and every
+    rank holds the same loss; the first step's loss and gradients within
+    ``torch_card.TRAIN_BOUNDS`` of the one-process step that accumulates the
+    same microbatches."""
+    key = "card:" + ",".join(f"{k}={v}" for k, v in sorted(axes.items()))
+    ranks = [r[key] for r in _ranks("pipeline", world, [["card", dict(axes)]], tmp_path)]
+    for r in ranks:
+        assert [x["launches"] for x in r["runs"]] == [r["want"]] * 3
+        assert [x["loss"] for x in r["runs"]] == [x["loss"] for x in ranks[0]["runs"]]
+    assert card.within_train_bounds(ranks[0]["one_process"]), ranks[0]["one_process"]
+
+
 FUXI_GRID = (90, 180)
 
 
-def _fuxi_attention_inputs(device, b, shifted, seed):
-    """FuXi-Short's attention inputs, seeded (``chip_smoke``'s phase 23)."""
-    from chip_smoke import fuxi_attention_inputs
+def _fuxi_attention_inputs(device, b, shifted, seed, cfg=None):
+    """The attention inputs of a FuXi block at ``cfg``'s widths (FuXi-Short's
+    by default: qkv (B, 90, 180, 3 x 1536)), seeded: unit-normal qkv,
+    temperatures in [1, 100], a position bias of 16 sigmoid less its row
+    maxima (bf16); the model's order, inverse and labels."""
+    from pangu_tpu_torch.model import fuxi
 
-    return fuxi_attention_inputs(device, shifted, seed, b)
+    cfg = cfg or fuxi.fuxi_short()
+    (h, w), heads, t = cfg.tokens, cfg.heads, cfg.window[0] * cfg.window[1]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, h, w, 3 * cfg.dim), generator=gen, device=device).to(torch.bfloat16)
+    temp = torch.exp(torch.rand((heads,), generator=gen, device=device) * math.log(100.0))
+    scale = torch.stack([temp, torch.ones_like(temp)]).view(2, heads, 1)
+    bias = 16 * torch.sigmoid(torch.randn((heads, t, t), generator=gen, device=device))
+    bias = (bias - bias.amax(-1, keepdim=True))[None].to(torch.bfloat16)
+    order = fuxi.window_order(h, w, cfg.window, shifted).to(device)
+    labels = fuxi.shift_labels(h, w, cfg.window).to(device) if shifted else None
+    return qkv, (scale, bias, order.int(), torch.argsort(order), labels)
 
 
 @pytest.mark.parametrize("b,shifted", [(1, False), (1, True), (2, False), (2, True)])
@@ -1049,13 +1858,12 @@ def test_cuda_cosine_window_attention_at_96_places(cuda_device, shifted):
     """Windows of 8 x 12 = 96 places, the most the kernel takes (its twelfth
     tile of keys holds real keys), on a 16 x 24 token grid, C 64 in two
     heads of 32, batch 2: the bound above."""
-    from chip_smoke import fuxi_attention_inputs
     from pangu_tpu_torch.model import fuxi_tiny
     from pangu_tpu_torch.ops import cosine_attention as tca
 
     cfg = fuxi_tiny(lat=129, lon=192, dim=64, heads=2, window=(8, 12))
     assert cfg.tokens == (16, 24)
-    qkv, args = fuxi_attention_inputs(cuda_device, shifted, 5, 2, cfg)
+    qkv, args = _fuxi_attention_inputs(cuda_device, 2, shifted, 5, cfg)
     got = tca.cosine_window_attention(qkv, *args)
     assert _bounded(got, tca.cosine_window_attention_reference(qkv.clone(), *args))
 
@@ -1127,73 +1935,24 @@ def test_cuda_fuxi_step_launches_the_kernel_once_a_block(cuda_device, monkeypatc
     assert torch.isfinite(got).all() and d.item() < 0.01
 
 
-def test_chip_smoke_passes_and_lists_the_twenty_one_kernels(cuda_device):
-    """``python3 chip_smoke.py`` exits 0; the line before the last lists the
-    22 kernels, K1-K12, K2's LN mode, the script kernels and FuXi's cosine
-    window attention, with their launches over the run of their path: the
-    forecast (K1), the 3 timed default train steps (K2-K7), the 3 timed
-    steps of ``unfused_tail`` (K8/K9) and of ``fused_block`` (K11/K12), the
-    two-kernel block at one forecast step's mix (K10, K2 LN), each script's
-    timed run (2 warm-up + 10 or 12 timed calls) and one FuXi-Short step
-    (48 blocks). Phase
-    18's served steps launch K1 16 times each with the eager bits, the
-    flagship bf16 bound is printed, phase 19 prints its ``data:`` line
-    (the npy store's write, read rates and evaluate / finetune splits),
-    phase 20 its ``multi-gpu:`` line for a world of one rank per card, and
-    phase 22 its ``pipeline:`` line (22a's stages within the one-process
-    forward's and step's bounds; 22b's worlds, or None on one card)."""
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=repo, capture_output=True,
-                          text=True, timeout=1200)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    lines = proc.stdout.strip().splitlines()
-    kernels = {k["name"]: k for k in json.loads(lines[-2])["kernels"]}
-    assert {n: k["launches"] for n, k in kernels.items()} == {
-        "fused_earth_block": 48, "fused_block_attention": 48, "fused_block_attention_bwd": 48,
-        "fused_residual_postnorm": 96, "fused_residual_postnorm_bwd": 48,
-        "fused_mlp_postnorm": 48, "fused_mlp_postnorm_bwd": 48,
-        "fused_mlp": 48, "fused_mlp_bwd": 48,
-        "fused_earth_block_train": 48, "fused_earth_block_train_bwd": 48,
-        "fused_mlp_block": 16, "fused_block_attention_ln": 16,
-        "bench_mxu_micro:loop": 12, "bench_mxu_micro:blockdiag": 12,
-        "bench_mxu_micro:qblockdiag": 12, "bench_mxu_micro:loop_int8": 12,
-        "bench_attn_fwd_ab:batched": 14, "bench_attn_fwd_ab:dbl": 14,
-        "bench_attn_fwd_ab:quad": 14, "bench_attn_bwd_ab:local_accum": 14,
-        "cosine_window_attention": 48}
-    assert all(k["route"] == "cuda" and k["ms"] > 0 and k["plain_ms"] > 0
-               and 0 < k["bound_ms"] < k["ms"] and k["bound_by"] in ("bytes", "operations")
-               and "library_ms" in k for k in kernels.values())
-    assert all(kernels[f"bench_mxu_micro:{v}"]["library_ms"] > 0
-               for v in ("loop", "blockdiag", "qblockdiag", "loop_int8"))
-    fuxi_attn = kernels["cosine_window_attention"]
-    assert fuxi_attn["library_ms"] > 0 and 0 < fuxi_attn["bound_ms"] < fuxi_attn["device_ms"]
-    score = [ln for ln in lines if ln.startswith("forecast and score: ")]
-    assert len(score) == 1
-    assert set(json.loads(score[0].split(": ", 1)[1])["eval_per_sample_s"]) == {
-        "load", "h2d", "forecast", "score", "total"}
-    finetune = [ln for ln in lines if ln.startswith("finetune: ")]
-    assert len(finetune) == 1
-    assert set(json.loads(finetune[0].split(": ", 1)[1])["fit_per_step_s"]) == {
-        "load", "h2d", "step", "total"}
-    serving = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("serving: ")]
-    assert len(serving) == 1 and serving[0]["launches_per_step"] == [16, 16, 16]
-    assert serving[0]["same_bits"] and 0 < serving[0]["idle_share"] < 1
-    data = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("data: ")]
-    assert len(data) == 1 and data[0]["write_bytes"] > 2e9
-    assert sorted(data[0]["read_batch_gbps"]) == ["1", "8"]
-    assert set(data[0]["eval_per_sample_s"]) == set(
-        data[0]["synthetic"]["eval_per_sample_s"]) == {"load", "h2d", "forecast", "score", "total"}
-    assert set(data[0]["fit_per_step_s"]) == {"load", "h2d", "step", "total"}
-    bound = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("bf16 bound: ")]
-    assert len(bound) == 1 and bound[0]["geometry"] == "full-721x1440x13" and bound[0]["pallas"]
-    multi = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("multi-gpu: {")]
-    assert len(multi) == 1 and multi[0]["world"] == torch.cuda.device_count()
-    assert set(multi[0]["step_split_s"]) == {"forward_backward", "reduce_scatter", "update",
-                                             "all_gather", "total"}
-    pipe = [json.loads(ln.split(": ", 1)[1]) for ln in lines if ln.startswith("pipeline: {")]
-    assert len(pipe) == 1 and len(pipe[0]["one_card"]["stages"]) == 4
-    assert pipe[0]["one_card"]["step"]["grad_rel_l2"] < 0.01
-    forward = pipe[0]["one_card"]["forward"]
-    assert sum(d.get("fused_earth_block", 0) for d in forward["launches"]) == 32
-    assert (pipe[0]["worlds"] is None) == (torch.cuda.device_count() < 2)
-    assert json.loads(lines[-1])["ok"] is True
+def test_fuxi_short_step_launches_the_kernel_once_a_block(cuda_device):
+    """One bf16 FuXi-Short step at its published widths (48 Swin V2 blocks
+    at C 1536, seeded weights and states): 48 launches of the cosine window
+    attention kernel, and a finite state."""
+    from pangu_tpu_torch.model import FuxiConstants, FuxiModel, fuxi_short
+
+    cfg = fuxi_short()
+    with torch.random.fork_rng(devices=[cuda_device]), torch.device(cuda_device):
+        torch.manual_seed(23)
+        model = FuxiModel(cfg)
+    v = cfg.variables
+    k = FuxiConstants(torch.zeros((1, v, 1, 1), device=cuda_device),
+                      torch.ones((1, v, 1, 1), device=cuda_device))
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    state = [torch.randn((1, v, cfg.lat, cfg.lon), generator=gen, device=cuda_device)
+             for _ in range(2)]
+    before = card.launches()
+    out = make_forecast_step(model, k)(*state)[1]
+    torch.cuda.synchronize()
+    assert card.launched(before) == {"cosine_window_attention": cfg.depth} and cfg.depth == 48
+    assert bool(torch.isfinite(out).all())

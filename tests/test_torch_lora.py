@@ -15,8 +15,9 @@ max|d| / max|ref| < 1e-4 per tensor, the golden guard's bound
 after one and two merged updates and after one unmerged update; 1e-6 for
 ``merge_params`` (one product and one sum). The bf16 kernel route (the
 kernels' plain versions on the CPU) against the plain bf16 route: loss
-within 1%, the adapter gradient's relative L2 < 1% (chip_smoke.py's phase
-8 bounds). Exact: the targets, the counts, the tree conversions, the report.
+within 1%, the adapter gradient's relative L2 < 1% (the bounds of the
+flagship kernel step in tests/test_torch_gpu.py). Exact: the targets, the
+counts, the tree conversions, the report.
 """
 
 import dataclasses

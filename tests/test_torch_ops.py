@@ -12,7 +12,7 @@ version, which is held here to
     < 1e-4, the golden guard's bound -- only summation order differs.
 
 The CUDA kernel itself is compared with the plain version on the card by
-tests/test_torch_gpu.py and chip_smoke.py.
+tests/test_torch_gpu.py.
 """
 
 import numpy as np

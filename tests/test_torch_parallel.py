@@ -25,11 +25,8 @@ Tolerances:
 * a world of one (in this process) and a resume: the same bits.
 """
 
-import json
 import os
-import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -68,6 +65,7 @@ from pangu_tpu_torch.train.step import TrainState
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_parallel_worker.py")
 sys.path.insert(0, os.path.join(REPO, "tests"))
+import torch_card as card  # noqa: E402
 import torch_parallel_worker as worker  # noqa: E402
 
 TIMEOUT_S = 120
@@ -79,39 +77,7 @@ def _spawn(world: int, spec: dict, out: str, worker: str = WORKER) -> list:
     """Run ``world`` ranks of ``worker``; return each rank's saved results.
     The ranks get 120 s together; on a failure or a timeout every rank is
     killed and the test fails with the failed rank's stderr."""
-    os.makedirs(out, exist_ok=True)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["OMP_NUM_THREADS"] = "2"
-    procs, logs = [], []
-    try:
-        for r in range(world):
-            logs.append(open(os.path.join(out, f"rank{r}.log"), "w"))
-            s = dict(spec, world=world, rank=r, out=out,
-                     init="file://" + os.path.join(out, "store"))
-            procs.append(subprocess.Popen([sys.executable, worker, json.dumps(s)],
-                                          stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO,
-                                          env=env))
-        deadline = time.monotonic() + TIMEOUT_S
-        while True:
-            codes = [p.poll() for p in procs]
-            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
-            if bad or time.monotonic() > deadline:
-                r = bad[0] if bad else codes.index(None)
-                with open(os.path.join(out, f"rank{r}.log")) as f:
-                    text = f.read()[-3000:]
-                pytest.fail(f"world {world}: rank {r} "
-                            f"{'exited %s' % codes[r] if bad else 'timed out'}:\n{text}")
-            if all(c == 0 for c in codes):
-                break
-            time.sleep(0.1)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    return [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(world)]
+    return card.spawn(world, spec, out, worker, TIMEOUT_S)
 
 
 def _fields(rng, m, rows):
@@ -476,30 +442,3 @@ def test_world_of_one_gives_the_one_process_bits(world_of_one, mode):
     for i, st in s0["state"].items():
         for k, v in st.items():
             assert torch.equal(s1["state"][i][k], v), (i, k)
-
-
-def test_chip_smoke_multi_gpu_phase_runs_at_tiny_geometry_over_gloo(monkeypatch):
-    """chip_smoke.py's phase 20 on the CPU: the same function the card runs,
-    two ranks over gloo at the tiny preset on the kernel route (whose
-    wrappers run their plain versions on CPU tensors, so the launch checks
-    are recorded, not held), bounded at 120 s. The ranks' bits, the resume
-    and the checkpoints are held as on the card."""
-    sys.path.insert(0, REPO)
-    try:
-        import chip_smoke as cs
-    finally:
-        sys.path.remove(REPO)
-    labels = []
-    monkeypatch.setattr(cs, "MULTI_GPU_TIMEOUT_S", TIMEOUT_S)
-    monkeypatch.setattr(cs, "hold_rank_launches", lambda label, got, want: labels.append(label))
-    monkeypatch.setattr(cs, "card_line", lambda: "cpu")
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
-    line = cs.check_multi_gpu(torch.device("cpu"), world=2, tiny=True)
-    assert labels == [f"multi-gpu rank {r} step {i}" for r in (0, 1) for i in (1, 2, 3)]
-    assert line["world"] == 2 and line["nccl"] is None and len(line["peak_bytes"]) == 2
-    assert sorted(line["step_split_s"]) == ["all_gather", "forward_backward", "reduce_scatter",
-                                            "total", "update"]
-    assert line["losses"][1] == line["losses"][2]
-    zb = line["zero_bytes"]
-    assert sorted(zb) == ["2", "4", "8"]  # JSON keys
-    assert line["state_bytes"] > 0 and line["save_s"] > 0 and line["load_s"] > 0

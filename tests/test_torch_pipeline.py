@@ -59,7 +59,7 @@ from pangu_tpu_torch.train.step import output_loss
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tests"))
 import torch_pipeline_worker as worker  # noqa: E402
-from test_torch_parallel import TIMEOUT_S, _close, _spawn  # noqa: E402
+from test_torch_parallel import _close, _spawn  # noqa: E402
 
 WORKER = os.path.join(REPO, "tests", "torch_pipeline_worker.py")
 ROWS, MICRO = 4, worker.MICRO
@@ -400,30 +400,3 @@ def test_bench_pipeline_prints_the_jax_scripts_keys(jig):
     assert sorted(out["seconds_per_step"]) == ["dp1_sp4", "dp4", "pp4_dp1_m2"]
     assert out["relative_to_dp4"]["dp4"] == 1.0 and out["gpipe_bubble_fraction"] == 0.6
     assert "gloo" in out["note"]
-
-
-def test_chip_smoke_pipeline_phases_run_at_tiny_geometry_on_the_cpu(monkeypatch):
-    """chip_smoke.py's phase 22 on the CPU: 22a in this process and 22b over
-    two gloo ranks (pipe=2), at the tiny preset on the kernel route (whose
-    wrappers run their plain versions on CPU tensors, so the launch checks
-    are recorded, not held)."""
-    sys.path.insert(0, REPO)
-    try:
-        import chip_smoke as cs
-    finally:
-        sys.path.remove(REPO)
-    labels = []
-    monkeypatch.setattr(cs, "PIPELINE_TIMEOUT_S", TIMEOUT_S)
-    monkeypatch.setattr(cs, "hold_rank_launches", lambda label, got, want: labels.append(label))
-    monkeypatch.setattr(cs, "card_line", lambda: "cpu")
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
-    one = cs.check_pipeline_one_card(torch.device("cpu"), tiny=True)
-    assert one["forward"]["same_bits"] and one["step"]["same_param_bits"]
-    assert [s["ops"] for s in one["stages"]] == [list(ops) for ops in pp.DEFAULT_STAGES]
-    assert len(labels) == 8  # each stage's forward and step
-    lines = cs.check_pipeline(torch.device("cpu"), worlds=[(2, dict(pipe=2), 2)], tiny=True)
-    assert len(lines) == 1 and lines[0]["bubble"] == pytest.approx(1 / 3)
-    assert len(set(lines[0]["losses"])) == 3 and lines[0]["step1"]["loss_rel_dev"] < 1e-5
-    assert sorted(lines[0]["step_split_s"]) == ["all_reduce", "backward", "forward", "update"]
-    assert labels[8:] == [f"pipeline {{'pipe': 2}} rank {r} step {i}"
-                          for r in (0, 1) for i in (1, 2, 3)]

@@ -210,7 +210,7 @@ def test_trace_device_busy_split_is_none_without_device_events(tmp_path):
 def test_trace_writes_a_gzipped_chrome_trace(tmp_path):
     """On the CPU: a trace with the host's ops and no device events."""
     if torch.cuda.is_available():
-        pytest.skip("the CPU-only trace; the card's is read by chip_smoke.py phase 18")
+        pytest.skip("the CPU-only trace; the card's is read by tests/test_torch_gpu.py")
     with profiling.trace(str(tmp_path)):
         torch.ones(64, 64) @ torch.ones(64, 64)
     paths = list(tmp_path.glob("**/*.trace.json.gz"))

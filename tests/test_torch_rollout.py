@@ -155,13 +155,12 @@ FINETUNE = [
 ]
 
 
-#: the serving path: the exported step, the profiling tools, the export, bound and
-#: timing scripts, and the demo (which imports matplotlib only where it renders)
+#: the serving path: the exported step, the profiling tools, the export and bound
+#: scripts, and the demo (which imports matplotlib only where it renders)
 SERVING = [
     "pangu_tpu_torch.serving", "pangu_tpu_torch.utils.profiling",
     "pangu_tpu_torch.scripts.export_model", "pangu_tpu_torch.scripts.parity_bf16_bound",
-    "pangu_tpu_torch.scripts.time_forecast_step", "pangu_tpu_torch.demo",
-    "pangu_tpu_torch.demo.app",
+    "pangu_tpu_torch.demo", "pangu_tpu_torch.demo.app",
 ]
 
 
@@ -176,14 +175,13 @@ DATA = [
 def test_importing_the_port_does_not_import_jax():
     """A fresh process that imports every module of the port (the
     forecast-and-score, finetuning, serving and data modules and scripts
-    among them) and chip_smoke.py (its imports; main() is not run) holds no
-    jax, jaxlib or flax and no module of the JAX package."""
+    among them) holds no jax, jaxlib or flax and no module of the JAX
+    package."""
     assert set(FORECAST_AND_SCORE + FINETUNE + SERVING + DATA) <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
-        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pangu_tpu'))\n"
         "assert not bad, bad\n"
@@ -196,16 +194,18 @@ def test_importing_the_port_does_not_import_jax():
 def _python_sources():
     out = [os.path.relpath(os.path.join(d, f), REPO)
            for d, _, files in os.walk(PORT) for f in files if f.endswith(".py")]
-    return sorted(out) + ["chip_smoke.py"] + [os.path.join("tests", f"torch_{name}_worker.py")
-                                              for name in ("parallel", "spatial", "pipeline")]
+    return sorted(out) + [os.path.join("tests", f) for f in (
+        "test_torch_gpu.py", "torch_card.py",
+        *(f"torch_{name}_worker.py" for name in ("parallel", "spatial", "pipeline")))]
 
 
 @pytest.mark.parametrize("path", _python_sources())
 def test_no_port_source_imports_jax(path):
     """Source level: no import of jax, jaxlib, flax or any module of the JAX
     package (the port keeps its own copies of the jax-free ones), in the
-    port, chip_smoke.py and the rank workers of the data-parallel, spatial
-    and pipeline tests."""
+    port, the on-card tests and what they share with the rank workers
+    (they run where jax is absent), and the rank workers of the
+    data-parallel, spatial and pipeline tests."""
     with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
@@ -219,8 +219,8 @@ def test_no_port_source_imports_jax(path):
             assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "pangu_tpu"), (path, name)
 
 
-def test_the_data_layer_and_chip_smoke_import_no_pandas():
-    """The data modules, their scripts and chip_smoke.py import in a process
+def test_the_data_layer_and_its_scripts_import_no_pandas():
+    """The data modules and their scripts import in a process
     where pandas cannot be imported (the ETL's timestamps come from the
     port's ``date_range``), and pull in no module of pandas, jax or the JAX
     package."""
@@ -229,7 +229,6 @@ def test_the_data_layer_and_chip_smoke_import_no_pandas():
         "sys.modules['pandas'] = None\n"
         f"for name in {DATA!r}:\n"
         "    importlib.import_module(name)\n"
-        "import chip_smoke\n"
         "bad = sorted(m for m, v in sys.modules.items() if v is not None\n"
         "             and m.split('.')[0] in ('pandas', 'jax', 'flax', 'pangu_tpu'))\n"
         "assert not bad, bad\n"
@@ -242,7 +241,7 @@ def test_the_data_layer_and_chip_smoke_import_no_pandas():
 def test_evaluate_and_rollout_run_without_pandas_or_matplotlib(tmp_path):
     """The test script (evaluate) and a multi-day rollout at tiny geometry
     in a process where pandas and matplotlib cannot be imported: the card's
-    machine has neither, and nothing chip_smoke.py runs may need them."""
+    machine has neither, and nothing the on-card tests run may need them."""
     out = str(tmp_path)
     code = (
         "import sys\n"

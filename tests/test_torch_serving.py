@@ -11,8 +11,8 @@
   the bounds of ``test_torch_rollout.py::test_bf16_step_against_jax_f32_step``
   of the JAX f32 step (max 0.026, RMS 0.005 in normalized units).
 * a batch-2 artifact, a load in a fresh process that imports no model code,
-  the export script end to end, the platform argument, and chip_smoke.py's
-  phase 18 at tiny geometry.
+  the export script end to end, and the platform argument. The flagship
+  step served on the card is tests/test_torch_gpu.py's.
 """
 
 import dataclasses
@@ -222,39 +222,3 @@ def test_platforms_name_one_device(setup, tmp_path):
     assert not os.path.exists(path)
     serving.export_forecast_step(model, setup["aux"], path, platforms=["cpu"])
     assert serving.load_forecast_step(path).program.state_dict
-
-
-def test_chip_smoke_serving_phase_runs_at_tiny_geometry(monkeypatch):
-    """chip_smoke.py's phase 18 end to end on the CPU: the tiny preset on
-    the kernel route (K1's operator runs its plain version here: no
-    launches, no device events), served in a fresh process; the bf16 bound
-    at tiny geometry; the card-only calls stubbed."""
-    from types import SimpleNamespace
-
-    from pangu_tpu_torch.scripts import parity_bf16_bound
-
-    sys.path.insert(0, REPO)
-    try:
-        import chip_smoke as cs
-    finally:
-        sys.path.remove(REPO)
-
-    def tiny_model(dev):
-        cfg = port_config.pangu_tiny(depths=(2, 2, 2, 2), **KERNEL_ROUTE)
-        model = PanguModel(cfg.model).eval()
-        init_params(model, seed=0)
-        return cfg, model, synthetic_aux_constants(cfg.model, cfg.train, device=dev)
-
-    launches = []
-    monkeypatch.setattr(cs, "build_model", tiny_model)
-    monkeypatch.setattr(cs, "parity_bf16_bound", SimpleNamespace(
-        run=lambda device: parity_bf16_bound.run(tiny=True, device=device)))
-    monkeypatch.setattr(cs, "card_line", lambda: "cpu")
-    monkeypatch.setattr(cs, "only_k1", lambda label, want: launches.append(
-        (label, want, {k: v for k, v in cs.launch_counts().items() if v})))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    res = cs.check_serving(torch.device("cpu"))
-    assert launches == [("eager step", 0, {})]
-    assert res["same_bits"] and res["launches_per_step"] == [0] * cs.STEPS
-    assert res["artifact_bytes"] > 0 and res["busy"] is None
-    assert res["bf16_bound"]["geometry"] == "tiny"

@@ -59,6 +59,7 @@ from pangu_tpu_torch.train.step import TrainState
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tests"))
+import torch_card as card  # noqa: E402
 import torch_spatial_worker as worker  # noqa: E402
 from test_torch_parallel import _close, _rel, _same_bits, _spawn  # noqa: E402
 
@@ -412,57 +413,63 @@ def test_scripts_at_lat2(jig, script):
     assert len(os.listdir(os.path.join(out, "csv"))) == 14
 
 
-# ---- chip_smoke.py's phase 21 at tiny geometry --------------------------------------------
+# ---- the block functions on the slabs of a lat=2 x lon=2 plane ------------------------------
 
+#: the stages of ``worker.config()`` at the tiny widths: (stage, C, heads)
+SLAB_STAGES = {"outer": (16, 2), "inner": (32, 4)}
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("stage_name", ["outer", "inner"])
+@pytest.mark.parametrize("route", ["attention", "block"])
+def test_block_functions_on_the_slabs_of_a_plane_give_the_whole_grid(route, stage_name,
+                                                                     shifted):
+    """What the deleted on-card smoke script's slab phase held, on CPU
+    tensors at the tiny widths (the wrappers run their plain versions
+    there): the block functions of a route on each slab of a lat=2 x lon=2
+    plane (``spatial.slab_of``: whole windows, the earth bias and shift
+    mask cut by ``Slab.cut_types``) against the same windows of the
+    whole-grid call. Forward outputs and dx per token: the whole grid's
+    bits, or within 1e-5 (the products' f32 sums over other row counts);
+    the weight and bias gradients summed over the four slabs, and the earth
+    bias gradient placed at each slab's window types and summed: within
+    1e-5 relative of the whole grid's."""
+    from pangu_tpu_torch.model.attention import shift_attention_mask
 
-def _chip_smoke():
-    sys.path.insert(0, REPO)
-    try:
-        import chip_smoke
-    finally:
-        sys.path.remove(REPO)
-    return chip_smoke
+    stage = getattr(compute_geometry(worker.config().model), stage_name)
+    c, heads = SLAB_STAGES[stage_name]
+    gen = torch.Generator().manual_seed(90 + 2 * c + shifted)
 
+    def rn(*shape, std=1.0, mean=0.0):
+        return mean + std * torch.randn(shape, generator=gen)
 
-def test_chip_smoke_slab_phase_runs_at_tiny_geometry_on_the_cpu(monkeypatch):
-    """Phase 21a's function at the tiny lon=192 geometry (outer 3 x 4
-    windows, inner 2 x 2) and the kernels' widths, on CPU tensors: the
-    wrappers run their plain versions, so what it holds here is the slab
-    arithmetic (cuts, placed earth-bias gradients, sums over the four
-    slabs), not the kernels; the timing is the card's and is stubbed."""
-    cs = _chip_smoke()
-    monkeypatch.setattr(cs, "cuda_times_ms", lambda fn, **kw: 0.0)
-    res = cs.check_slabs(compute_geometry(worker.config().model), torch.device("cpu"))
-    assert [(r["stage"], r["shifted"]) for r in res["checks"]] == [
-        ("outer", False), ("outer", True), ("inner", False), ("inner", True)]
-    assert [r["slabs"][0] for r in res["checks"]][::2] == [
-        dict(rows=(0, 12), cols=(0, 24)), dict(rows=(0, 6), cols=(0, 12))]
-    assert sorted(sum_errs for sum_errs in res["checks"][0]["sum_max_abs_err"]) == ["K12", "K3"]
-    assert [(t["stage"], t["grid"], t["whole"]) for t in res["times"]] == [
-        ("outer", [18, 48], True), ("outer", [12, 24], False), ("outer", [6, 24], False),
-        ("inner", [12, 24], True), ("inner", [6, 12], False)]
-    assert res["launches"] == {}  # no kernel launches on the CPU
-
-
-def test_chip_smoke_spatial_phase_runs_at_tiny_geometry_over_gloo(monkeypatch):
-    """Phase 21b's function on the CPU: lat=2 in a world of 2 over gloo at
-    the tiny preset on the kernel route (plain versions on CPU tensors, so
-    the launch checks are recorded, not held), bounded at 120 s: the ranks'
-    bits and validation values, and step 1 within phase 8's bounds of the
-    one-process step."""
-    cs = _chip_smoke()
-    labels = []
-    monkeypatch.setattr(cs, "SPATIAL_TIMEOUT_S", 120)
-    monkeypatch.setattr(cs, "hold_rank_launches", lambda label, got, want: labels.append(label))
-    monkeypatch.setattr(cs, "card_line", lambda: "cpu")
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
-    (line,) = cs.check_spatial(torch.device("cpu"), worlds=[(2, LAT2)], tiny=True)
-    assert labels == [f"spatial {LAT2} rank {r} {what}" for r in (0, 1)
-                      for what in ("step 1", "step 2", "step 3", "validation")]
-    assert line["world"] == 2 and len(line["peak_bytes"]) == 2 and line["val"][1] == 1
-    assert sorted(line["step_split_s"]) == ["all_gather", "forward_backward", "reduce_scatter",
-                                            "spatial_reduce", "update"]
-    # the weight gradients round to bf16 per slab before the plane's f32 sum
-    assert line["one_process"]["grad_rel_l2"] < cs.TRAIN_GRAD_TOL
-    assert line["one_process"]["loss_rel_dev"] < cs.TRAIN_LOSS_TOL
-    assert len(line["one_process"]["step_wall_s"]) == len(line["step_wall_s"]) == 3
+    mask = torch.from_numpy(shift_attention_mask(stage)) if shifted else None
+    args = (rn(1, stage.z, stage.h_pad, stage.w, c),
+            rn(3 * c, c, std=c ** -0.5), rn(3 * c, std=0.02), rn(c, c, std=c ** -0.5),
+            rn(c, std=0.02), rn(stage.n_type_windows, heads, 144, 144), mask,
+            rn(c, mean=1.0, std=0.1), rn(c, std=0.1), rn(4 * c, c, std=c ** -0.5),
+            rn(4 * c, std=0.02), rn(c, 4 * c, std=(4 * c) ** -0.5), rn(c, std=0.02),
+            rn(c, mean=1.0, std=0.1), rn(c, std=0.1))
+    statics = (stage.window, heads, (c // heads) ** -0.5)
+    gy = rn(*args[0].shape)
+    slabs = [slab_of(stage, Mesh(None, 1, r, 2, 2)) for r in range(4)]
+    assert sorted({s.rows for s in slabs}) != [(0, stage.h_pad)]  # the lat axis is cut
+    assert sorted({s.cols for s in slabs}) != [(0, stage.w)]  # and the lon axis
+    whole = card.block_calls(route, args, statics, gy)
+    sums = {k: [None] * len(grads) for k, (_, grads, _) in whole.items()}
+    for slab in slabs:
+        (r0, r1), (c0, c1) = slab.rows, slab.cols
+        for k, (outs, grads, names) in card.block_calls(route, args, statics, gy, slab).items():
+            per_token = [*outs, *grads[:1]]
+            ref = [*whole[k][0], *whole[k][1][:1]]
+            for got, want in zip(per_token, ref):
+                torch.testing.assert_close(got, want[:, :, r0:r1, c0:c1], rtol=1e-5,
+                                           atol=1e-5, msg=f"{k} slab {slab.rows}x{slab.cols}")
+            for i in range(1, len(grads)):
+                t = grads[i]
+                if names[i] == "dbias":
+                    t = card.place_types(t, slab, whole[k][1][i])
+                sums[k][i] = t if sums[k][i] is None else sums[k][i] + t
+    for k, (_, grads, names) in whole.items():
+        for i in range(1, len(grads)):
+            scale = grads[i].abs().max().item()
+            torch.testing.assert_close(sums[k][i], grads[i], rtol=1e-5, atol=1e-5 * scale,
+                                       msg=f"{k} {names[i]} summed over the slabs")

@@ -23,7 +23,7 @@ to
     CPU route) too, with no kernel launch.
 
 The CUDA kernels are compared with the plain versions on the card by
-tests/test_torch_gpu.py and chip_smoke.py. The A/B script's variant handling
+tests/test_torch_gpu.py. The A/B script's variant handling
 is checked at the end.
 """
 

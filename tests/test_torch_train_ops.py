@@ -19,7 +19,7 @@ versions, which are held here to
     same gradients, max|d| / max|ref| < 1e-4.
 
 The CUDA kernels are compared with the plain versions on the card by
-tests/test_torch_gpu.py and chip_smoke.py.
+tests/test_torch_gpu.py.
 """
 
 import numpy as np

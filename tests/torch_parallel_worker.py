@@ -8,7 +8,8 @@ checkpoint written by the test, and where each rank saves its results) and
 ``cases``, the list of cases to run in order, and ``out``, where the rank
 saves ``rank<r>.pt``: each case's loss, parameters and whatever else it
 records. The rank joins a gloo group through
-``pangu_tpu_torch.parallel.distributed_init``.
+``pangu_tpu_torch.parallel.distributed_init``; with ``"device": "cuda"`` in
+the spec an NCCL group on card ``rank``, where the ``card`` case runs.
 It imports nothing of jax or the JAX package.
 """
 
@@ -20,9 +21,11 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import torch_card as card  # noqa: E402
 from pangu_tpu_torch.aux import synthetic_aux_constants  # noqa: E402
 from pangu_tpu_torch.config import DataConfig, ParallelConfig, pangu_tiny  # noqa: E402
 from pangu_tpu_torch.data import make_loader  # noqa: E402
+from pangu_tpu_torch.interop.from_jax import init_params  # noqa: E402
 from pangu_tpu_torch.model import PanguModel  # noqa: E402
 from pangu_tpu_torch.parallel import (activate_mesh, distributed_init, make_mesh,  # noqa: E402
                                       resolve_mesh, shard_batch, zero_shard_opt_state)
@@ -156,14 +159,53 @@ def case_scripts(spec, mesh, aux, out):
                        losses=list(losses))
 
 
+def case_card(spec, mesh, aux, out):
+    """The checkpoint case on the card at flagship widths, bf16 on the
+    kernel route: seeded weights and a global batch of one sample a rank
+    made on the card; ZeRO-2 step 1, a save of ``train_1``, step 2; the
+    weights and optimizer restored from it, step 2 again. Each step's loss,
+    parameter digest and launches; in a world of one, then the one-process
+    step (no mesh) from the same weights, batch and drop-path draws."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = card.flagship().replace(parallel=ParallelConfig(data=mesh.data))
+    m = cfg.model
+    aux = synthetic_aux_constants(m, cfg.train, device=dev)
+    with dev:
+        model = PanguModel(m).to(dev)
+    init_params(model, seed=0)
+    w0 = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = shard_batch(card.seeded_batch(aux, m, dev, rows=mesh.data), mesh)
+    runs = []
+
+    def run(step, seed):
+        before = card.launches()
+        loss = step(batch, aux, torch.Generator(dev).manual_seed(seed)).item()
+        runs.append(dict(loss=loss, params=card.digest(model), launches=card.launched(before)))
+
+    step, state = sharded_step(model, cfg, mesh)
+    run(step, 11)
+    ckpt.save_train_state(os.path.join(spec["dir"], "card_ckpt"), 1, state)
+    run(step, 12)
+    model.load_state_dict(w0)
+    step, state = sharded_step(model, cfg, mesh)
+    state, epoch = ckpt.restore_train_state(os.path.join(spec["dir"], "card_ckpt"), 1, state)
+    run(step, 12)
+    if mesh.data == 1:
+        model.load_state_dict(w0)
+        with activate_mesh(None):
+            run(make_train_step(model, cfg, make_optimizer(model, cfg)), 11)
+    out["card"] = dict(runs=runs, epoch=epoch)
+
+
 CASES = {"modes": case_modes, "jax": case_jax, "val": case_val, "ckpt": case_ckpt,
-         "refusals": case_refusals, "scripts": case_scripts}
+         "refusals": case_refusals, "scripts": case_scripts, "card": case_card}
 
 
 def main() -> None:
     spec = json.loads(sys.argv[1])
     torch.set_num_threads(2)
-    distributed_init(spec["init"], spec["world"], spec["rank"], device="cpu")
+    distributed_init(spec["init"], spec["world"], spec["rank"], spec["rank"],
+                     spec.get("device", "cpu"))
     mesh = make_mesh(ParallelConfig(data=spec["world"]))
     cfg = pangu_tiny()
     aux = synthetic_aux_constants(cfg.model, cfg.train, device="cpu")

@@ -6,11 +6,13 @@ The spec holds ``world``, ``rank``, ``init`` (a ``file://`` store), ``dir``
 (the fixture's directory: the weights and the global batch the test wrote),
 ``out`` (where the rank saves ``rank<r>.pt``) and ``cases``: [case, mesh]
 pairs run in order, ``mesh`` the ``ParallelConfig`` fields of the case's
-mesh and, for a forward, ``transport`` (a dtype name). Each case makes its
-own mesh over the same gloo world. It imports nothing of jax or the JAX
-package.
+mesh and, for a forward, ``transport`` (a dtype name); for the ``card``
+case, ``micro``. Each case makes its own mesh over the same gloo world;
+with ``"device": "cuda"`` in the spec an NCCL world, one card a rank, where
+the ``card`` case runs. It imports nothing of jax or the JAX package.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -20,12 +22,15 @@ import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import torch_card as card  # noqa: E402
 from pangu_tpu_torch import dtype_of  # noqa: E402
 from pangu_tpu_torch.aux import synthetic_aux_constants  # noqa: E402
 from pangu_tpu_torch.config import ParallelConfig, pangu_tiny  # noqa: E402
+from pangu_tpu_torch.interop.from_jax import init_params  # noqa: E402
+from pangu_tpu_torch.model import PanguModel  # noqa: E402
 from pangu_tpu_torch.parallel import distributed_init, make_mesh, resolve_mesh  # noqa: E402
-from pangu_tpu_torch.parallel.pipeline import PanguPipeline  # noqa: E402
-from pangu_tpu_torch.train import Batch, make_optimizer  # noqa: E402
+from pangu_tpu_torch.parallel.pipeline import MODULE_NAMES, PanguPipeline  # noqa: E402
+from pangu_tpu_torch.train import Batch, make_optimizer, make_train_step  # noqa: E402
 
 #: the microbatches of every case
 MICRO = 2
@@ -134,13 +139,57 @@ def case_bench(spec, cfg, mesh, aux):
     return bench_pipeline.main(["--steps", "1", "--batch", "4"], device="cpu")
 
 
+def case_card(spec, cfg, mesh, aux, micro=MICRO):
+    """On the card at flagship widths, bf16 on the kernel route, drop path
+    off: the mesh's pipeline from seeded weights takes 3 steps of a seeded
+    global batch of ``micro`` x data samples (each step's loss and
+    launches, and what the stage's blocks should launch; step 1's gradients
+    gathered to each replica's first stage). Rank 0 then takes the
+    one-process step with ``accumulation_steps`` = ``micro`` x data on the
+    same batch and weights, and compares step 1's loss and gradients with
+    it (``torch_card.train_deviation``)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = card.flagship(drop_path_max=0.0).replace(parallel=cfg.parallel)
+    m = cfg.model
+    aux = synthetic_aux_constants(m, cfg.train, device=dev)
+    whole = PanguModel(m)  # on the host
+    init_params(whole, seed=0)
+    pipe = PanguPipeline(cfg, mesh, dev)
+    pipe.load_state_dict(whole.state_dict())
+    batch = card.seeded_batch(aux, m, dev, rows=micro * mesh.data)
+    step = pipe.make_train_step(make_optimizer(pipe.stage, cfg), micro)
+    runs = []
+    for i in range(3):
+        before = card.launches()
+        runs.append(dict(loss=step(batch, aux).item(), launches=card.launched(before)))
+        if i == 0:
+            grads = pipe.gather({k: p.grad for k, p in pipe.stage.named_parameters()})
+    blocks = sum(len(pipe.stage.get_submodule(MODULE_NAMES[op]).blocks)
+                 for op in pipe.stage.ops if op.startswith("layer"))
+    res = dict(runs=runs, want={k: v // 16 * blocks * micro
+                                for k, v in card.TRAIN_LAUNCHES.items()} if blocks else {})
+    del step, pipe
+    if dist.get_rank() == 0:
+        model = whole.to(dev)
+        acc = micro * mesh.data
+        acc_cfg = cfg.replace(train=dataclasses.replace(cfg.train, accumulation_steps=acc))
+        one = make_train_step(model, acc_cfg, make_optimizer(model, acc_cfg))
+        loss = one(Batch(*(t.reshape(acc, -1, *t.shape[1:]) for t in batch)), aux).item()
+        named = dict(model.named_parameters())
+        res["one_process"] = card.train_deviation(
+            runs[0]["loss"], {k: g.to(dev) for k, g in grads.items()}, loss,
+            {k: named[k].grad for k in grads})
+    dist.barrier()
+    return res
+
+
 def axes_of(cfg) -> dict:
     p = cfg.parallel
     return dict(data=p.data, pipe=p.pipe)
 
 
 CASES = {"forward": case_forward, "step": case_step, "droppath": case_droppath,
-         "script": case_script, "groups": case_groups, "bench": case_bench}
+         "script": case_script, "groups": case_groups, "bench": case_bench, "card": case_card}
 
 
 def key(name: str, axes: dict) -> str:
@@ -150,11 +199,12 @@ def key(name: str, axes: dict) -> str:
 def main() -> None:
     spec = json.loads(sys.argv[1])
     torch.set_num_threads(2)
-    distributed_init(spec["init"], spec["world"], spec["rank"], device="cpu")
+    distributed_init(spec["init"], spec["world"], spec["rank"], spec["rank"],
+                     spec.get("device", "cpu"))
     aux = synthetic_aux_constants(config().model, config().train, device="cpu")
     out = {}
     for name, axes in spec["cases"]:
-        kw = {"transport": axes.pop("transport")} if "transport" in axes else {}
+        kw = {k: axes.pop(k) for k in ("transport", "micro") if k in axes}
         cfg = config(**axes)
         mesh = make_mesh(cfg.parallel, model=cfg.model)
         out[key(name, dict(axes, **kw))] = CASES[name](spec, cfg, mesh, aux, **kw)

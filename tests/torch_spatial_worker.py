@@ -7,7 +7,9 @@ The spec holds ``world``, ``rank``, ``init`` (a ``file://`` store), ``dir``
 checkpoint the test wrote), ``out`` (where the rank saves ``rank<r>.pt``)
 and ``cases``: [case, mesh] pairs run in order, ``mesh`` the
 ``ParallelConfig`` fields of the case's mesh (each case makes its own over
-the same gloo world). It imports nothing of jax or the JAX package.
+the same gloo world; with ``"device": "cuda"`` in the spec an NCCL world,
+one card a rank, where the ``card`` case runs). It imports nothing of jax
+or the JAX package.
 """
 
 import dataclasses
@@ -19,9 +21,11 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import torch_card as card  # noqa: E402
 from pangu_tpu_torch.aux import synthetic_aux_constants  # noqa: E402
 from pangu_tpu_torch.config import DataConfig, ParallelConfig, pangu_tiny  # noqa: E402
 from pangu_tpu_torch.data import make_loader  # noqa: E402
+from pangu_tpu_torch.interop.from_jax import init_params  # noqa: E402
 from pangu_tpu_torch.model import PanguModel  # noqa: E402
 from pangu_tpu_torch.parallel import (activate_mesh, distributed_init, make_mesh,  # noqa: E402
                                       shard_batch, zero_shard_opt_state)
@@ -35,6 +39,8 @@ from pangu_tpu_torch.train.trainer import sharded_val_stats  # noqa: E402
 DATES = dict(store="synthetic", train_start="20180101", train_end="20180104", train_freq="24h",
              val_start="20180105", val_end="20180109", val_freq="24h",
              test_start="20180108", test_end="20180110", test_freq="24h", prefetch=0)
+#: the card case's validation range (1 sample at 24 h)
+CARD_VAL = dict(store="synthetic", val_start="20240105", val_end="20240107", val_freq="24h")
 #: the halo case's grid: 3 x 3 windows of (2, 6, 12), uneven over 2 ranks on both axes
 HALO_GRID, HALO_WINDOW = (1, 4, 18, 36, 3), (2, 6, 12)
 
@@ -243,19 +249,62 @@ def case_scripts(spec, cfg, mesh, aux):
     return res
 
 
+def case_card(spec, cfg, mesh, aux):
+    """On the card at flagship widths, bf16 on the kernel route: 3 ZeRO-2
+    steps of one seeded sample on the rank's slabs from seeded weights and
+    drop-path draws (each step's loss, parameter digest and launches), then
+    one validation pass over a 1-sample range (its value and launches). Rank
+    0 then takes the one-process step (no mesh) from the same weights, batch
+    and draws, and compares the first mesh step's loss and gradients with
+    it (``torch_card.train_deviation``)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = card.flagship().replace(parallel=cfg.parallel, data=DataConfig(**CARD_VAL))
+    m = cfg.model
+    aux = synthetic_aux_constants(m, cfg.train, device=dev)
+    with dev:
+        model = PanguModel(m).to(dev)
+    init_params(model, seed=0)
+    batch = card.seeded_batch(aux, m, dev)
+    step, _ = _step(model, cfg, mesh)
+    runs = []
+    for i in range(3):
+        before = card.launches()
+        loss = step(batch, aux, torch.Generator(dev).manual_seed(3 + i)).item()
+        runs.append(dict(loss=loss, params=card.digest(model), launches=card.launched(before)))
+        if i == 0:
+            grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    before = card.launches()
+    val = make_loader(cfg.data, m, "val", cfg.horizon, 1)
+    res = dict(runs=runs, val=sharded_val_stats(make_eval_step(model, cfg), val, aux, dev),
+               val_launches=card.launched(before))
+    if mesh.rank == 0:
+        init_params(model, seed=0)
+        model.zero_grad(set_to_none=True)
+        with activate_mesh(None):
+            one = make_train_step(model, cfg, make_optimizer(model, cfg))
+            loss = one(batch, aux, torch.Generator(dev).manual_seed(3)).item()
+        named = dict(model.named_parameters())
+        res["one_process"] = card.train_deviation(runs[0]["loss"], grads, loss,
+                                                  {k: named[k].grad for k in grads})
+    torch.distributed.barrier()
+    return res
+
+
 def spec_mesh(cfg) -> dict:
     p = cfg.parallel
     return dict(data=p.data, lat=p.lat, lon=p.lon)
 
 
 CASES = {"step": case_step, "jax": case_jax, "val": case_val, "ckpt": case_ckpt,
-         "halo": case_halo, "lora": case_lora, "scripts": case_scripts, "k1": case_k1}
+         "halo": case_halo, "lora": case_lora, "scripts": case_scripts, "k1": case_k1,
+         "card": case_card}
 
 
 def main() -> None:
     spec = json.loads(sys.argv[1])
     torch.set_num_threads(2)
-    distributed_init(spec["init"], spec["world"], spec["rank"], device="cpu")
+    distributed_init(spec["init"], spec["world"], spec["rank"], spec["rank"],
+                     spec.get("device", "cpu"))
     aux = synthetic_aux_constants(config().model, config().train, device="cpu")
     out = {}
     for name, axes in spec["cases"]:
