@@ -196,14 +196,20 @@ using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // out[i] = sum_p part[p * n + i], in order p = 0, 1, ... (deterministic), as
 // bf16 (out_bf16) or f32 (out_f32): the second pass of every cross-CTA sum.
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int parts, long long n,
-                                       bf16* __restrict__ out_bf16, float* __restrict__ out_f32) {
+__device__ __forceinline__ void sum_partials(const float* __restrict__ part, int parts,
+                                             long long n, bf16* __restrict__ out_bf16,
+                                             float* __restrict__ out_f32) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
   for (int p = 0; p < parts; ++p) s += part[p * n + i];
   if (out_bf16) out_bf16[i] = __float2bfloat16(s);
   else out_f32[i] = s;
+}
+
+__global__ void reduce_partials_kernel(const float* __restrict__ part, int parts, long long n,
+                                       bf16* __restrict__ out_bf16, float* __restrict__ out_f32) {
+  sum_partials(part, parts, n, out_bf16, out_f32);
 }
 
 cudaError_t reduce_partials(const float* part, int parts, long long n, bf16* out_bf16,

@@ -3,7 +3,9 @@
 // K7's dW1 = dh^T x and dW2 = dy^T a, K9's, K3's dWqkv = dqkv^T x and dWproj =
 // g^T acc, K12's), K3's dx = dqkv @ Wqkv and K12's dx = dqkv @ Wqkv + dx1 with
 // its f32 addend (gemm<true, true>), and the out-projection of the forward K2
-// with its bias (gemm<true, false>, B stored (n, k)).
+// with its bias (gemm<true, false>, B stored (n, k)). outer_dense.cu runs the
+// same device code (wg_gemm_body) in its TAIL mode for the model's Dense
+// products at any width, with an f32 bias, under entry points of its own.
 //
 //   out(m, n) = sum_k A(m, k) B(k, n)  [+ bias(n)]  [+ addend(m, n)]
 //   A(m, k) = A[m * lda + k] (A_ROW) or A[k * lda + m] (A stored transposed)
@@ -54,6 +56,14 @@ struct WgMaps {
   CUtensorMap a, b;
 };
 
+// Two adjacent bias values as f32.
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
 // ROWSPLIT: part[split] (M x N f32) = A^T B over the split's rows [split *
 // kchunk, +kchunk) of A (K, M) and B (K, N), both MN-major; units = tiles x
 // splits, split-major. Otherwise out (M x N bf16) = A B (+ bias) with A (M, K)
@@ -61,17 +71,21 @@ struct WgMaps {
 // weight, K-major), plus the f32 addend (M x N, row stride N) where it is
 // given, rows >= M not stored; units = tiles. A unit is one 192 x
 // 192 output tile (with its row slice); CTA i takes units i, i + grid, ... The
-// maps read 64 x 64 boxes, 128-byte swizzle.
-template <bool ROWSPLIT, bool BT = false>
-__global__ void __launch_bounds__(WG_THREADS, 1)
-wg_gemm_kernel(const __grid_constant__ WgMaps maps, int M, int N, long long K, long long kchunk,
-               int units, const bf16* __restrict__ bias, const float* __restrict__ addend,
-               float* __restrict__ part, bf16* __restrict__ out) {
+// maps read 64 x 64 boxes, 128-byte swizzle. TAIL takes any M, N and K: the
+// maps read zeros past every end, so a tile's sums past M or N are zero and
+// are not stored, and depth past K adds nothing; without it N is a multiple of
+// 192 and (not ROWSPLIT) K of 64. BiasT is the bias's type (bf16 or f32).
+template <bool ROWSPLIT, bool BT, bool TAIL, typename BiasT>
+__device__ __forceinline__ void wg_gemm_body(const WgMaps& maps, int M, int N, long long K,
+                                             long long kchunk, int units,
+                                             const BiasT* __restrict__ bias,
+                                             const float* __restrict__ addend,
+                                             float* __restrict__ part, bf16* __restrict__ out) {
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * WG_STAGE_BYTES);
   uint64_t* empty = full + WG_STAGES;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tiles_n = N / WG_BN;
+  const int tiles_n = TAIL ? (N + WG_BN - 1) / WG_BN : N / WG_BN;
   const int tiles = (M + WG_BM - 1) / WG_BM * tiles_n;
   if (threadIdx.x == 0) {
     if (smem_u32(smem) & 1023) __trap();  // the swizzled boxes need 1024-byte alignment
@@ -168,15 +182,17 @@ wg_gemm_kernel(const __grid_constant__ WgMaps maps, int M, int N, long long K, l
 #pragma unroll
       for (int g = 0; g < 24; ++g)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h) {
+          if (TAIL && (r0 + 8 * h >= M || c0 + 8 * g >= N)) continue;
           *reinterpret_cast<float2*>(p + (long long)(r0 + 8 * h) * N + c0 + 8 * g) =
               make_float2(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+        }
     } else {
       if (bias) {
 #pragma unroll
         for (int g = 0; g < 24; ++g) {
-          const float2 bb =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + c0 + 8 * g));
+          if (TAIL && c0 + 8 * g >= N) continue;
+          const float2 bb = load_pair(bias + c0 + 8 * g);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             acc[4 * g + 2 * h] += bb.x;
@@ -192,28 +208,80 @@ wg_gemm_kernel(const __grid_constant__ WgMaps maps, int M, int N, long long K, l
           const float* ad = addend + (long long)(r0 + 8 * h) * N + c0;
 #pragma unroll
           for (int g = 0; g < 24; ++g) {
+            if (TAIL && c0 + 8 * g >= N) continue;
             const float2 t = *reinterpret_cast<const float2*>(ad + 8 * g);
             acc[4 * g + 2 * h] += t.x;
             acc[4 * g + 2 * h + 1] += t.y;
           }
         }
 #pragma unroll
-        for (int g = 0; g < 24; ++g)
+        for (int g = 0; g < 24; ++g) {
+          if (TAIL && c0 + 8 * g >= N) continue;
           *reinterpret_cast<__nv_bfloat162*>(o + 8 * g) =
               __floats2bfloat162_rn(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+        }
       }
     }
   }
 }
 
+template <bool ROWSPLIT, bool BT = false>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wg_gemm_kernel(const __grid_constant__ WgMaps maps, int M, int N, long long K, long long kchunk,
+               int units, const bf16* __restrict__ bias, const float* __restrict__ addend,
+               float* __restrict__ part, bf16* __restrict__ out) {
+  wg_gemm_body<ROWSPLIT, BT, false>(maps, M, N, K, kchunk, units, bias, addend, part, out);
+}
+
 // Row slices of a weight-grad product: one wave of the card's SMs, each CTA
 // one 192 x 192 tile of one slice.
 inline int weight_grad_splits(int M, int N, long long K) {
-  const int tiles = (M / WG_BM) * (N / WG_BN), sms = sm_count();
+  const int tiles = (M + WG_BM - 1) / WG_BM * ((N + WG_BN - 1) / WG_BN), sms = sm_count();
   long long s = tiles > 0 && sms / tiles > 1 ? sms / tiles : 1;
   const long long kt = (K + WG_BK - 1) / WG_BK;
   if (s > kt) s = kt;
   return (int)s;
+}
+
+// The launch of one product (see gemm) through `kernel`, an entry point that
+// runs wg_gemm_body<!A_ROW, !B_ROW, TAIL, BiasT>: the maps, the row slices
+// and the grid. A weight grad leaves its f32 partials in `part` and their
+// count in *parts, for the caller to sum.
+template <bool A_ROW, bool B_ROW, bool TAIL, typename BiasT, typename Kernel>
+cudaError_t wg_gemm_launch(Kernel kernel, const bf16* A, long long lda, const bf16* B,
+                           long long ldb, int M, int N, long long K, int splits,
+                           const BiasT* bias, bf16* out_bf16, float* part, cudaStream_t stream,
+                           const float* addend, int* parts) {
+  static_assert(A_ROW || B_ROW, "a weight-grad product takes B stored (K, N)");
+  if (splits < 1) return cudaErrorInvalidValue;
+  constexpr bool ROWSPLIT = !A_ROW, BT = !B_ROW;
+  const bool shape_ok =
+      TAIL ? (M > 0 && N > 0 && K > 0 && N % 2 == 0 && (ROWSPLIT || splits == 1))
+           : (ROWSPLIT ? M % WG_BM == 0 : (K % WG_BK == 0 && splits == 1)) && N % WG_BN == 0;
+  if ((bias && B_ROW) || (addend && ROWSPLIT) || !shape_ok) return cudaErrorInvalidValue;
+  WgMaps maps;
+  const bool ok = (ROWSPLIT ? tensor_map(&maps.a, A, M, K, lda, 64, 64,
+                                         CU_TENSOR_MAP_SWIZZLE_128B)
+                            : tensor_map(&maps.a, A, K, M, lda, 64, 64,
+                                         CU_TENSOR_MAP_SWIZZLE_128B)) &&
+                  (BT ? tensor_map(&maps.b, B, K, N, ldb, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B)
+                      : tensor_map(&maps.b, B, N, K, ldb, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B));
+  if (!ok) return cudaErrorInvalidValue;
+  long long kchunk = K;
+  *parts = 1;
+  if (ROWSPLIT) {
+    kchunk = ((K + WG_BK - 1) / WG_BK + splits - 1) / splits * WG_BK;
+    *parts = (int)((K + kchunk - 1) / kchunk);
+  }
+  const int units = (M + WG_BM - 1) / WG_BM * ((N + WG_BN - 1) / WG_BN) * *parts;
+  const int sms = sm_count();
+  const int grid = sms > 0 && sms < units ? sms : units;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(maps, M, N, K, kchunk, units, bias, addend, part,
+                                                out_bf16);
+  return cudaGetLastError();
 }
 
 // One product on wgmma, M x N, depth K, bf16 out_bf16.
@@ -230,35 +298,11 @@ template <bool A_ROW, bool B_ROW>
 cudaError_t gemm(const bf16* A, long long lda, const bf16* B, long long ldb, int M, int N,
                  long long K, int splits, const bf16* bias, bf16* out_bf16, float* part,
                  cudaStream_t stream, const float* addend = nullptr) {
-  static_assert(A_ROW || B_ROW, "a weight-grad product takes B stored (K, N)");
-  if (splits < 1) return cudaErrorInvalidValue;
-  constexpr bool ROWSPLIT = !A_ROW, BT = !B_ROW;
-  const bool shape_ok = ROWSPLIT ? M % WG_BM == 0 : (K % WG_BK == 0 && splits == 1);
-  if (N % WG_BN || (bias && B_ROW) || (addend && ROWSPLIT) || !shape_ok)
-    return cudaErrorInvalidValue;
-  WgMaps maps;
-  const bool ok = (ROWSPLIT ? tensor_map(&maps.a, A, M, K, lda, 64, 64,
-                                         CU_TENSOR_MAP_SWIZZLE_128B)
-                            : tensor_map(&maps.a, A, K, M, lda, 64, 64,
-                                         CU_TENSOR_MAP_SWIZZLE_128B)) &&
-                  (BT ? tensor_map(&maps.b, B, K, N, ldb, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B)
-                      : tensor_map(&maps.b, B, N, K, ldb, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B));
-  if (!ok) return cudaErrorInvalidValue;
-  long long kchunk = K;
   int parts = 1;
-  if (ROWSPLIT) {
-    kchunk = ((K + WG_BK - 1) / WG_BK + splits - 1) / splits * WG_BK;
-    parts = (int)((K + kchunk - 1) / kchunk);
-  }
-  const int units = (M + WG_BM - 1) / WG_BM * (N / WG_BN) * parts;
-  const int sms = sm_count();
-  const int grid = sms > 0 && sms < units ? sms : units;
-  cudaError_t err = cudaFuncSetAttribute(wg_gemm_kernel<ROWSPLIT, BT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-  if (err != cudaSuccess) return err;
-  wg_gemm_kernel<ROWSPLIT, BT><<<grid, WG_THREADS, WG_SMEM, stream>>>(
-      maps, M, N, K, kchunk, units, bias, addend, part, out_bf16);
-  if ((err = cudaGetLastError()) != cudaSuccess || !ROWSPLIT) return err;
+  cudaError_t err = wg_gemm_launch<A_ROW, B_ROW, false>(wg_gemm_kernel<!A_ROW, !B_ROW>, A, lda,
+                                                        B, ldb, M, N, K, splits, bias, out_bf16,
+                                                        part, stream, addend, &parts);
+  if (err != cudaSuccess || A_ROW) return err;
   return reduce_partials(part, parts, (long long)M * N, out_bf16, nullptr, stream);
 }
 

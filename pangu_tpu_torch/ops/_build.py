@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: every kernel source of the port, one shared library each
 SOURCES = ("fused_earth_block.cu", "block_attention.cu", "fused_epilogue.cu", "fused_mlp.cu",
            "fused_block_train.cu", "bench_mxu_micro.cu", "bench_attn_fwd_ab.cu",
-           "bench_attn_bwd_ab.cu", "cosine_window_attention.cu")
+           "bench_attn_bwd_ab.cu", "cosine_window_attention.cu", "outer_dense.cu")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

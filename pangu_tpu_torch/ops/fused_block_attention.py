@@ -24,6 +24,12 @@ bproj)`` (the first kernel of the two-kernel inference block); its backward
 has no kernel, as in the JAX package: the autograd of
 :func:`attention_xla_reference`, the twin of the JAX ``_xla_reference``.
 
+``dense`` is the model's Dense product, ``x W^T + b`` with f32 sums, the f32
+bias and one rounding: on bf16 CUDA operands the operator
+``pangu_tpu_torch::dense`` (the kernel of ``csrc/outer_dense.cu``, with an
+autograd formula whose backward runs on the card too), on anything else the
+plain formula ``dense_reference``.
+
 On a CUDA tensor each launches the hand-written sm_90a kernels of
 ``csrc/fused_earth_block.cu`` or ``csrc/block_attention.cu`` (built with nvcc
 at first use) or raises; on a CPU tensor it runs its plain PyTorch version
@@ -53,6 +59,7 @@ from pangu_tpu_torch.ops.windows import window_partition, window_reverse
 _LN_EPS = 1e-5
 _SOURCE = "fused_earth_block.cu"
 _TRAIN_SOURCE = "block_attention.cu"
+_DENSE_SOURCE = "outer_dense.cu"
 
 #: kernel launches by :func:`fused_earth_block` (K1) in this process
 LAUNCHES = 0
@@ -63,6 +70,9 @@ ATTN_FWD_LAUNCHES = 0
 ATTN_BWD_LAUNCHES = 0
 #: launches of K2's LN-epilogue mode
 ATTN_LN_LAUNCHES = 0
+#: launches of the Dense product (:func:`dense` on the card) and of its backward
+DENSE_LAUNCHES = 0
+DENSE_BWD_LAUNCHES = 0
 
 
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -71,15 +81,30 @@ def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def dense(x: torch.Tensor, weight: torch.Tensor,
-          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def dense_reference(x: torch.Tensor, weight: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A Dense layer in x's dtype with a torch-layout (out, in) weight: the
     weight rounded to x's dtype, products summed in f32, an f32 bias added,
-    one rounding at the end (flax ``nn.Dense(dtype=compute_dtype)``)."""
+    one rounding at the end (flax ``nn.Dense(dtype=compute_dtype)``). The
+    plain formula of :func:`dense`."""
     y = dot_f32(x, weight.to(x.dtype).t())
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`dense_reference`'s function. bf16 ``x`` on the card takes the
+    operator ``pangu_tpu_torch::dense`` (``csrc/outer_dense.cu``: the same
+    f32 sums of the exact bf16 products in another order, the f32 bias, one
+    rounding; its backward on the same product); every other input, f32 or
+    on the CPU, the plain formula."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        y = DENSE_OP(x.reshape(-1, x.shape[-1]), weight.to(x.dtype).contiguous(),
+                     None if bias is None else bias.float())
+        return y.view(*x.shape[:-1], y.shape[-1])
+    return dense_reference(x, weight, bias)
 
 
 def layer_norm_f32(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -159,7 +184,7 @@ def fused_block_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
     one rounding."""
     a = window_attention_reference(x, wqkv, bqkv, bias, mask, window, heads, scale)
     if ln_scale is None:
-        return dense(a, wproj, bproj)
+        return dense_reference(a, wproj, bproj)
     y = layer_norm_f32(dot_f32(a, wproj.t()) + bproj.float(), ln_scale.float(), ln_bias.float())
     return (x.float() + y).to(x.dtype)
 
@@ -405,6 +430,148 @@ def fused_earth_block(x, wqkv, bqkv, wproj, bproj, bias, mask: Optional[torch.Te
     if not 1 <= h <= x.shape[2]:
         raise ValueError(f"h must lie in [1, Hp={x.shape[2]}], got {h}")
     return FUSED_EARTH_BLOCK_OP(*args, list(window), heads, float(scale), shift, h)
+
+
+# ---- the Dense product ---------------------------------------------------------
+
+
+def _dense_library() -> ctypes.CDLL:
+    from pangu_tpu_torch.ops._build import load_library
+
+    lib = load_library(_DENSE_SOURCE)
+    if lib.pangu_outer_dense.argtypes is None:
+        lib.pangu_outer_dense.argtypes = (
+            [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.pangu_outer_dense.restype = ctypes.c_int
+        lib.pangu_outer_dense_bwd_scratch.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                                      ctypes.c_int]
+        lib.pangu_outer_dense_bwd_scratch.restype = ctypes.c_longlong
+        lib.pangu_outer_dense_bwd.argtypes = (
+            [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.pangu_outer_dense_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _check_dense_args(x, weight, bias) -> None:
+    """Raise ValueError on what the Dense kernel does not take: a (rows, k)
+    ``x`` with a contiguous inner dimension and a row stride that is a
+    multiple of 8, a contiguous (n, k) weight of x's dtype, bf16, k and n
+    multiples of 8, an (n,) f32 bias or none, 16-byte aligned CUDA tensors on
+    x's device (the TMA maps and the paired loads and stores)."""
+    if x.dim() != 2 or weight.dim() != 2 or weight.shape[1] != x.shape[1]:
+        raise ValueError(f"the Dense kernel takes x (rows, k) and weight (n, k), got "
+                         f"{tuple(x.shape)} and {tuple(weight.shape)}")
+    if x.dtype != torch.bfloat16 or weight.dtype != x.dtype:
+        raise ValueError(f"the Dense kernel takes a bfloat16 x and weight, got {x.dtype} and "
+                         f"{weight.dtype}")
+    n, k = weight.shape
+    if bias is not None and (tuple(bias.shape) != (n,) or bias.dtype != torch.float32):
+        raise ValueError(f"bias must be ({n},) float32, got {tuple(bias.shape)} {bias.dtype}")
+    if k % 8 or n % 8:
+        raise ValueError(f"the Dense kernel takes k and n multiples of 8, got k={k}, n={n}")
+    if x.stride(1) != 1 or not weight.is_contiguous():
+        raise ValueError("the Dense kernel takes x with a contiguous inner dimension and a "
+                         "contiguous weight")
+    if x.stride(0) % 8 or x.stride(0) < k:
+        raise ValueError(f"the Dense kernel takes a row stride of x that is a multiple of 8 "
+                         f"and at least k={k}, got {x.stride(0)}")
+    for name, t in (("x", x), ("weight", weight), ("bias", bias)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+        if t is not None and (t.device.type != "cuda" or t.device != x.device):
+            raise ValueError(f"the Dense kernel takes CUDA tensors on one device, got "
+                             f"{name} on {t.device}")
+
+
+def _dense_launch(x, weight, bias) -> torch.Tensor:
+    global DENSE_LAUNCHES
+    _check_dense_args(x, weight, bias)
+    rows, (n, k) = x.shape[0], weight.shape
+    out = torch.empty(rows, n, dtype=x.dtype, device=x.device)
+    lib = _dense_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pangu_outer_dense(x.data_ptr(), x.stride(0), weight.data_ptr(),
+                                   None if bias is None else bias.data_ptr(), out.data_ptr(),
+                                   rows, n, k, stream)
+    if rc != 0:
+        raise RuntimeError(f"dense CUDA launch failed: cudaError_t {rc}")
+    DENSE_LAUNCHES += 1
+    return out
+
+
+def _dense_bwd_launch(x, weight, dy, need_dx: bool, need_dw: bool, need_db: bool):
+    """(dx, dW, db) of the Dense kernel from dy = dL/dy, each None where it
+    is not needed."""
+    global DENSE_BWD_LAUNCHES
+    _check_dense_args(x, weight, None)
+    rows, (n, k) = x.shape[0], weight.shape
+    if (tuple(dy.shape) != (rows, n) or dy.dtype != x.dtype or not dy.is_contiguous()
+            or dy.data_ptr() % 16 or dy.device != x.device):
+        raise ValueError(f"dy must be a contiguous 16-byte aligned ({rows}, {n}) {x.dtype} "
+                         f"tensor on {x.device}, got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    if need_db and n > 2048:
+        raise ValueError(f"the Dense kernel's bias gradient takes n <= 2048, got {n}")
+    dx = torch.empty(rows, k, dtype=x.dtype, device=x.device) if need_dx else None
+    dw = torch.empty_like(weight) if need_dw else None
+    db = torch.empty(n, dtype=torch.float32, device=x.device) if need_db else None
+    lib = _dense_library()
+    scratch = torch.empty(lib.pangu_outer_dense_bwd_scratch(rows, n, k), dtype=torch.float32,
+                          device=x.device)
+    ptr = [None if t is None else t.data_ptr() for t in (dx, dw, db)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pangu_outer_dense_bwd(x.data_ptr(), x.stride(0), weight.data_ptr(),
+                                       dy.data_ptr(), *ptr, scratch.data_ptr(), rows, n, k,
+                                       stream)
+    if rc != 0:
+        raise RuntimeError(f"dense backward CUDA launch failed: cudaError_t {rc}")
+    DENSE_BWD_LAUNCHES += 1
+    return dx, dw, db
+
+
+#: the Dense product as one operator of the port's namespace: ``torch.export``
+#: traces it as one call (the fake implementation), the CUDA implementation is
+#: the kernel (``_dense_launch``, where its checks run), the CPU implementation
+#: the plain formula. x (rows, k) and weight (n, k) of one dtype, bias (n,) f32.
+_LIB.define("dense(Tensor x, Tensor weight, Tensor? bias) -> Tensor")
+_LIB.impl("dense", _dense_launch, "CUDA")
+_LIB.impl("dense", dense_reference, "CPU")
+
+
+@torch.library.register_fake("pangu_tpu_torch::dense")
+def _dense_fake(x, weight, bias) -> torch.Tensor:
+    return x.new_empty(x.shape[0], weight.shape[0])
+
+
+def _dense_setup(ctx, inputs, output) -> None:
+    x, weight, bias = inputs
+    ctx.has_bias = bias is not None
+    ctx.save_for_backward(x, weight, bias)
+
+
+def _dense_backward(ctx, dy):
+    """dx = dy W and dW = dy^T x rounded once to x's dtype, db the f32 sum of
+    dy over the rows: on the card the kernel's backward (each only where its
+    input needs it), on the CPU the autograd of the plain formula."""
+    x, weight, bias = ctx.saved_tensors
+    if dy.is_cuda:
+        need_x, need_w, need_b = ctx.needs_input_grad
+        return _dense_bwd_launch(x, weight, dy.contiguous(), need_x, need_w,
+                                 need_b and ctx.has_bias)
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, weight, bias) if t is not None]
+        grads = list(torch.autograd.grad(dense_reference(*ins), ins, dy))
+    return grads[0], grads[1], grads[2] if ctx.has_bias else None
+
+
+torch.library.register_autograd("pangu_tpu_torch::dense", _dense_backward,
+                                setup_context=_dense_setup)
+
+#: the operator (``torch.ops.pangu_tpu_torch.dense.default``)
+DENSE_OP = torch.ops.pangu_tpu_torch.dense.default
 
 
 # ---- K2 / K3: the training attention and its flash backward --------------------

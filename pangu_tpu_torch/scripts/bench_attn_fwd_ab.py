@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from pangu_tpu_torch.ops import fused_block_attention as fba
-from pangu_tpu_torch.ops.fused_block_attention import dense, dot_f32
+from pangu_tpu_torch.ops.fused_block_attention import dense_reference, dot_f32
 from pangu_tpu_torch.scripts.ab_common import bound, compare, cuda_device, cuda_times_ms, emit
 
 # the outer-stage geometry (geometry.compute_geometry on the pretrained config)
@@ -132,7 +132,7 @@ def fat_attention_reference(variant: str, x, wqkv, bqkv, wproj, bproj, bias_nw,
         p = torch.softmax(s, dim=-1).to(dt)
         del s
         a = dot_f32(p, v).to(dt).permute(0, 1, 2, 4, 3, 5).reshape(b, nc, wfn, tn, c)
-        ys.append(dense(a, wproj, bproj))
+        ys.append(dense_reference(a, wproj, bproj))
     y = torch.cat(ys, 1).reshape(b, zn, hn, wfn, wz, wh, nw * ww, c)
     return y.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, z, hp, w, c)
 

@@ -6,8 +6,9 @@ port's artifact is a ``torch.export`` program of the forecast step (the
 model forward, then ``norm_back_data``) with the weights and the aux
 constants inside, saved with ``torch.export.save``: any process loads it and
 runs it with no model code. The block kernel K1 is the operator
-``pangu_tpu_torch::fused_earth_block``, so a kernel-route artifact calls the
-hand-written kernel on the card (its plain version on the CPU), the same
+``pangu_tpu_torch::fused_earth_block`` and a bf16 Dense product on the card
+the operator ``pangu_tpu_torch::dense``, so a kernel-route artifact calls the
+hand-written kernels on the card (K1's plain version on the CPU), the same
 launches in the same order as the eager step.
 
     # build once
@@ -33,14 +34,16 @@ import torch
 from torch import nn
 
 from pangu_tpu_torch.aux import AuxConstants, norm_back_data
-from pangu_tpu_torch.ops.fused_block_attention import FUSED_EARTH_BLOCK_OP
+from pangu_tpu_torch.ops import fused_block_attention as _fba
 
 Fields = Tuple[torch.Tensor, torch.Tensor]
 
 #: the devices an artifact can hold its weights on (``platforms``)
 PLATFORMS = ("cuda", "cpu")
-#: the name of the block kernel's operator in a graph (importing it registers it)
-K1_OP = FUSED_EARTH_BLOCK_OP.name()
+#: the names of the block kernel's operator and of the Dense product's in a graph
+#: (importing them registers them)
+K1_OP = _fba.FUSED_EARTH_BLOCK_OP.name()
+DENSE_OP = _fba.DENSE_OP.name()
 
 
 class ServingStep(nn.Module):

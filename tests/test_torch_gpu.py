@@ -219,8 +219,9 @@ def test_cuda_operator_is_the_kernel_and_checks_its_arguments(cuda_device):
 
 def test_exported_step_at_full_width_launches_k1_with_the_eager_bits(cuda_device, tmp_path):
     """Flagship widths on a small grid, depths (2, 2, 2, 2): the exported
-    step holds 8 K1 calls, its tensors sit on the card, and the loaded step
-    launches the kernel 8 times with the bits of the eager step."""
+    step holds 8 K1 calls and 7 Dense calls, its tensors sit on the card, and
+    the loaded step launches K1 8 times and the Dense kernel 7 times with the
+    bits of the eager step."""
     from pangu_tpu_torch import serving
 
     cfg = pangu_tiny(dims=(192, 384, 384, 192), heads=(6, 12, 12, 6), depths=(2, 2, 2, 2),
@@ -231,7 +232,8 @@ def test_exported_step_at_full_width_launches_k1_with_the_eager_bits(cuda_device
     init_params(model, seed=0)
     path = str(tmp_path / "step.pt2")
     program = serving.export_forecast_step(model, aux, path)
-    assert serving.graph_ops(program)[serving.K1_OP] == 8
+    ops = serving.graph_ops(program)
+    assert (ops[serving.K1_OP], ops[serving.DENSE_OP]) == (8, 7)
     step = serving.load_forecast_step(path)
     tensors = (*step.program.state_dict.values(), *step.program.constants.values())
     assert {t.device for t in tensors} == {torch.device(cuda_device)}
@@ -240,10 +242,10 @@ def test_exported_step_at_full_width_launches_k1_with_the_eager_bits(cuda_device
         (1, m.upper_vars, m.levels, m.lat, m.lon)).astype(np.float32)).to(cuda_device)
     surface = torch.from_numpy(rng.standard_normal(
         (1, m.surface_vars, m.lat, m.lon)).astype(np.float32)).to(cuda_device)
-    before = tfba.LAUNCHES
+    before = card.launches()
     got = step(upper, surface)
     torch.cuda.synchronize()
-    assert tfba.LAUNCHES - before == 8
+    assert card.launched(before) == {"fused_earth_block": 8, **card.FORECAST_DENSE}
     eager = make_forecast_step(model, aux)(upper, surface)
     assert all(torch.equal(g, e) for g, e in zip(got, eager))
 
@@ -329,6 +331,136 @@ K1_K7_DIGESTS = {
 
 def test_cuda_k1_to_k7_keep_their_bits(cuda_device):
     assert kernel_digests(cuda_device) == K1_K7_DIGESTS
+
+
+# ---- the Dense product (csrc/outer_dense.cu) --------------------------------------------------
+
+#: the outsides' seven Dense products of a flagship step at batch 1, (rows, k, n, bias): the
+#: patch embedding's surface and upper projections, the downsampling, the upsampling's two
+#: linears, the patch recovery's upper and surface projections
+DENSE_SHAPES = {"embed_surface": (65160, 112, 192, True), "embed_upper": (456120, 192, 192, True),
+                "down": (131040, 768, 384, False), "up1": (131040, 384, 768, False),
+                "up2": (521280, 192, 192, False), "recover_upper": (456120, 384, 160, True),
+                "recover_surface": (65160, 384, 64, True)}
+#: f32 unit roundoff
+_U32 = 2.0 ** -24
+
+
+def _dense_operands(device, rows, k, n, bias, seed=0):
+    gen = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(rows, k, generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn(n, k, generator=gen, device=device) * k ** -0.5
+    b = torch.randn(n, generator=gen, device=device) if bias else None
+    dy = torch.randn(rows, n, generator=gen, device=device).to(torch.bfloat16)
+    return x, w, b, dy
+
+
+def _dense_grads(fn, x, w, b, dy):
+    """(y, dx, dW, db) of ``fn`` through autograd, x, the f32 weight and bias as leaves."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, b) if t is not None]
+    y = fn(*leaves)
+    y.backward(dy)
+    return (y.detach(), *(t.grad for t in leaves), *([None] if b is None else []))
+
+
+def _within_sum_order(got, ref, terms, depth, rounded=True):
+    """``got`` and ``ref`` compute one function of exact products (a bf16 x bf16
+    product is exact in f32) with f32 sums in two orders: each differs from the
+    true sum by at most ~depth u sum|terms| (u = 2^-24; 2 depth u for the kernel,
+    whose tensor-core sums may truncate), so 4 depth u sum|terms| bounds the
+    two apart, plus, where both are rounded to bf16, one bf16 ulp (at most 2^-7
+    of the larger magnitude). Besides, two f32 sums that far closer than a
+    bf16 ulp round apart only rarely: the relative L2 of the difference under
+    2^-9 (a quarter of the elements one ulp apart), 1e-5 for f32 results."""
+    g, r = got.float(), ref.float()
+    bound = 4 * depth * _U32 * terms + (2.0 ** -7 * torch.maximum(g.abs(), r.abs())
+                                        if rounded else 0)
+    rel = ((g - r).norm() / r.norm()).item()
+    return bool(((g - r).abs() <= bound).all()) and rel < (2.0 ** -9 if rounded else 1e-5)
+
+
+def _check_dense(device, rows, k, n, bias, seed=0):
+    x, w, b, dy = _dense_operands(device, rows, k, n, bias, seed)
+    before = (tfba.DENSE_LAUNCHES, tfba.DENSE_BWD_LAUNCHES)
+    got = _dense_grads(tfba.dense, x, w, b, dy)
+    torch.cuda.synchronize()
+    assert (tfba.DENSE_LAUNCHES, tfba.DENSE_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref = _dense_grads(tfba.dense_reference, x, w, b, dy)
+    assert (tfba.DENSE_LAUNCHES, tfba.DENSE_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    xa, wa, dya = x.float().abs(), w.to(torch.bfloat16).float().abs(), dy.float().abs()
+    ba = 0 if b is None else b.abs()
+    checks = {"y": (xa @ wa.t() + ba, k), "dx": (dya @ wa, n), "dw": (dya.t() @ xa, rows)}
+    for name, g, r in zip(("y", "dx", "dw"), got, ref):
+        assert g.dtype == r.dtype and _within_sum_order(g, r, *checks[name]), name
+    if bias:
+        assert got[3].dtype == torch.float32
+        assert _within_sum_order(got[3], ref[3], dya.sum(0), rows, rounded=False), "db"
+    return x, w, b, dy, got
+
+
+@pytest.mark.parametrize("site", list(DENSE_SHAPES))
+def test_cuda_dense_matches_the_plain_formula_at_the_outsides_shapes(cuda_device, site):
+    """The operator forward and backward (dx, dW, db) against the plain
+    formula on the card (f32 cuBLAS, TF32 off) at each of the seven products
+    of a flagship step: one launch each way, within the sum-order bound."""
+    _check_dense(cuda_device, *DENSE_SHAPES[site])
+
+
+@pytest.mark.parametrize("site,rows", [("embed_surface", 2 * 65160), ("recover_upper", 2 * 456120),
+                                       ("recover_upper", 1000), ("down", 1000),
+                                       ("embed_surface", 1000)])
+def test_cuda_dense_at_batch_two_and_a_partial_row_tile(cuda_device, site, rows):
+    """Batch 2 and 1000 rows (not a multiple of the product's 192-row tile):
+    within the sum-order bound of the plain formula, and the same bits on a
+    second call, forward and backward."""
+    _, k, n, bias = DENSE_SHAPES[site]
+    x, w, b, dy, first = _check_dense(cuda_device, rows, k, n, bias, seed=rows)
+    again = _dense_grads(tfba.dense, x, w, b, dy)
+    assert all(p is q is None or torch.equal(p, q) for p, q in zip(first, again))
+
+
+def test_cuda_dense_skips_what_no_input_needs_and_refuses_before_launch(cuda_device):
+    """An input that needs no gradient gets none (the patch embedding's x);
+    the operator on the card raises ValueError before any launch on a row
+    stride that is not a multiple of 8, a non-contiguous inner dimension and
+    mixed dtypes."""
+    x, w, b, dy = _dense_operands(cuda_device, 960, 112, 192, True)
+    wl = w.detach().clone().requires_grad_(True)
+    before = (tfba.DENSE_LAUNCHES, tfba.DENSE_BWD_LAUNCHES)
+    tfba.dense(x, wl, b).backward(dy)
+    torch.cuda.synchronize()
+    assert (tfba.DENSE_LAUNCHES, tfba.DENSE_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref = _dense_grads(tfba.dense_reference, x, w, b, dy)[2]
+    assert _within_sum_order(wl.grad, ref, dy.float().abs().t() @ x.float().abs(), 960)
+    wb = w.to(torch.bfloat16)
+    wide = torch.zeros(960, 116, device=cuda_device, dtype=torch.bfloat16)
+    bad = {"stride": (wide[:, :112], wb), "inner": (x.t().contiguous().t(), wb),
+           "dtype": (x, w)}
+    for name, (xa, wa) in bad.items():
+        with pytest.raises(ValueError):
+            tfba.DENSE_OP(xa, wa, b)
+    assert (tfba.DENSE_LAUNCHES, tfba.DENSE_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+def test_flagship_forecast_step_runs_its_outsides_on_the_dense_kernel(cuda_device):
+    """One flagship forecast step launches the Dense kernel 7 times (the
+    outsides' products) and K1 16 times, and a profile of it holds no f32
+    cuBLAS product (``gemm_f32f32``) and no CUTLASS f32 kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, model, aux = _flagship(cuda_device)
+    batch = card.seeded_batch(aux, cfg.model, cuda_device)
+    step = make_forecast_step(model, aux)
+    step(batch.upper, batch.surface)
+    torch.cuda.synchronize()
+    before = card.launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(batch.upper, batch.surface)
+        torch.cuda.synchronize()
+    assert card.launched(before) == {"fused_earth_block": 16, "dense": 7}
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("outer_dense_kernel" in n for n in names), sorted(names)
+    assert not [n for n in names if "f32f32" in n], sorted(names)
 
 
 @pytest.mark.parametrize("b,c,heads,masked", [
@@ -608,17 +740,19 @@ def test_cuda_training_wrappers_reject_what_the_kernels_do_not_take(cuda_device)
 #: a flagship train step's launches on the default route and the three A/B routes
 ROUTE_LAUNCHES = {
     "base": card.TRAIN_LAUNCHES, "bf16_grads": card.TRAIN_LAUNCHES,
-    "fused_block": {"fused_earth_block_train": 16, "fused_earth_block_train_bwd": 16},
+    "fused_block": {"fused_earth_block_train": 16, "fused_earth_block_train_bwd": 16,
+                    **card.TRAIN_DENSE},
     "unfused_tail": {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
                      "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
-                     "fused_mlp": 16, "fused_mlp_bwd": 16}}
+                     "fused_mlp": 16, "fused_mlp_bwd": 16, **card.TRAIN_DENSE}}
 
 
 @pytest.fixture(scope="module")
 def plain_flagship_train_step():
-    """One plain bf16 flagship train step (no kernel) from seeded weights,
-    batch and drop-path draws: the kernel routes' reference (its weights,
-    aux constants, batch, loss and f32 gradients)."""
+    """One plain bf16 flagship train step (no block kernel; its Dense
+    products on the Dense kernel, ``torch_card.PLAIN_TRAIN_LAUNCHES``) from
+    seeded weights, batch and drop-path draws: the kernel routes' reference
+    (its weights, aux constants, batch, loss and f32 gradients)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     dev = torch.device("cuda:0")
@@ -634,7 +768,7 @@ def plain_flagship_train_step():
     before = card.launches()
     loss = make_train_step(model, cfg, make_optimizer(model, cfg))(
         batch, aux, torch.Generator(dev).manual_seed(3)).item()
-    assert card.launched(before) == {}
+    assert card.launched(before) == card.PLAIN_TRAIN_LAUNCHES
     grads = {k: p.grad.float() for k, p in model.named_parameters()}
     return dict(cfg=cfg, w0=w0, aux=aux, batch=batch, loss=loss, grads=grads)
 
@@ -757,7 +891,7 @@ def _lora_step_against_plain(cuda_device, unmerged: bool):
         results.append((card.launched(before), loss.item(),
                         {k: t.grad.float() for k, t in flatten_trainable(tree).items()}))
     (launched, loss_k, g_k), (plain, loss_p, g_p) = results
-    assert plain == {}
+    assert plain == card.PLAIN_TRAIN_LAUNCHES
     d2 = sum(float((g_k[k] - g_p[k]).pow(2).sum()) for k in g_p)
     n2 = sum(float(g.pow(2).sum()) for g in g_p.values())
     return launched, abs(loss_k - loss_p) / abs(loss_p), (d2 / n2) ** 0.5
@@ -774,19 +908,21 @@ def test_merged_lora_kernel_step_matches_the_plain_bf16_step(cuda_device):
 
 def test_unmerged_lora_kernel_step_matches_the_plain_bf16_unmerged_step(cuda_device):
     """The unmerged form, whose adapter taps leave the attention and MLP
-    kernels for the plain route: only K4 (32) and K5 (16) run; the loss
-    within 1% and the gradient within 1% relative L2 of the plain bf16
-    unmerged step."""
+    kernels for the plain route: of the block kernels only K4 (32) and K5
+    (16) run, and the Dense kernel as in the plain step; the loss within 1%
+    and the gradient within 1% relative L2 of the plain bf16 unmerged step."""
     launched, loss_dev, rel_l2 = _lora_step_against_plain(cuda_device, unmerged=True)
-    assert launched == {"fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16}
+    assert launched == {"fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
+                        **card.PLAIN_TRAIN_LAUNCHES}
     assert loss_dev < 0.01 and rel_l2 < 0.01
 
 
 def test_trainer_fit_launches_the_training_kernels(cuda_device, tmp_path):
     """``Trainer.fit``, one epoch of one flagship synthetic sample and one
     validation sample: K2, K3, K5, K6, K7 16 launches and K4 32 for the
-    step, K1 16 for the validation forward; a finite loss, a checkpoint and
-    the best params."""
+    step, K1 16 for the validation forward, the Dense kernel 7 times in
+    each forward and 7 in the backward; a finite loss, a checkpoint and the
+    best params."""
     from pangu_tpu_torch.config import DataConfig
     from pangu_tpu_torch.data import make_loader
     from pangu_tpu_torch.train.trainer import Trainer
@@ -811,7 +947,7 @@ def test_trainer_fit_launches_the_training_kernels(cuda_device, tmp_path):
     assert card.launched(before) == {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
                         "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
                         "fused_mlp_postnorm": 16, "fused_mlp_postnorm_bwd": 16,
-                        "fused_earth_block": 16}
+                        "fused_earth_block": 16, "dense": 7 + 7, "dense_bwd": 7}
     assert state.step == 1 and all(np.isfinite(v) for v in losses[0].values())
     assert sorted(os.listdir(tmp_path / "models")) == ["best", "train_1"]
     assert sorted(best) == sorted(state.params)
@@ -1388,11 +1524,11 @@ def test_flagship_test_and_rollout_scripts_score_on_the_kernel_route(cuda_device
     cfg = build_config(base_parser("").parse_args(argv))
     before = card.launches()
     test_script.main(argv, device=cuda_device)
-    assert card.launched(before) == {"fused_earth_block": 16 * 3}
+    assert card.launched(before) == {k: 3 * v for k, v in card.FORECAST_LAUNCHES.items()}
     tables = _score_tables(str(tmp_path / "test" / "24" / "csv"), SCORE_TARGETS)
     before = card.launches()
     out = rollout_script.main([*argv, "--mode", "multi", "--lead-days", "2"], device=cuda_device)
-    assert card.launched(before) == {"fused_earth_block": 16 * 6}
+    assert card.launched(before) == {k: 6 * v for k, v in card.FORECAST_LAUNCHES.items()}
     inits = ["2024010100", "2024010200", "2024010300"]
     assert sorted(d for d in os.listdir(out) if os.path.isdir(os.path.join(out, d))) == inits
     for init in inits:
@@ -1470,7 +1606,7 @@ def test_flagship_trainer_resume_gives_the_uninterrupted_bits(cuda_device, tmp_p
                           steps_per_epoch=2).fit(train, val)
     torch.cuda.synchronize()
     assert card.launched(before) == {**{k: 4 * v for k, v in card.TRAIN_LAUNCHES.items()},
-                                     "fused_earth_block": 16}
+                                     "fused_earth_block": 16, "dense": 4 * 7 + 7}
     assert state.step == 4 and all(map(math.isfinite, writer.by_epoch[2].values()))
     assert sorted(os.listdir(tmp_path / "models")) == ["best", "train_1", "train_2"]
     named = dict(model.named_parameters())
@@ -1501,10 +1637,10 @@ fields = torch.load(inputs)
 u, s = fields["upper"].cuda(), fields["surface"].cuda()
 launches = []
 for i in range(3):
-    before = fba.LAUNCHES
+    before = (fba.LAUNCHES, fba.DENSE_LAUNCHES)
     u, s = step(u, s)
     torch.cuda.synchronize()
-    launches.append(fba.LAUNCHES - before)
+    launches.append([fba.LAUNCHES - before[0], fba.DENSE_LAUNCHES - before[1]])
     if i == 0:
         torch.save({"upper": u.cpu(), "surface": s.cpu()}, outputs)
 with profiling.trace(trace_dir):
@@ -1524,12 +1660,13 @@ print(json.dumps(dict(
 def test_exported_flagship_step_serves_in_a_fresh_process_with_the_eager_bits(cuda_device,
                                                                              tmp_path):
     """The flagship bf16 step exported to a ``.pt2`` holds 16 calls of K1's
-    operator and no other op outside aten. A fresh process that imports
-    ``pangu_tpu_torch.serving`` and no module of ``pangu_tpu_torch.model``
-    loads it and runs 3 autoregressive steps: 16 K1 launches each, the
-    loaded graph's 16 calls, every tensor of the artifact on the card,
-    finite fields, a traced step with device time (``profiling.trace``); its
-    first step has the bits of the eager step, which launches K1 16 times."""
+    operator, 7 of the Dense operator and no other op outside aten. A fresh
+    process that imports ``pangu_tpu_torch.serving`` and no module of
+    ``pangu_tpu_torch.model`` loads it and runs 3 autoregressive steps: 16
+    K1 and 7 Dense launches each, the loaded graph's 16 and 7 calls, every
+    tensor of the artifact on the card, finite fields, a traced step with
+    device time (``profiling.trace``); its first step has the bits of the
+    eager step, which launches K1 16 times and the Dense kernel 7 times."""
     from pangu_tpu_torch import serving
 
     cfg, model, aux = _flagship(cuda_device)
@@ -1541,12 +1678,13 @@ def test_exported_flagship_step_serves_in_a_fresh_process_with_the_eager_bits(cu
         (1, m.surface_vars, m.lat, m.lon), generator=gen, device=cuda_device)
     path = str(tmp_path / "pangu24.pt2")
     ops = serving.graph_ops(serving.export_forecast_step(model, aux, path))
-    assert ops[serving.K1_OP] == 16
-    assert not [k for k in ops if k != serving.K1_OP and not k.startswith("aten::")]
+    assert (ops[serving.K1_OP], ops[serving.DENSE_OP]) == (16, 7)
+    assert not [k for k in ops
+                if k not in (serving.K1_OP, serving.DENSE_OP) and not k.startswith("aten::")]
     before = card.launches()
     eager = make_forecast_step(model, aux)(upper, surface)
     torch.cuda.synchronize()
-    assert card.launched(before) == {"fused_earth_block": 16}
+    assert card.launched(before) == card.FORECAST_LAUNCHES
     torch.save({"upper": upper.cpu(), "surface": surface.cpu()}, tmp_path / "inputs.pt")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run(
@@ -1555,8 +1693,9 @@ def test_exported_flagship_step_serves_in_a_fresh_process_with_the_eager_bits(cu
         env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     served = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert served["model_modules"] == [] and served["launches"] == [16, 16, 16]
+    assert served["model_modules"] == [] and served["launches"] == [[16, 7]] * 3
     assert served["graph_ops"][serving.K1_OP] == 16 and served["devices"] == ["cuda:0"]
+    assert served["graph_ops"][serving.DENSE_OP] == 7
     assert served["finite"] and served["busy"] and served["busy"]["modules_ms"] > 0
     got = torch.load(tmp_path / "served.pt")
     assert torch.equal(got["upper"].to(cuda_device), eager[0])
@@ -1602,8 +1741,9 @@ def test_flagship_npy_store_feeds_the_scripts_the_synthetic_stores_bits(cuda_dev
     at 24 h (7 flagship frames, about 2.0 GB) written through
     ``convert_range`` into an npy store: ``load_batch`` there gives the
     synthetic store's arrays bit for bit; the ``test`` script over it on the
-    kernel route launches K1 16 times a step and writes the CSVs that it
-    writes over the synthetic store, byte for byte; one ``Trainer.fit``
+    kernel route launches K1 16 times and the Dense kernel 7 times a step
+    and writes the CSVs that it writes over the synthetic store, byte for
+    byte; one ``Trainer.fit``
     epoch over it (2 steps) launches the default route's kernels a step and
     gives the synthetic store's losses to the bit; the native reader, never
     the per-sample path, assembles every batch (``BATCH_READS``); the
@@ -1633,7 +1773,7 @@ def test_flagship_npy_store_feeds_the_scripts_the_synthetic_stores_bits(cuda_dev
         _, reads = _batch_reads(lambda: test_script.main(
             ["--out", str(out), *KERNEL_ROUTE, *_sets({**SCORE_DATES, **data})],
             device=cuda_device))
-        assert card.launched(before) == {"fused_earth_block": 16 * 3}
+        assert card.launched(before) == {k: 3 * v for k, v in card.FORECAST_LAUNCHES.items()}
         csvs[name] = {f: (out / "test" / "24" / "csv" / f).read_bytes()
                       for f in os.listdir(out / "test" / "24" / "csv")}
     assert reads == {"native": -(-3 // cfg.eval.batch_size), "per_sample": 0}
@@ -1656,10 +1796,12 @@ def test_pipeline_stages_on_one_card_match_the_one_process_model(cuda_device):
     transport dtype by ``stage_forward`` / ``stage_backward`` in GPipe order
     over 2 microbatches of one sample: each sample's eval forward within
     max|d| < 0.1 and RMS < 0.01 (normalized) of the one-process forecast
-    step, K1 launched once a block of each stage a sample; the train step's
+    step, K1 launched once a block of each stage a sample and the Dense
+    kernel once a product of its outsides; the train step's
     loss and gradients within ``torch_card.TRAIN_BOUNDS`` of the
     one-process step with ``accumulation_steps`` = 2, each stage launching
-    the default route's kernels for its blocks, each microbatch."""
+    the default route's kernels for its blocks and the Dense kernel for its
+    outsides, each microbatch."""
     from pangu_tpu_torch import dtype_of
     from pangu_tpu_torch.aux import norm_back_data
     from pangu_tpu_torch.parallel import pipeline
@@ -1700,7 +1842,9 @@ def test_pipeline_stages_on_one_card_match_the_one_process_model(cuda_device):
                 payload = run.outputs if i == len(stages) - 1 else tuple(
                     o.to(transport) for o in run.outputs)
         assert _within_step_bounds(norm_back_data(*payload, aux), ref, aux)
-    assert launches == [{"fused_earth_block": n * micro} if n else {} for n in blocks]
+    dense = [sum(card.OUTER_DENSE.get(op, 0) for op in st.ops) * micro for st in stages]
+    assert launches == [{**({"fused_earth_block": n * micro} if n else {}),
+                         **({"dense": d} if d else {})} for n, d in zip(blocks, dense)]
 
     acc_cfg = cfg.replace(train=dataclasses.replace(cfg.train, accumulation_steps=micro))
     model.train()
@@ -1731,8 +1875,7 @@ def test_pipeline_stages_on_one_card_match_the_one_process_model(cuda_device):
     got = {k: p.grad / micro for st in stages for k, p in st.named_parameters()}
     d = card.train_deviation(loss_sum / micro, got, ref_loss, ref_grads)
     assert card.within_train_bounds(d), d
-    assert launches == [{k: v // 16 * n * micro for k, v in card.TRAIN_LAUNCHES.items()}
-                        if n else {} for n in blocks]
+    assert launches == [card.stage_launches(st.ops, n, micro) for st, n in zip(stages, blocks)]
 
 
 # ---- several cards over NCCL: the rank workers of the CPU tests, on the card ------------------
@@ -1776,7 +1919,7 @@ def test_spatial_steps_over_nccl_match_the_one_process_step(cuda_device, tmp_pat
     flagship bf16 on the kernel route: every one of 3 steps of every rank
     launches the default route's kernels, every rank holds the same loss
     and parameter bits after each; the validation value is the same on
-    every rank, with 16 K1 launches a sample; the first step's loss and
+    every rank, with 16 K1 and 7 Dense launches a sample; the first step's loss and
     gradients within ``torch_card.TRAIN_BOUNDS`` of the one-process step."""
     key = "card:" + ",".join(f"{k}={v}" for k, v in sorted(axes.items()))
     ranks = [r[key] for r in _ranks("spatial", world, [["card", axes]], tmp_path)]
@@ -1785,7 +1928,8 @@ def test_spatial_steps_over_nccl_match_the_one_process_step(cuda_device, tmp_pat
         assert [(x["loss"], x["params"]) for x in r["runs"]] == [
             (x["loss"], x["params"]) for x in ranks[0]["runs"]]
         assert r["val"] == ranks[0]["val"]
-        assert r["val_launches"] == {"fused_earth_block": 16 * ranks[0]["val"][1]}
+        assert r["val_launches"] == {k: v * ranks[0]["val"][1]
+                                     for k, v in card.FORECAST_LAUNCHES.items()}
     assert card.within_train_bounds(ranks[0]["one_process"]), ranks[0]["one_process"]
 
 

@@ -23,11 +23,27 @@ from pangu_tpu_torch.ops import fused_block_train as fbt
 from pangu_tpu_torch.ops import fused_mlp as fmlp
 from pangu_tpu_torch.train import Batch
 
-#: a flagship train step's launches with remat and the config's flags, which keep the
-#: attention and MLP outputs: the checkpoint recompute runs only the first residual (K4)
-TRAIN_LAUNCHES = {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
-                  "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
-                  "fused_mlp_postnorm": 16, "fused_mlp_postnorm_bwd": 16}
+#: a flagship train step's launches of the blocks' kernels with remat and the config's
+#: flags, which keep the attention and MLP outputs: the checkpoint recompute runs only the
+#: first residual (K4)
+BLOCK_TRAIN_LAUNCHES = {"fused_block_attention": 16, "fused_block_attention_bwd": 16,
+                        "fused_residual_postnorm": 32, "fused_residual_postnorm_bwd": 16,
+                        "fused_mlp_postnorm": 16, "fused_mlp_postnorm_bwd": 16}
+#: the Dense products of the layers' outsides a sample (bf16 on the card: the Dense
+#: kernel), by the model op that runs them: the patch embedding's surface and upper
+#: projections, the downsampling's linear, the upsampling's two, the recovery's two
+OUTER_DENSE = {"patch_embed": 2, "downsample": 1, "upsample": 2, "patch_recovery": 2}
+#: a flagship step's Dense launches outside the blocks: forward, and in training backward
+FORECAST_DENSE = {"dense": sum(OUTER_DENSE.values())}
+TRAIN_DENSE = {**FORECAST_DENSE, "dense_bwd": sum(OUTER_DENSE.values())}
+#: a flagship train step's launches: the blocks' kernels and the outsides' products
+TRAIN_LAUNCHES = {**BLOCK_TRAIN_LAUNCHES, **TRAIN_DENSE}
+#: a flagship forecast step's launches: K1 a block and the outsides' products
+FORECAST_LAUNCHES = {"fused_earth_block": 16, **FORECAST_DENSE}
+#: a plain bf16 flagship train step's launches (no block kernel): the Dense kernel runs
+#: the outsides' 7 products and each block's 4 (qkv, projection, the MLP's two) in the
+#: forward and again in the checkpoint recompute, and the backward of all 71
+PLAIN_TRAIN_LAUNCHES = {"dense": 7 + 2 * 4 * 16, "dense_bwd": 7 + 4 * 16}
 #: a kernel-route train step against the plain bf16 step from the same weights, batch
 #: and drop-path draws: the loss's relative deviation, the gradient's global relative
 #: L2, and the worst relative L2 of one earth-specific bias and of one other parameter
@@ -65,7 +81,17 @@ def launches() -> dict:
     return {"fused_earth_block": fba.LAUNCHES, **launch_counts(),
             "fused_mlp_block": fmlp.BLOCK_LAUNCHES,
             "fused_block_attention_ln": fba.ATTN_LN_LAUNCHES,
-            "cosine_window_attention": fca.LAUNCHES}
+            "cosine_window_attention": fca.LAUNCHES, "dense": fba.DENSE_LAUNCHES,
+            "dense_bwd": fba.DENSE_BWD_LAUNCHES}
+
+
+def stage_launches(ops, blocks: int, micro: int) -> dict:
+    """What a pipeline stage of the model ops ``ops`` holding ``blocks``
+    blocks launches in a flagship train step of ``micro`` microbatches on the
+    default route."""
+    want = {k: v // 16 * blocks * micro for k, v in BLOCK_TRAIN_LAUNCHES.items()} if blocks else {}
+    dense = sum(OUTER_DENSE.get(op, 0) for op in ops) * micro
+    return {**want, "dense": dense, "dense_bwd": dense} if dense else want
 
 
 def launched(before: dict) -> dict:

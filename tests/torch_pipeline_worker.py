@@ -143,7 +143,7 @@ def case_card(spec, cfg, mesh, aux, micro=MICRO):
     """On the card at flagship widths, bf16 on the kernel route, drop path
     off: the mesh's pipeline from seeded weights takes 3 steps of a seeded
     global batch of ``micro`` x data samples (each step's loss and
-    launches, and what the stage's blocks should launch; step 1's gradients
+    launches, and what the stage's blocks and outsides should launch; step 1's gradients
     gathered to each replica's first stage). Rank 0 then takes the
     one-process step with ``accumulation_steps`` = ``micro`` x data on the
     same batch and weights, and compares step 1's loss and gradients with
@@ -166,8 +166,7 @@ def case_card(spec, cfg, mesh, aux, micro=MICRO):
             grads = pipe.gather({k: p.grad for k, p in pipe.stage.named_parameters()})
     blocks = sum(len(pipe.stage.get_submodule(MODULE_NAMES[op]).blocks)
                  for op in pipe.stage.ops if op.startswith("layer"))
-    res = dict(runs=runs, want={k: v // 16 * blocks * micro
-                                for k, v in card.TRAIN_LAUNCHES.items()} if blocks else {})
+    res = dict(runs=runs, want=card.stage_launches(pipe.stage.ops, blocks, micro))
     del step, pipe
     if dist.get_rank() == 0:
         model = whole.to(dev)
