@@ -4,7 +4,9 @@
 The forecast step maps physical fields at t to physical fields at
 t + horizon: the model forward, then ``norm_back_data``. Every rollout, eval
 and serving path is built on it. A model of two input states (FuXi,
-``model.fuxi``) steps ``(x_{t-1}, x_t) -> (x_t, x_{t+1})`` instead.
+``model.fuxi``) steps ``(x_{t-1}, x_t) -> (x_t, x_{t+1})`` instead, and one
+of two states and a clock (Aurora, ``model.aurora``) ``(u_{t-1}, s_{t-1},
+u_t, s_t, hours) -> (u_t, s_t, u_{t+1}, s_{t+1}, hours + lead)``.
 """
 
 from __future__ import annotations
@@ -29,8 +31,12 @@ def make_forecast_step(model: nn.Module, aux: AuxConstants) -> Callable[[torch.T
     running profiler ``norm_back_data`` is a ``pangu.norm_back`` range.
 
     A model that takes two states (``model.input_states == 2``: FuXi, with
-    ``aux`` its ``FuxiConstants``) gives :func:`_two_state_step` instead."""
+    ``aux`` its ``FuxiConstants``) gives :func:`_two_state_step` instead, and
+    one that also keeps a clock (``model.lead_hours``: Aurora, with ``aux``
+    its ``AuroraConstants``) :func:`_clocked_step`."""
     if getattr(model, "input_states", 1) == 2:
+        if hasattr(model, "lead_hours"):
+            return _clocked_step(model, aux)
         return _two_state_step(model, aux)
     if next(model.parameters()).is_cuda:
         check_kernel_widths(model.cfg)
@@ -62,12 +68,33 @@ def _two_state_step(model: nn.Module, aux) -> Callable[[torch.Tensor, torch.Tens
     return step
 
 
+def _clocked_step(model: nn.Module, aux) -> Callable[..., Tuple[torch.Tensor, ...]]:
+    """``step(u_prev, s_prev, u, s, hours) -> (u, s, u', s', hours + lead)``:
+    physical f32 upper and surface states at t - lead and t, and the clock at
+    t (hours since 1970, a (B,) f32 tensor on the model's device), under
+    ``torch.inference_mode``; ``u`` and ``s`` come back as the same tensors
+    and the clock advances on the device, so a step reads nothing back to
+    the host. The weights are cast once, here (``freeze``), as for
+    :func:`_two_state_step`."""
+    model.eval()
+    model.freeze()
+    lead = model.lead_hours
+
+    @torch.inference_mode()
+    def step(u_prev: torch.Tensor, s_prev: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
+             hours: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return (u, s, *model(u_prev, s_prev, u, s, hours, aux), hours + lead)
+
+    return step
+
+
 def rollout(model: nn.Module, state: Tuple[torch.Tensor, ...], aux: AuxConstants, steps: int,
             keep_trajectory: bool = True) -> Tuple[torch.Tensor, ...]:
-    """``steps`` autoregressive steps from ``state`` ((upper, surface), or
-    FuXi's (x_prev, x_cur)). Returns each field's stacked (steps, ...)
-    trajectory when ``keep_trajectory`` (for FuXi the second holds the
-    forecasts), else the final state (as
+    """``steps`` autoregressive steps from ``state`` ((upper, surface),
+    FuXi's (x_prev, x_cur) or Aurora's (u_prev, s_prev, u, s, hours)).
+    Returns each field's stacked (steps, ...) trajectory when
+    ``keep_trajectory`` (for FuXi the second holds the forecasts, for Aurora
+    the third and fourth, and the fifth the clock), else the final state (as
     ``pangu_tpu.rollout.autoregressive.rollout_scan``)."""
     step = make_forecast_step(model, aux)
     traj = []

@@ -15,8 +15,9 @@ CUDA card):
   64-row tile), the raw MLP K8/K9, the training block K11/K12, the
   inference MLP tail K10 and K2's LN-epilogue mode (and the two-kernel
   block they make, against K1), the A/B kernels of the three scripts
-  S1-S3, and FuXi's cosine window attention; K1-K7 against the bits of the
-  tree before K8 and K12 moved to the Hopper engines;
+  S1-S3, FuXi's cosine window attention, and the Dense operator at the
+  flagship's outside shapes and Aurora's resampler shapes; K1-K7 against
+  the bits of the tree before K8 and K12 moved to the Hopper engines;
 * the block and row kernels at the flagship stage shapes, and on the slabs
   of the flagship lat=2 x lon=2 plane;
 * K1's operator and the exported step (in this process on a small grid,
@@ -417,6 +418,26 @@ def test_cuda_dense_at_batch_two_and_a_partial_row_tile(cuda_device, site, rows)
     x, w, b, dy, first = _check_dense(cuda_device, rows, k, n, bias, seed=rows)
     again = _dense_grads(tfba.dense, x, w, b, dy)
     assert all(p is q is None or torch.equal(p, q) for p, q in zip(first, again))
+
+
+#: the resamplers' Dense products of an Aurora 0.25-degree step at batch 1, (rows, k, n, bias):
+#: the two merges (LayerNorm, then 4C -> 2C) and each split's expansion (C -> 2C) and mixing
+#: (C/2 -> C/2) linears
+AURORA_DENSE_SHAPES = {"merge_512": (64800, 2048, 1024, False),
+                       "merge_1024": (16200, 4096, 2048, False),
+                       "split_2048": (16200, 2048, 4096, False),
+                       "mix_1024": (64800, 1024, 1024, False),
+                       "split_1024": (64800, 1024, 2048, False),
+                       "mix_512": (259200, 512, 512, False)}
+
+
+@pytest.mark.parametrize("site", list(AURORA_DENSE_SHAPES))
+def test_cuda_dense_matches_the_plain_formula_at_auroras_resampler_shapes(cuda_device, site):
+    """Aurora's merges and splits run ``model.blocks``' ``DownSample`` and
+    ``UpSample``, so the operator at M up to 259,200, K up to 4,096 and N up
+    to 4,096: forward and backward within the sum-order bound of the plain
+    formula, one launch each way."""
+    _check_dense(cuda_device, *AURORA_DENSE_SHAPES[site])
 
 
 def test_cuda_dense_skips_what_no_input_needs_and_refuses_before_launch(cuda_device):
